@@ -1,7 +1,9 @@
-"""The CUDA rollout kernel on the card, against its plain PyTorch version.
+"""The CUDA kernels on the card, against their plain PyTorch versions: the
+rollout step (``csrc/nca_step.cu``), the two backward kernels of the
+training pair (``csrc/nca_train.cu``), the whole pair, and a train step.
 
-Needs a CUDA device and nvcc; every test skips without a card (the kernel
-has no CPU mode). This file imports neither JAX nor the JAX package, so on a
+Needs a CUDA device and nvcc; every test skips without a card (the kernels
+have no CPU mode). This file imports neither JAX nor the JAX package, so on a
 machine with a card and no JAX it runs on its own:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
@@ -31,6 +33,7 @@ def cuda():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the kernel has no CPU mode")
     torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     return torch.device("cuda")
 
 
@@ -70,6 +73,148 @@ def test_kernel_refuses_sizes_past_its_limits(cuda):
     params = dynca.dynca_init(torch.Generator().manual_seed(0), cfg, device=cuda)
     with pytest.raises(ValueError, match="kernel limits"):
         fs.fused_rollout_chw(params, torch.zeros((1, 17, 8, 8), device=cuda), 0, cfg, 1)
+
+
+def _train_case(cuda, conditioning, shape, seed=0):
+    cfg = NCAConfig(c_in=shape[1], fc_dim=96, padding_mode="circular",
+                    conditioning=conditioning)
+    params = dynca.dynca_init(torch.Generator().manual_seed(seed), cfg, device=cuda)
+    g = torch.Generator().manual_seed(seed + 1)
+    x = (torch.rand(shape, generator=g) - 0.5).to(cuda)
+    gy = torch.randn(shape, generator=g).to(cuda)
+    cond = None
+    if conditioning:
+        b, _, h, w = shape
+        cond = (torch.rand((b, cfg.c_cond, h, w), generator=g) - 0.5).to(cuda)
+    return cfg, params, x, gy, cond
+
+
+# Backward tolerances, relative to the largest element of the plain
+# version's output: float32 1e-5 (summation order: the kernel sums the
+# weight gradients per 256-pixel block, then over blocks); bfloat16 5e-3
+# (one float32 ulp before a bf16 rounding moves the value by 2^-8, as on
+# the CPU against JAX).
+TRAIN_TOL = {"float32": 1e-5, "bfloat16": 5e-3}
+
+
+def _close(got, want, tol):
+    scale = float(want.abs().max()) + 1e-12
+    torch.testing.assert_close(got / scale, want / scale, rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("conditioning", [None, "edges", "pos_emb"])
+def test_backward_kernels_match_plain(cuda, conditioning, compute_dtype):
+    """One step of each backward kernel at rate 0.5, ragged 19 x 37."""
+    from vsnca_tpu_torch.ops import fused_train as ft
+
+    cfg, params, x, gx, cond = _train_case(cuda, conditioning, (2, 12, 19, 37))
+    packed = fs.pack_weights(params, 12, cfg.c_cond, compute_dtype)
+    args = (packed, x, cond, gx, 3, 5, 0.5, compute_dtype, cond is not None)
+    before = dict(ft.KERNEL_LAUNCHES)
+    got = ft.nca_bwd_mlp(*args)
+    want = ft.nca_bwd_mlp_reference(*args)
+    assert ft.KERNEL_LAUNCHES["nca_bwd_mlp"] == before["nca_bwd_mlp"] + 1
+    for a, b in zip(got, want):
+        if b is not None:
+            _close(a, b, TRAIN_TOL[compute_dtype])
+    _close(ft.nca_bwd_adjoint(want[0], gx), ft.nca_bwd_adjoint_reference(want[0], gx),
+           TRAIN_TOL["float32"])
+    assert ft.KERNEL_LAUNCHES["nca_bwd_adjoint"] == before["nca_bwd_adjoint"] + 1
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_training_pair_matches_plain(cuda, compute_dtype):
+    """The whole pair (forward through nca_step, backward through both
+    kernels) against its plain version: 4 steps at rate 0.5, pos_emb with
+    its cotangent, launches n + 2n."""
+    from vsnca_tpu_torch.ops import fused_train as ft
+
+    cfg, params, x, gy, cond = _train_case(cuda, "pos_emb", (2, 12, 24, 40))
+    p = {k: v.clone().requires_grad_() for k, v in params.items()}
+    xr, cr = x.clone().requires_grad_(), cond.clone().requires_grad_()
+    before = ft.LAUNCHES
+    y = ft.fused_rollout_train(p, xr, 9, cfg, 4, cr, compute_dtype=compute_dtype)
+    (y * gy).sum().backward()
+    assert ft.LAUNCHES == before + 12
+    want_y, grads, dx0, dcond = ft.fused_rollout_train_reference(
+        params, x, 9, cfg, 4, cond, gy, compute_dtype=compute_dtype, need_dcond=True)
+    tol = TRAIN_TOL[compute_dtype]
+    _close(y.detach(), want_y, TOL[compute_dtype]["atol"])
+    for k in grads:
+        _close(p[k].grad, grads[k], tol)
+    _close(xr.grad, dx0, tol)
+    _close(cr.grad, dcond, tol)
+
+
+def test_dynca_rollout_takes_the_kernels_on_the_card(cuda):
+    """``dynca_rollout`` on a CUDA tensor: with a gradient the training pair
+    (n forward + 2n backward launches), without one the rollout kernel (n
+    launches, no pair), both equal to the plain version; a circular
+    multiscale config with a gradient raises instead of running plain
+    steps on the card."""
+    from vsnca_tpu_torch.ops import fused_train as ft
+
+    cfg, params, x, gy, cond = _train_case(cuda, "pos_emb", (2, 12, 24, 40))
+    p = {k: v.clone().requires_grad_() for k, v in params.items()}
+    before = (ft.LAUNCHES, fs.LAUNCHES)
+    y, _ = dynca.dynca_rollout(p, x, 9, cfg, 4, cond)
+    (y * gy).sum().backward()
+    assert (ft.LAUNCHES, fs.LAUNCHES) == (before[0] + 12, before[1] + 4)
+    with torch.no_grad():
+        y2, _ = dynca.dynca_rollout(p, x, 9, cfg, 4, cond)
+    assert (ft.LAUNCHES, fs.LAUNCHES) == (before[0] + 12, before[1] + 8)
+    want = fs.fused_rollout_chw_reference(params, x, 9, cfg, 4, cond)
+    _close(y.detach(), want, TOL["float32"]["atol"])
+    _close(y2, want, TOL["float32"]["atol"])
+    ms = NCAConfig(c_in=12, fc_dim=96, padding_mode="circular", perception_scales=(0, 1))
+    pm = {k: v.requires_grad_() for k, v in
+          dynca.dynca_init(torch.Generator().manual_seed(0), ms, device=cuda).items()}
+    with pytest.raises(NotImplementedError, match="ROADMAP B1"):
+        dynca.dynca_rollout(pm, x, 9, ms, 4)
+
+
+def test_train_kernel_limits_match_the_python_rule(cuda):
+    from vsnca_tpu_torch.ops import fused_train as ft
+
+    assert ft.train_kernel_limits() == (ft.C_MAX, ft.CC_MAX, ft.F_MAX) == fs.kernel_limits()
+
+
+def test_train_step_on_card_matches_cpu(cuda):
+    """One static_texture-shaped train step (overflow + Gram on full VGG16)
+    through the kernels against the same step on the CPU, float32, 32^2,
+    update rate 1: loss rtol 1e-4, updated parameters atol 5e-5 (5 % of one
+    Adam update, whose first step lr * g / (|g| + 1e-8) amplifies rounding
+    where a normalized gradient is near 1e-8; see tests/test_torch_trainer.py)."""
+    from vsnca_tpu_torch.config import LossConfig
+    from vsnca_tpu_torch.losses.orchestrator import LossState
+    from vsnca_tpu_torch.models.vgg import vgg16_random_init
+    from vsnca_tpu_torch.train.optim import make_optimizer
+    from vsnca_tpu_torch.train.trainer import make_train_step
+
+    cfg = NCAConfig(c_in=12, fc_dim=96, padding_mode="circular", conditioning="pos_emb",
+                    update_rate=1.0)
+    loss_cfg = LossConfig(overflow_weight=100.0, appearance_weight=1.0,
+                          appearance_loss_type="Gram")
+    params = dynca.dynca_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    vgg = vgg16_random_init(torch.Generator().manual_seed(16), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    states = torch.rand((2, 12, 32, 32), generator=g) - 0.5
+    style = torch.rand((2, 3, 32, 32), generator=g) * 2 - 1
+    out = {}
+    for dev in ("cpu", cuda):
+        p = {k: v.detach().clone().to(dev).requires_grad_() for k, v in params.items()}
+        vg = [{k: v.to(dev) for k, v in d.items()} for d in vgg]
+        step = make_train_step(cfg, LossState(cfg=loss_cfg, vgg_params=vg), "none", "auto")
+        _, _, new_states, loss, _ = step(p, make_optimizer(p, 1e-3), states.to(dev), 4,
+                                         {"target_style": style.to(dev)}, step_n=8)
+        out[str(dev)] = (float(loss), {k: v.detach().cpu() for k, v in p.items()},
+                         new_states.cpu())
+    (lc, pc, sc), (lg, pg, sg) = out["cpu"], out["cuda"]
+    assert lg == pytest.approx(lc, rel=1e-4)
+    for k in pc:
+        torch.testing.assert_close(pg[k], pc[k], rtol=0, atol=5e-5)
+    torch.testing.assert_close(sg, sc, **TOL["float32"])
 
 
 def test_stylizer_on_card_matches_cpu(cuda):

@@ -52,6 +52,57 @@ class NCAConfig:
         return self.seed_channels if self.seed_channels is not None else self.c_in
 
 
+@dataclasses.dataclass(frozen=True)
+class LossConfig:
+    """Weights and metric selections for the loss orchestrator (same fields
+    and defaults as ``vsnca_tpu.config.LossConfig``; the port computes the
+    overflow and Gram appearance terms so far, see
+    ``losses.orchestrator.make_loss_fn``)."""
+
+    overflow_weight: float = 0.0
+    appearance_weight: float = 0.0
+    appearance_loss_type: str = "OT"  # OT | SlW | Gram
+    auxiliary_weight: float = 0.0
+    auxiliary_loss_type: str = "VGG"  # MSE | VGG | OT | SlW | Gram
+    vector_field_motion_weight: float = 0.0
+    motion_strength_weight: float = 0.5
+    motion_direction_weight: float = 0.5
+    motion_vector_field_name: str = "circular"
+    video_motion_weight: float = 0.0
+    video_motion_loss_type: str = "MotionOT"  # MotionOT | MotionSlW | MotionGram
+    style_consistency_weight: float = 0.0
+    content_weight: float = 0.0
+    motion_img_size: Tuple[int, int] = (256, 256)
+    nca_base_num_steps: int = 24
+    ot_subsample: int = 1000
+    slw_projections: int = 32
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    """Training-harness knobs (same fields and defaults as
+    ``vsnca_tpu.config.TrainConfig``). ``rollout_path``: "auto" trains
+    through the fused kernel pair (``ops/fused_train.py``) where it applies
+    on a card, else through eager steps; "fused" forces the pair (its plain
+    version on the CPU); "xla" forces the eager steps, the counterpart of
+    the JAX package's XLA scan."""
+
+    img_size: Tuple[int, int] = (256, 256)
+    batch_size: int = 2
+    pool_size: int = 256
+    step_range: Tuple[int, int] = (32, 128)
+    inject_seed_every: int = 8
+    max_iterations: int = 2000
+    lr: float = 1e-3
+    lr_decay_steps: Tuple[int, ...] = (500, 1000)
+    lr_decay_gamma: float = 0.5
+    save_every: int = 50
+    seed: int = 42
+    step_buckets: Tuple[int, ...] = (32, 48, 64, 96, 128)
+    remat: str = "per_step"  # per_step | none | segment:K
+    rollout_path: str = "auto"  # auto | fused | xla
+
+
 def edge_conditioned() -> NCAConfig:
     """The ``edge_conditioned`` preset's cell (ConditioneDyNCA defaults): the
     model the stylizer and the server ship."""

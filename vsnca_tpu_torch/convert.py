@@ -2,7 +2,8 @@
 
 The JAX package's DyNCA parameters are a plain dict of arrays in the layout
 the port keeps (``w1: [P, F]``, ``b1: [F]``, ``w2: [F, C]``, ``b2: [C]``), so
-carrying them across is a copy. Its pickle checkpoints
+carrying them across is a copy; its VGG16 kernels are HWIO and become OIHW.
+Its pickle checkpoints
 (``vsnca_tpu/export/checkpoint.py``, the ``state.pkl`` backend) hold numpy
 arrays only and load without JAX. Orbax checkpoints are not read here.
 """
@@ -11,7 +12,7 @@ from __future__ import annotations
 
 import os
 import pickle
-from typing import Dict
+from typing import Dict, List
 
 import numpy as np
 import torch
@@ -27,6 +28,22 @@ def params_from_jax(np_params: dict, device=None) -> Dict[str, torch.Tensor]:
         k: torch.from_numpy(np.array(v, dtype=np.float32)).to(dev)
         for k, v in np_params.items()
     }
+
+
+def vgg_from_jax(np_vgg: List[dict], device=None) -> List[Dict[str, torch.Tensor]]:
+    """The JAX package's VGG16 parameters (a list of {"w": HWIO, "b": [O]}
+    arrays, e.g. ``vgg16_random_init``'s or a converted npz's) → the port's
+    list of {"w": OIHW, "b": [O]} float32 tensors on ``device``."""
+    dev = resolve_device(device)
+    return [
+        {
+            "w": torch.from_numpy(
+                np.array(layer["w"], dtype=np.float32).transpose(3, 2, 0, 1).copy()
+            ).to(dev),
+            "b": torch.from_numpy(np.array(layer["b"], dtype=np.float32)).to(dev),
+        }
+        for layer in np_vgg
+    ]
 
 
 def load_params_pickle(path: str, device=None) -> Dict[str, torch.Tensor]:

@@ -3,10 +3,10 @@ load them with ``ctypes``.
 
 Each ``csrc/<name>.cu`` exposes a plain C interface and is compiled for
 Hopper (``sm_90a``) into ``build/kernels/lib<name>-<digest>.so`` at the root
-of the checkout, on first use. The digest covers the source and the flags,
-so an edited source is rebuilt and a stale library is never loaded. Nothing
-here runs at import time: the CPU tests import every module on a machine
-without ``nvcc``.
+of the checkout, on first use. The digest covers the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and a
+stale library is never loaded. Nothing here runs at import time: the CPU
+tests import every module on a machine without ``nvcc``.
 """
 
 from __future__ import annotations
@@ -23,7 +23,7 @@ from typing import Dict, Sequence
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("nca_step",)
+SOURCES = ("nca_step", "nca_train")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -46,6 +46,7 @@ def _nvcc() -> str:
 
 def library_path(name: str) -> Path:
     src = (CSRC / f"{name}.cu").read_bytes()
+    src += b"".join(p.read_bytes() for p in sorted(CSRC.glob("*.cuh")))
     digest = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
     return BUILD_DIR / f"lib{name}-{digest}.so"
 

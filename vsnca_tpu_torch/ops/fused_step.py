@@ -144,6 +144,37 @@ def _check(params, x, cfg, cond, compute_dtype):
             raise ValueError(f"params[{k!r}] is on {v.device}, x on {x.device}")
 
 
+def check_card_inputs(x: torch.Tensor, batched=(), exact=(), weights=(),
+                      limits: Optional[Tuple[int, int, int]] = None,
+                      fc_dim: int = 0) -> None:
+    """What a kernel launch needs: ``x`` [B, C, H, W] on a CUDA device,
+    ``exact`` tensors of x's shape, ``batched`` ones (or None) of its batch
+    and grid, and ``weights``, all contiguous float32 on x's device; given
+    ``limits``, C, the channels of ``batched[0]`` (the conditioning) and
+    ``fc_dim`` within the kernel's (C, c_cond, fc_dim) limits. Every kernel
+    wrapper of the port calls it before a launch."""
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"no kernel for device {dev}")
+    if limits is not None:
+        c_max, cc_max, f_max = limits
+        cc = batched[0].shape[1] if batched and batched[0] is not None else 0
+        if x.shape[1] > c_max or cc > cc_max or fc_dim > f_max:
+            raise ValueError(
+                f"kernel limits: C <= {c_max}, c_cond <= {cc_max}, fc_dim <= {f_max}"
+            )
+    for t in exact:
+        if t.shape != x.shape:
+            raise ValueError(f"expected shape {tuple(x.shape)}, got {tuple(t.shape)}")
+    for t in batched:
+        if t is not None and (t.shape[0] != x.shape[0] or t.shape[2:] != x.shape[2:]):
+            raise ValueError(f"{tuple(t.shape)} does not match {tuple(x.shape)}")
+    for t in (x, *exact, *batched, *weights):
+        if t is not None and (t.device != dev or t.dtype != torch.float32
+                              or not t.is_contiguous()):
+            raise ValueError(f"a kernel takes contiguous float32 tensors on {dev}")
+
+
 def fused_rollout_chw(
     params: dict,
     x: torch.Tensor,
@@ -161,48 +192,51 @@ def fused_rollout_chw(
     ``nca_step`` once per step, ping-ponging between two new buffers; on a
     CPU tensor it runs the plain version. ``x`` is never written.
     """
-    global LAUNCHES
     _check(params, x, cfg, cond, compute_dtype)
     if x.device.type == "cpu":
         return fused_rollout_chw_reference(
             params, x, seed, cfg, n_steps, cond, update_rate, compute_dtype
         )
-    if x.device.type != "cuda":
-        raise ValueError(f"no rollout kernel for device {x.device}")
-    b, c, h, w = x.shape
-    cc = cond.shape[1] if cond is not None else 0
-    c_max, cc_max, f_max = kernel_limits()
-    if c > c_max or cc > cc_max or cfg.fc_dim > f_max:
-        raise ValueError(
-            f"kernel limits: C <= {c_max}, c_cond <= {cc_max}, fc_dim <= {f_max}"
-        )
-    if not x.is_contiguous() or (cond is not None and not cond.is_contiguous()):
-        raise ValueError("x and cond must be contiguous")
+    check_card_inputs(x, (cond,), limits=kernel_limits(), fc_dim=cfg.fc_dim)
     if n_steps == 0:
         return x.clone()
     rate = cfg.update_rate if update_rate is None else update_rate
-    w1, b1, w2, b2 = pack_weights(params, c, cc, compute_dtype)
-    lib = _launcher()
+    packed = pack_weights(params, x.shape[1], cond.shape[1] if cond is not None else 0,
+                          compute_dtype)
     bufs = [torch.empty_like(x) for _ in range(min(n_steps, 2))]
-    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
-    null = ctypes.c_void_p(None)
-    with torch.cuda.device(x.device):
-        stream = ctypes.c_void_p(torch.cuda.current_stream(x.device).cuda_stream)
-        src = x
-        for step in range(n_steps):
-            dst = bufs[step % 2]
-            err = lib.nca_step_launch(
-                ptr(src), ptr(dst), ptr(cond) if cc else null,
-                ptr(w1), ptr(b1), ptr(w2), ptr(b2),
-                b, c, h, w, cc, w1.shape[1], PAD_CODES[cfg.padding_mode],
-                int(compute_dtype == "bfloat16"),
-                seed & 0xFFFFFFFF, step, uniform_threshold(rate), stream,
-            )
-            if err != 0:
-                raise RuntimeError(f"nca_step launch failed: CUDA error {err}")
-            LAUNCHES += 1
-            src = dst
+    src = x
+    for step in range(n_steps):
+        dst = bufs[step % 2]
+        launch_step(src, dst, cond, packed, cfg.padding_mode, compute_dtype,
+                    seed, step, uniform_threshold(rate))
+        src = dst
     return src
+
+
+def launch_step(src: torch.Tensor, dst: torch.Tensor, cond: Optional[torch.Tensor],
+                packed: Tuple[torch.Tensor, ...], padding_mode: str,
+                compute_dtype: str, seed: int, step: int, thr: int) -> None:
+    """One ``nca_step`` launch on the current stream: ``src`` → ``dst``
+    (distinct contiguous CUDA buffers [B, C, H, W]) with the mask of
+    absolute step ``step``; ``packed`` from ``pack_weights``. Counts the
+    launch in ``LAUNCHES``."""
+    global LAUNCHES
+    w1, b1, w2, b2 = packed
+    b, c, h, w = src.shape
+    cc = cond.shape[1] if cond is not None else 0
+    ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
+    lib = _launcher()
+    with torch.cuda.device(src.device):
+        stream = ctypes.c_void_p(torch.cuda.current_stream(src.device).cuda_stream)
+        err = lib.nca_step_launch(
+            ptr(src), ptr(dst), ptr(cond) if cc else ctypes.c_void_p(None),
+            ptr(w1), ptr(b1), ptr(w2), ptr(b2),
+            b, c, h, w, cc, w1.shape[1], PAD_CODES[padding_mode],
+            int(compute_dtype == "bfloat16"), seed & 0xFFFFFFFF, step, thr, stream,
+        )
+    if err != 0:
+        raise RuntimeError(f"nca_step launch failed: CUDA error {err}")
+    LAUNCHES += 1
 
 
 def _launcher() -> ctypes.CDLL:
@@ -239,25 +273,45 @@ def fused_rollout_chw_reference(
     shifted-slice sums, the MLP as float32 products (TF32 off), bf16 rounding
     at the kernel's places, and the same hash masks."""
     _check(params, x, cfg, cond, compute_dtype)
-    torch.backends.cuda.matmul.allow_tf32 = False
-    b, c, h, w = x.shape
     cc = cond.shape[1] if cond is not None else 0
     rate = cfg.update_rate if update_rate is None else update_rate
-    w1, b1, w2, b2 = pack_weights(params, c, cc, compute_dtype)
-    if compute_dtype == "bfloat16":
-        rnd = lambda t: t.to(torch.bfloat16).float()  # noqa: E731
-    else:
-        rnd = lambda t: t  # noqa: E731
+    packed = pack_weights(params, x.shape[1], cc, compute_dtype)
     for step in range(n_steps):
-        p = perceive(x, cfg.padding_mode)
-        if cond is not None:
-            p = torch.cat([p, cond], dim=1)
-        p = rnd(p)
-        hid = torch.relu(torch.einsum("bphw,pf->bfhw", p, w1) + b1[:, None, None])
-        hid = rnd(hid)
-        dx = torch.einsum("bfhw,fc->bchw", hid, w2) + b2[:, None, None]
-        mask = torch.stack(
-            [update_mask(seed, i, step, h, w, rate, x.device) for i in range(b)]
-        )[:, None]
-        x = x + dx * mask
+        x = reference_step(x, cond, packed, cfg.padding_mode, compute_dtype,
+                           seed, step, rate)
     return x
+
+
+def rounder(compute_dtype: str):
+    """The kernels' operand rounding: to bfloat16 and back in bf16 mode,
+    the identity in float32."""
+    if compute_dtype == "bfloat16":
+        return lambda t: t.to(torch.bfloat16).float()
+    return lambda t: t
+
+
+def batch_mask(seed: int, step: int, shape, update_rate: float, device) -> torch.Tensor:
+    """[B, 1, H, W] update masks of absolute step ``step`` for a batch."""
+    b, _, h, w = shape
+    return torch.stack(
+        [update_mask(seed, i, step, h, w, update_rate, device) for i in range(b)]
+    )[:, None]
+
+
+def reference_step(x: torch.Tensor, cond: Optional[torch.Tensor],
+                   packed: Tuple[torch.Tensor, ...], padding_mode: str,
+                   compute_dtype: str, seed: int, step: int,
+                   update_rate: float) -> torch.Tensor:
+    """``launch_step``'s function in plain PyTorch (one step, the mask of
+    absolute step ``step``): perception as shifted-slice sums, the MLP as
+    float32 products (TF32 off), bf16 rounding at the kernel's places."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    w1, b1, w2, b2 = packed
+    rnd = rounder(compute_dtype)
+    p = perceive(x, padding_mode)
+    if cond is not None:
+        p = torch.cat([p, cond], dim=1)
+    p = rnd(p)
+    hid = rnd(torch.relu(torch.einsum("bphw,pf->bfhw", p, w1) + b1[:, None, None]))
+    dx = torch.einsum("bfhw,fc->bchw", hid, w2) + b2[:, None, None]
+    return x + dx * batch_mask(seed, step, x.shape, update_rate, x.device)

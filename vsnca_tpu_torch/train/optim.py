@@ -1,0 +1,66 @@
+"""Optimizer: per-tensor gradient normalization, then Adam under a
+MultiStep learning-rate schedule — the port's copy of
+``vsnca_tpu/train/optim.py`` (an optax chain there).
+
+optax's ``adam`` and ``torch.optim.Adam`` apply one formula,
+p -= lr * m̂ / (sqrt(v̂) + eps) with bias-corrected moments, at the same
+defaults (β 0.9 / 0.999, eps 1e-8); ``piecewise_constant_schedule`` with
+scale γ at each boundary equals ``MultiStepLR(milestones, γ)`` stepped once
+per update (the update with 0-based index k uses γ^#{boundaries ≤ k}).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Sequence
+
+import torch
+
+
+def _normalize(g: torch.Tensor) -> torch.Tensor:
+    return g / (torch.linalg.vector_norm(g) + 1e-8)
+
+
+def normalize_grads(grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """L2-normalize each parameter tensor's gradient independently."""
+    return {k: _normalize(g) for k, g in grads.items()}
+
+
+def multistep_lr(optimizer: torch.optim.Optimizer, boundaries: Sequence[int],
+                 gamma: float) -> torch.optim.lr_scheduler.MultiStepLR:
+    """The schedule: the learning rate times ``gamma`` at each boundary."""
+    return torch.optim.lr_scheduler.MultiStepLR(optimizer, [int(b) for b in boundaries],
+                                                gamma)
+
+
+class NormalizedAdam:
+    """grad-normalize → Adam(schedule), over a dict of leaf tensors.
+    ``step()`` takes the gradients in ``.grad`` (left by ``backward``)."""
+
+    def __init__(self, params: Dict[str, torch.Tensor], lr: float,
+                 boundaries: Sequence[int] = (), gamma: float = 0.5):
+        self.params = params
+        self.adam = torch.optim.Adam(list(params.values()), lr=lr,
+                                     betas=(0.9, 0.999), eps=1e-8)
+        self.schedule = multistep_lr(self.adam, boundaries, gamma) if boundaries else None
+
+    def zero_grad(self) -> None:
+        self.adam.zero_grad(set_to_none=True)
+
+    @torch.no_grad()
+    def step(self) -> None:
+        for p in self.params.values():
+            if p.grad is not None:
+                p.grad = _normalize(p.grad)
+        self.adam.step()
+        if self.schedule is not None:
+            self.schedule.step()
+
+    @property
+    def lr(self) -> float:
+        return self.adam.param_groups[0]["lr"]
+
+
+def make_optimizer(params: Dict[str, torch.Tensor], lr: float,
+                   boundaries: Sequence[int] = (), gamma: float = 0.5) -> NormalizedAdam:
+    """grad-normalize → Adam(lr, MultiStepLR(boundaries, gamma))."""
+    return NormalizedAdam(params, lr, boundaries, gamma)

@@ -1,0 +1,187 @@
+"""DyNCA training harness — the port's copy of ``vsnca_tpu/train/trainer.py``
+for the branch ``static_texture`` takes: no frame taps, no motion inputs,
+one device.
+
+``make_train_step`` builds the step: conditioning, the BPTT rollout (the
+fused kernel pair of ``ops/fused_train.py`` on a card where it applies, see
+``TrainConfig.rollout_path``), the loss, per-tensor gradient normalization
+and the Adam update. ``DyNCATrainer`` owns what the reference loop owns:
+pool sampling and the rollout length from one ``np.random.RandomState(seed)``
+in the JAX trainer's order (so both packages draw the same batch indices and
+step counts from the same seed), seed injection every K iterations, the NaN
+abort, the pool write-back and the history. Tapped (video-motion)
+schedules, motion losses, the extra-channel content append and device
+meshes are not ported yet (ROADMAP.md queue A); their losses raise in
+``make_loss_fn``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Dict, Optional
+
+import numpy as np
+import torch
+
+from vsnca_tpu_torch.config import LossConfig, NCAConfig, TrainConfig
+from vsnca_tpu_torch.device import resolve_device
+from vsnca_tpu_torch.losses.orchestrator import LossState, make_loss_fn
+from vsnca_tpu_torch.models.dynca import (
+    ROLLOUT_PATHS,
+    dynca_init,
+    dynca_rollout,
+    dynca_seed,
+    make_conditioning,
+)
+from vsnca_tpu_torch.pool.sample_pool import DevicePool, inject_seed_into_batch
+from vsnca_tpu_torch.train.optim import NormalizedAdam, make_optimizer
+
+
+def make_train_step(nca_cfg: NCAConfig, loss_state: LossState,
+                    remat: str = "per_step", rollout_path: str = "auto"):
+    """The train step ``step(params, optimizer, states, seed, inputs, *,
+    step_n) -> (params, optimizer, new_states, loss, logs)``. ``params`` are
+    leaf tensors that require grad and ``optimizer`` a ``NormalizedAdam``
+    over them; both are updated in place. ``seed`` keys the rollout's
+    masks. ``inputs`` (NCHW tensors): ``target_style`` [B, 3, H, W] in
+    [-1, 1]; ``target_style_features`` (optional, from
+    ``losses.appearance.precompute_target_style_features``); ``aux_gs``
+    [B, 1, H, W] grayscale content for edge conditioning.
+
+    ``rollout_path`` is ``models.dynca.rollout_route``'s: "auto" runs the
+    fused kernel pair for a CUDA state where it applies and the eager steps
+    on the CPU, "fused" always the pair (its plain version for a CPU
+    state), "xla" the eager steps. The conditioning (a positional constant
+    or an edge map of the content) takes no gradient. The whole step runs
+    in full float32 (TF32 off for products and convolutions).
+
+    ``mark``, when given, is called with the name of each part of the step
+    as it begins — "rollout forward", "loss forward", "loss backward",
+    "rollout backward" (from a hook on the final state's gradient, in the
+    backward's thread), "optimizer" — and with "end"; a caller can record
+    a CUDA event in it to time the parts."""
+    if rollout_path not in ROLLOUT_PATHS:
+        raise ValueError(f"rollout_path must be one of {ROLLOUT_PATHS}")
+    loss_fn = make_loss_fn(loss_state)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def train_step(params, optimizer: NormalizedAdam, states, seed: int,
+                   inputs: Dict[str, torch.Tensor], *, step_n: int,
+                   mark: Optional[Callable[[str], None]] = None):
+        mark = mark or (lambda name: None)
+        cond = make_conditioning(nca_cfg, tuple(states.shape[-2:]),
+                                 cond_img=inputs.get("aux_gs"), batch=states.shape[0],
+                                 device=states.device)
+        optimizer.zero_grad()
+        mark("rollout forward")
+        state_after, rgb_after = dynca_rollout(params, states, seed, nca_cfg, step_n, cond,
+                                               remat=remat, rollout_path=rollout_path)
+        mark("loss forward")
+        input_dict = {
+            "nca_state": state_after,
+            "generated_image_list": [rgb_after],
+            "step_n": step_n,
+        }
+        if "target_style" in inputs:
+            input_dict["target_image_list"] = [inputs["target_style"]]
+        if "target_style_features" in inputs:
+            input_dict["target_style_features"] = inputs["target_style_features"]
+        loss, logs = loss_fn(input_dict)
+        mark("loss backward")
+        state_after.register_hook(lambda g: mark("rollout backward"))
+        loss.backward()
+        mark("optimizer")
+        optimizer.step()
+        mark("end")
+        return (params, optimizer, state_after.detach(), loss.detach(),
+                {k: v.detach() for k, v in logs.items()})
+
+    return train_step
+
+
+@dataclasses.dataclass
+class TrainLog:
+    iteration: int
+    loss: float  # a device scalar when sync=False
+    logs: Dict[str, float]
+
+
+class DyNCATrainer:
+    """Host-side training loop mirroring the reference harness."""
+
+    def __init__(self, nca_cfg: NCAConfig, loss_cfg: LossConfig,
+                 train_cfg: TrainConfig, vgg_params=None, seed: Optional[int] = None,
+                 device=None):
+        """Parameters and pool seeds come from ``torch.Generator(seed)``
+        (drawn on the CPU); batch indices and rollout lengths from
+        ``np.random.RandomState(seed)``, as in the JAX trainer."""
+        self.device = resolve_device(device)
+        self.nca_cfg = nca_cfg
+        self.train_cfg = train_cfg
+        self.loss_state = LossState(cfg=loss_cfg, vgg_params=vgg_params)
+        s = train_cfg.seed if seed is None else seed
+        self.rng = np.random.RandomState(s)
+        self.generator = torch.Generator().manual_seed(s)
+        self.params = {k: v.requires_grad_()
+                       for k, v in dynca_init(self.generator, nca_cfg, self.device).items()}
+        self.optimizer = make_optimizer(self.params, train_cfg.lr,
+                                        train_cfg.lr_decay_steps,
+                                        train_cfg.lr_decay_gamma)
+        self.pool = DevicePool(dynca_seed(nca_cfg, train_cfg.pool_size,
+                                          train_cfg.img_size, self.generator,
+                                          self.device))
+        self._train_step = make_train_step(nca_cfg, self.loss_state, train_cfg.remat,
+                                           train_cfg.rollout_path)
+        self._seed_template = dynca_seed(nca_cfg, 1, train_cfg.img_size,
+                                         self.generator, self.device)
+        self.iteration = 0
+        self.history: list = []
+
+    def sample_step_n(self) -> int:
+        """Random rollout length snapped to the nearest bucket."""
+        lo, hi = self.train_cfg.step_range
+        raw = self.rng.randint(lo, hi)
+        buckets = np.asarray(self.train_cfg.step_buckets)
+        return int(buckets[np.argmin(np.abs(buckets - raw))])
+
+    def train_iteration(self, inputs: Dict[str, torch.Tensor],
+                        step_n: Optional[int] = None, sync: bool = True,
+                        mark: Optional[Callable[[str], None]] = None) -> TrainLog:
+        """One training iteration. ``sync=False`` skips the host read of the
+        loss (the NaN guard then fires on the next synced iteration);
+        ``mark`` goes to the train step (see ``make_train_step``)."""
+        tc = self.train_cfg
+        i = self.iteration
+        idx = self.pool.sample_indices(self.rng, tc.batch_size)
+        self.last_batch_idx = idx  # for anomaly recovery
+        inject = bool(tc.inject_seed_every and i % tc.inject_seed_every == 0)
+        step_n = step_n if step_n is not None else self.sample_step_n()
+
+        states = self.pool.gather(idx)
+        if inject:
+            states = inject_seed_into_batch(states, self._seed_template)
+        seed = int(torch.randint(0, 1 << 30, (), generator=self.generator))
+        self.params, self.optimizer, new_states, loss, logs = self._train_step(
+            self.params, self.optimizer, states, seed, inputs, step_n=step_n, mark=mark
+        )
+        self.pool.scatter(idx, new_states)
+
+        self.iteration += 1
+        if not sync:
+            return TrainLog(i, loss, logs)
+        names = sorted(logs)
+        vec = torch.stack([loss] + [logs[k] for k in names]).float().cpu().numpy()
+        loss_f = float(vec[0])
+        if not np.isfinite(loss_f):
+            raise FloatingPointError(
+                f"Loss is NaN/Inf at iteration {i}; training aborted"
+            )
+        log = TrainLog(i, loss_f, dict(zip(names, map(float, vec[1:]))))
+        self.history.append(log)
+        return log
+
+    def reseed_pool_slots(self, idx: np.ndarray) -> None:
+        """Anomaly recovery: replace diverged slots with fresh seeds."""
+        self.pool.scatter(idx, dynca_seed(self.nca_cfg, len(idx), self.train_cfg.img_size,
+                                          self.generator, self.device))
