@@ -16,6 +16,10 @@ exit and no result line:
    nca_bwd_adjoint) across conditioning, rates and compute types at 40x72,
    and at the static_texture shape (128^2, batch 4, 32 steps), with each
    backward kernel alone there; one train step on the card against the CPU;
+   the ConditionedNCA kernels (cnca_update, cnca_gate, cnca_bwd_mlp,
+   cnca_bwd_adjoint): the rollout at 64^2 b1 and b8 and 40x72 b2, rates 1
+   and 0.5, living channel on and off, f32 and bf16, the training pair's
+   state, dx0, dgoal and weight gradients, and each kernel alone at 64^2 b8;
 3. the serving path: ``StylizeServer`` with the edge-conditioned model at
    full width (c12/fc96, random weights from a seed) answers session, frame,
    damage, reset, stream and stats requests at 256^2 with 24 steps a frame;
@@ -24,7 +28,13 @@ exit and no result line:
    128^2, batch 4, pool 256, full VGG16 from its seeded fallback) trains four
    iterations (32, 128 and two sampled step counts); each training kernel's
    launches must equal the sum of the step counts; then the training CLI
-   runs 3 iterations in a subprocess and its checkpoint must load;
+   runs 3 iterations in a subprocess and its checkpoint must load. The
+   grower path: ``InteractiveGrower`` at full width (C 20 / D 64, 64^2)
+   grows 96 steps in chunks with a goal switch and a damage, 2 cnca launches
+   a step. The encoder training path: ``ConditionedNCATrainer`` as the
+   encoder CLI sets it up (64^2, batch 8, pool 1024, OT + content + overflow,
+   steps 48-96) trains 3 iterations, each cnca kernel launched once a step;
+   then the encoder CLI runs 3 epochs in a subprocess;
 4. times with CUDA events (median of repeats after warm-up): kernel and plain
    ms/step at 256^2 and 512^2, stylizer frames/s, the cell-update rate of
    ``bench.py``'s primary metric; on the host clock the server's frames/s and
@@ -33,7 +43,11 @@ exit and no result line:
    by kernel); each training kernel's ms per launch at 128^2 / batch 4
    beside its bound and its plain version, one static_texture iteration at
    32 and 128 steps split into its parts, training iterations/s, peak device
-   memory, and a profiler window over two 128-step iterations.
+   memory, and a profiler window over two 128-step iterations; each cnca
+   kernel's ms per launch at 64^2 b8 (and the forward's at b1) beside its
+   bound and its plain version, the grower's steps/s, one 96-step encoder
+   iteration split into its parts, encoder iterations/s, peak memory and a
+   profiler window over one iteration.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Needs one card; exits non-zero without
@@ -553,25 +567,371 @@ def profile_frames(torch, next_frame, n_frames: int = 10, unit: str = "frame"):
             print(f"    {us / 1e3 / n_frames:.4f} ms  {count / n_frames:g}x  {key[:70]}")
 
 
+# --------------------------------------------------------------- ConditionedNCA
+
+CNCA_STEPS = 96  # the grower's chunked run and the timed training iteration
+# the cnca kernels against their plain versions, relative to the largest
+# element: float32 1e-6 (the kernels sum the weight gradients by 128-pixel
+# block, then over blocks); bfloat16 5e-3 (same rounding places, as the
+# DyNCA pair's)
+CNCA_TOL = {"float32": 1e-6, "bfloat16": 5e-3}
+
+
+def cnca_bound_ms(kernel: str, c: int, d: int, hw: int):
+    """Least time of one launch of a ConditionedNCA kernel on an H100,
+    float32 operands, ``hw`` pixels over the batch: the bytes it must move
+    (each input read once, each output written once) over the memory rate,
+    against its FLOPs over the float32 peak. Per pixel, with P = 3C and the
+    weights W = 27C + P*D + D + D*D + D + D*C floats:
+    cnca_update reads x and goal, writes xn, and does the percept (2*27*C)
+    and the MLP (2*(P*D + D*D + D*C)) FLOP; cnca_gate reads alpha and xn,
+    writes the state and the life byte; cnca_bwd_mlp reads x, goal, life
+    and g, writes g and gp (3C), and the weight gradients once, and does the
+    recomputed forward plus the three transposed products and the three
+    weight-gradient products (3 x the MLP) and twice the percept's taps;
+    cnca_bwd_adjoint reads gp, alpha, g and dgoal and writes g and dgoal,
+    2*27*C FLOP."""
+    p = 3 * c
+    weights = (27 * c + p * d + d + d * d + d + d * c) * 4
+    mlp = 2 * (p * d + d * d + d * c)
+    n_bytes, flops = {
+        "cnca_update": ((3 * c) * hw * 4 + weights, hw * (mlp + 2 * 27 * c)),
+        "cnca_gate": ((1 + 2 * c) * hw * 4 + hw, hw * 2 * c),
+        "cnca_bwd_mlp": ((5 * c + 3 * c) * hw * 4 + hw + 2 * weights,
+                         hw * (3 * mlp + 4 * 27 * c)),
+        "cnca_bwd_adjoint": ((3 * c + 1 + 4 * c) * hw * 4, hw * 2 * 27 * c),
+    }[kernel]
+    t_bytes, t_ops = n_bytes / H100_BYTES_PER_S, flops / H100_F32_FLOPS
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def cnca_case(torch, cn, ConditionedNCAConfig, shape, rate=0.5, use_life=True, seed=0):
+    """Full-width ConditionedNCA (C 20, D 64) params, a state grown around the
+    seed pixel plus noise, and a goal encoding, on the card."""
+    b, h, w = shape
+    cfg = ConditionedNCAConfig(image_size=w, cell_fire_rate=rate, use_living_channel=use_life)
+    params = cn.conditioned_nca_init(torch.Generator().manual_seed(seed), cfg, device="cuda")
+    g = torch.Generator().manual_seed(seed + 1)
+    c = cfg.num_channels
+    x = torch.zeros((b, c, h, w))
+    x[:, cfg.alive_channel:, h // 2, w // 2] = 1.0
+    x = (x + 0.3 * torch.randn((b, c, h, w), generator=g)).cuda()
+    goal = (0.3 * torch.randn((b, c, h, w), generator=g)).cuda()
+    return cfg, params, x, goal
+
+
+def phase_compare_cnca(torch, fc, cn, ConditionedNCAConfig):
+    """The ConditionedNCA kernels against their plain versions on the same
+    card tensors: the rollout (cnca_update + cnca_gate) at 64^2 b1 and b8
+    and 40x72 b2, rates 1 and 0.5, living channel on and off, f32 and bf16;
+    the training pair's state, dx0, dgoal and weight gradients; then one
+    launch of each kernel alone at the trainer's shape (64^2 b8). Returns the
+    largest absolute difference of each kernel's outputs."""
+    worst = {k: 0.0 for k in fc.KERNEL_LAUNCHES}
+    n_cases = 0
+    for shape in ((1, 64, 64), (8, 64, 64), (2, 40, 72)):
+        for rate in (1.0, 0.5):
+            for use_life in (True, False):
+                cfg, params, x, goal = cnca_case(torch, cn, ConditionedNCAConfig, shape, rate,
+                                                 use_life)
+                for cdt in ("float32", "bfloat16"):
+                    got = fc.fused_cnca_rollout(params, x, goal, 3, cfg, 8, cdt)
+                    want = fc.fused_cnca_rollout_reference(params, x, goal, 3, cfg, 8, cdt)
+                    torch.cuda.synchronize()
+                    err = scaled_err(got, want)
+                    ok = err <= CNCA_TOL[cdt] and bool(torch.isfinite(got).all())
+                    n_cases += 1
+                    if not ok:
+                        print(f"  rollout {shape} rate {rate} living {use_life} {cdt}: "
+                              f"max|kernel-plain|/max|plain| {err:.2e} FAIL")
+                        raise SystemExit("cnca rollout kernels disagree with their plain version")
+    print(f"  rollout, 8 steps: {n_cases} cases (64^2 b1, 64^2 b8, 40x72 b2 x rate 1/0.5 x "
+          f"living on/off x f32/bf16) within tol (f32 {CNCA_TOL['float32']:.0e}, bf16 "
+          f"{CNCA_TOL['bfloat16']:.0e} of max|plain|) ok")
+
+    def pair_case(name, shape, rate, use_life, cdt, n_steps):
+        cfg, params, x, goal = cnca_case(torch, cn, ConditionedNCAConfig, shape, rate, use_life)
+        gy = torch.randn(x.shape, generator=torch.Generator().manual_seed(5)).cuda()
+        p = {k: v.clone().requires_grad_() for k, v in params.items()}
+        xr, gr = x.clone().requires_grad_(), goal.clone().requires_grad_()
+        y = fc.fused_cnca_train(p, xr, gr, 9, cfg, n_steps, cdt)
+        (y * gy).sum().backward()
+        want_y, grads, dx0, dgoal = fc.fused_cnca_train_reference(params, x, goal, 9, cfg,
+                                                                  n_steps, gy, cdt)
+        torch.cuda.synchronize()
+        pairs = {"state": (y.detach(), want_y), "dx0": (xr.grad, dx0), "dgoal": (gr.grad, dgoal),
+                 **{f"d{k}": (p[k].grad, grads[k]) for k in fc.WEIGHT_KEYS}}
+        errs = {k: scaled_err(a, b) for k, (a, b) in pairs.items()}
+        nonzero = all(float(b.abs().max()) > 0 for _, b in pairs.values())
+        ok = max(errs.values()) <= CNCA_TOL[cdt] and nonzero and all(
+            bool(torch.isfinite(a).all()) for a, _ in pairs.values())
+        print(f"  pair {name:<34} max|kernel-plain|/max|plain|: "
+              + ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
+              + f" (tol {CNCA_TOL[cdt]:.0e}; all non-zero: {nonzero}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"cnca training pair disagrees with its plain version: {name}")
+
+    pair_case("64^2 b8 24 steps rate 0.5 f32", (8, 64, 64), 0.5, True, "float32", 24)
+    for rate in (1.0, 0.5):
+        for use_life in (True, False):
+            for cdt in ("float32", "bfloat16"):
+                pair_case(f"40x72 b2 6 steps rate {rate} living {use_life} "
+                          f"{cdt[:4]}", (2, 40, 72), rate, use_life, cdt, 6)
+
+    # each kernel alone at the trainer's shape, on the same inputs as its
+    # plain version
+    cfg, params, x, goal = cnca_case(torch, cn, ConditionedNCAConfig, (8, 64, 64))
+    packed = fc.pack_weights(params, cfg, "float32")
+    thr = fc.fs.uniform_threshold(0.5)
+    xn = torch.empty_like(x)
+    fc.launch_update(x, goal, xn, packed, cfg, "float32", 3, 5, thr)
+    xn_want = fc.cnca_update_reference(x, goal, packed, cfg, "float32", 3, 5, 0.5)
+    out = torch.empty_like(x)
+    life = torch.empty((8, 64, 64), dtype=torch.uint8, device="cuda")
+    fc.launch_gate(x, xn_want, out, life, cfg)
+    out_want, life_want = fc.cnca_gate_reference(x, xn_want, cfg)
+    gy = torch.randn(x.shape, generator=torch.Generator().manual_seed(6)).cuda()
+    args = (packed, x, goal, life_want, gy, cfg, "float32", 3, 5, 0.5)
+    got_b, want_b = fc.cnca_bwd_mlp(*args), fc.cnca_bwd_mlp_reference(*args)
+    adj = fc.cnca_bwd_adjoint(x, want_b[1], want_b[0], packed[0], cfg)
+    adj_want = fc.cnca_bwd_adjoint_reference(x, want_b[1], want_b[0], packed[0], cfg)
+    torch.cuda.synchronize()
+    flat = lambda r: [r[0], r[1], *r[2]]  # noqa: E731
+    cmp = {
+        "cnca_update": [(xn, xn_want)],
+        "cnca_gate": [(out, out_want), (life.float(), life_want.float())],
+        "cnca_bwd_mlp": list(zip(flat(got_b), flat(want_b))),
+        "cnca_bwd_adjoint": list(zip(adj, adj_want)),
+    }
+    ok = True
+    for name, pairs in cmp.items():
+        worst[name] = max(float((a - b).abs().max()) for a, b in pairs)
+        rel = max(scaled_err(a, b) for a, b in pairs)
+        ok = ok and rel <= CNCA_TOL["float32"]
+        print(f"  one {name} launch at 64^2 b8 f32: max|kernel-plain| {worst[name]:.3e} "
+              f"({rel:.2e} of max|plain|)")
+    if not ok:
+        raise SystemExit("a cnca kernel disagrees with its plain version")
+    return worst
+
+
+def phase_grower(torch, fc, cn, InteractiveGrower, ConditionedNCAConfig):
+    """InteractiveGrower at full width, 64^2: 96 steps in chunks of 1, 7, 24,
+    24 and 40, a goal switch after the second chunk and a damage after the
+    third; every step through the rollout kernels (2 launches a step)."""
+    cfg = ConditionedNCAConfig()
+    params = cn.conditioned_nca_init(torch.Generator().manual_seed(0), cfg, device="cuda")
+    rng = np.random.RandomState(0)
+    goals = rng.rand(2, 1, 64, 64, 3).astype(np.float32)
+    grower = InteractiveGrower(params, cfg, goals[0], device="cuda")
+    fc.LAUNCHES = 0
+    fc.KERNEL_LAUNCHES.update({k: 0 for k in fc.KERNEL_LAUNCHES})
+    chunks = [1, 7, 24, 24, 40]
+    rgbs = []
+    for i, n in enumerate(chunks):
+        rgbs.append(grower.step(n))
+        if i == 1:
+            grower.set_goal(goals[1])
+        if i == 2:  # off the centre, where an untrained cell's small blob grows
+            grower.damage(16, 16, 6)
+            if float(grower.state[0, :, 16, 16].abs().max()) != 0.0:
+                raise SystemExit("damage left the patch alive")
+    torch.cuda.synchronize()
+    launches = dict(fc.KERNEL_LAUNCHES)
+    checks = {
+        "cnca_update == cnca_gate == 96": launches["cnca_update"] == launches["cnca_gate"]
+        == sum(chunks),
+        "no backward launches": launches["cnca_bwd_mlp"] == launches["cnca_bwd_adjoint"] == 0,
+        "state finite": bool(torch.isfinite(grower.state).all()),
+        "rgb [64, 64, 3] in [0, 1]": all(r.shape == (64, 64, 3) and r.min() >= 0 and r.max() <= 1
+                                         for r in rgbs),
+    }
+    alive = float((grower.state[0, cfg.alive_channel] > cfg.alpha_living_threshold).float().mean())
+    print(f"  chunks {chunks}, goal switch, damage at (16, 16) r 6; launches {launches}; "
+          f"alive share {alive:.3f}")
+    for k, v in checks.items():
+        print(f"  {k}: {'ok' if v else 'FAIL'}")
+    if not all(checks.values()):
+        raise SystemExit("grower phase failed")
+    return launches, grower
+
+
+def encoder_trainer(torch, ConditionedNCATrainer, ConditioningDataset, ConditionedNCAConfig,
+                    load_vgg16, synthetic_style_image, synthetic_video):
+    """ConditionedNCATrainer as the encoder CLI sets it up, at full width:
+    C 20 / D 64, 64^2, batch 8, pool 1024, steps 48-96 bucketed, OT + VGG16
+    content x 0.1 + overflow, the synthetic goal video and style image, the
+    full VGG16 from its seeded fallback."""
+    dataset = ConditioningDataset((synthetic_video((64, 64), 8) + 1.0) / 2.0, "cuda")
+    style = torch.from_numpy(synthetic_style_image((64, 64), 1)).permute(0, 3, 1, 2)
+    vgg, _ = load_vgg16(device="cuda")
+    return ConditionedNCATrainer(ConditionedNCAConfig(), dataset, style.contiguous().cuda(), vgg,
+                                 pool_size=1024, content_weight=0.1, device="cuda")
+
+
+def phase_encoder_train(torch, fc, trainer):
+    """Three iterations at sampled step counts (each trains its batch twice):
+    finite losses, and each cnca kernel launched once a step."""
+    drawn = []
+    sample = trainer.sample_num_steps
+
+    def recording():
+        drawn.append(sample())
+        return drawn[-1]
+
+    trainer.sample_num_steps = recording
+    fc.LAUNCHES = 0
+    fc.KERNEL_LAUNCHES.update({k: 0 for k in fc.KERNEL_LAUNCHES})
+    logs = [trainer.train_iteration(batch_size=8) for _ in range(3)]
+    torch.cuda.synchronize()
+    trainer.sample_num_steps = sample
+    launches = dict(fc.KERNEL_LAUNCHES)
+    total = sum(drawn)
+    checks = {
+        "losses finite": all(np.isfinite(l) for l, _ in logs),
+        "every cnca kernel == sum(step counts)": set(launches.values()) == {total},
+        "pool finite": bool(torch.isfinite(trainer.pool_states).all()),
+    }
+    for i, (loss, m) in enumerate(logs):
+        print(f"  iteration {i}: loss={loss:.4f} "
+              + " ".join(f"{k}={v:.4f}" for k, v in m.items()))
+    print(f"  step counts {drawn}; launches {launches}")
+    for k, v in checks.items():
+        print(f"  {k}: {'ok' if v else 'FAIL'}")
+    if not all(checks.values()):
+        raise SystemExit("encoder training phase failed")
+    return launches, drawn
+
+
+def phase_encoder_cli(load_params_pickle):
+    """``python -m vsnca_tpu_torch.train.encoder_cli`` at its defaults (full
+    width, 64^2, batch 8, pool 1024, OT) for 3 epochs; the checkpoint must
+    load. The run's directory is removed afterwards."""
+    import shutil
+
+    out = "out/chip_smoke_encoder_cli"
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "vsnca_tpu_torch.train.encoder_cli", "--epochs", "3",
+         "--log-every", "1", "--out", out],
+        capture_output=True, text=True, timeout=600,
+    )
+    print("\n".join(f"    {line}" for line in r.stdout.strip().splitlines()))
+    if r.returncode != 0:
+        print(r.stderr[-4000:])
+        raise SystemExit(f"the encoder CLI exited {r.returncode}")
+    params = load_params_pickle(f"{out}/checkpoint", "cpu")
+    shutil.rmtree(out)
+    ok = tuple(params["update1.w"].shape) == (60, 64) and len(params) == 9
+    print(f"  encoder CLI: 3 epochs in {time.perf_counter() - t0:.1f} s (process start "
+          f"included); checkpoint loads with load_params_pickle: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the encoder CLI's checkpoint does not load")
+
+
+def time_encoder_iteration(torch, trainer, num_steps: int, reps: int = 2):
+    """One encoder iteration (two train steps) split with CUDA events from
+    the trainer's ``mark`` hook: each part summed over the two steps, median
+    of ``reps`` after one warm-up."""
+    runs = []
+    for _ in range(reps + 1):
+        events = []
+
+        def mark(name):
+            e = torch.cuda.Event(enable_timing=True)
+            e.record()
+            events.append((name, e))
+
+        trainer.train_iteration(batch_size=8, num_steps=num_steps, mark=mark)
+        torch.cuda.synchronize()
+        parts = {}
+        for (a, ea), (_, eb) in zip(events, events[1:]):
+            if a != "end":
+                parts[a] = parts.get(a, 0.0) + ea.elapsed_time(eb)
+        runs.append(parts)
+    runs = runs[1:]
+    return {n: statistics.median(r[n] for r in runs) for n in runs[0]}
+
+
+def time_cnca(torch, fc, cn, ConditionedNCAConfig, grower):
+    """Each cnca kernel's ms per launch at the trainer's shape (64^2 b8,
+    f32) beside its bound and its plain version; the update and the gate at
+    the grower's b1 too; the grower's steps/s."""
+    out = {}
+    for b in (8, 1):
+        cfg, params, x, goal = cnca_case(torch, cn, ConditionedNCAConfig, (b, 64, 64))
+        packed = fc.pack_weights(params, cfg, "float32")
+        thr = fc.fs.uniform_threshold(0.5)
+        xn, y = torch.empty_like(x), torch.empty_like(x)
+        life = torch.empty((b, 64, 64), dtype=torch.uint8, device="cuda")
+        xn_ref = fc.cnca_update_reference(x, goal, packed, cfg, "float32", 3, 5, 0.5)
+        _, life_ref = fc.cnca_gate_reference(x, xn_ref, cfg)
+        g = torch.randn(x.shape, generator=torch.Generator().manual_seed(6)).cuda()
+        gp = torch.empty((b, 60, 64, 64), device="cuda")
+        slots = fc._zero_slots(b, 64, 64, packed)
+        dgoal = torch.zeros_like(x)
+        _, gp_ref = fc.cnca_bwd_mlp_reference(packed, x, goal, life_ref, g, cfg, "float32",
+                                              3, 5, 0.5)[:2]
+        runs = {
+            "cnca_update": (lambda: fc.launch_update(x, goal, xn, packed, cfg, "float32", 3, 5,
+                                                     thr),
+                            lambda: fc.cnca_update_reference(x, goal, packed, cfg, "float32",
+                                                             3, 5, 0.5)),
+            "cnca_gate": (lambda: fc.launch_gate(x, xn_ref, y, life, cfg),
+                          lambda: fc.cnca_gate_reference(x, xn_ref, cfg)),
+        }
+        if b == 8:
+            runs["cnca_bwd_mlp"] = (
+                lambda: fc._launch_bwd_mlp(x, goal, life_ref, g, gp, slots, packed, cfg,
+                                           "float32", 3, 5, thr),
+                lambda: fc.cnca_bwd_mlp_reference(packed, x, goal, life_ref, g, cfg, "float32",
+                                                  3, 5, 0.5))
+            runs["cnca_bwd_adjoint"] = (
+                lambda: fc._launch_bwd_adjoint(x, gp_ref, packed[0], g, dgoal, cfg),
+                lambda: fc.cnca_bwd_adjoint_reference(x, gp_ref, g, packed[0], cfg))
+        for name, (kern, plain) in runs.items():
+            bound, by = cnca_bound_ms(name, 20, 64, b * 64 * 64)
+            k_ms, p_ms = cuda_ms(kern, 20), cuda_ms(plain, 3)
+            out[(name, b)] = (k_ms, p_ms, bound, by)
+            print(f"  {name} 64^2 b{b} f32: kernel {k_ms:.4f} ms/launch, plain {p_ms:.4f} ms, "
+                  f"bound {bound:.5f} ms ({by}); {k_ms / bound:.1f}x the bound")
+    grower.reset()
+    chunk_ms = cuda_ms(lambda: grower.step(CNCA_STEPS), 1, rounds=3)
+    steps_per_s = 1e3 * CNCA_STEPS / chunk_ms
+    print(f"  grower 64^2 b1, {CNCA_STEPS}-step chunks: {chunk_ms:.3f} ms a chunk = "
+          f"{steps_per_s:.0f} steps/s (host readout of each chunk's RGB included)")
+    return out, steps_per_s
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 1
-    from vsnca_tpu_torch.config import LossConfig, NCAConfig, edge_conditioned
+    from vsnca_tpu_torch.config import (
+        ConditionedNCAConfig,
+        LossConfig,
+        NCAConfig,
+        edge_conditioned,
+    )
     from vsnca_tpu_torch.convert import load_params_pickle
-    from vsnca_tpu_torch.data.preprocess import synthetic_style_image
+    from vsnca_tpu_torch.data.dataset import ConditioningDataset
+    from vsnca_tpu_torch.data.preprocess import synthetic_style_image, synthetic_video
     from vsnca_tpu_torch.infer import server as server_mod
+    from vsnca_tpu_torch.infer.grower import InteractiveGrower
     from vsnca_tpu_torch.infer.stylize import VideoStylizer
     from vsnca_tpu_torch.losses.appearance import precompute_target_style_features
     from vsnca_tpu_torch.losses.orchestrator import LossState
+    from vsnca_tpu_torch.models import conditioned_nca as cn
     from vsnca_tpu_torch.models.dynca import dynca_init
     from vsnca_tpu_torch.models.vgg import load_vgg16, vgg16_random_init
     from vsnca_tpu_torch.ops import _build
+    from vsnca_tpu_torch.ops import fused_cnca as fc
     from vsnca_tpu_torch.ops import fused_step as fs
     from vsnca_tpu_torch.ops import fused_train as ft
     from vsnca_tpu_torch.train import presets
+    from vsnca_tpu_torch.train.encoder_trainer import ConditionedNCATrainer
     from vsnca_tpu_torch.train.optim import make_optimizer
     from vsnca_tpu_torch.train.trainer import DyNCATrainer, make_train_step
 
@@ -598,6 +958,8 @@ def main() -> int:
     train_err = phase_compare_train(torch, ft, NCAConfig, dynca_init)
     phase_train_step_parity(torch, make_train_step, LossState, LossConfig, NCAConfig,
                             dynca_init, vgg16_random_init, make_optimizer)
+    print("[2] ConditionedNCA kernels vs their plain versions on the card (C 20, D 64)")
+    cnca_err = phase_compare_cnca(torch, fc, cn, ConditionedNCAConfig)
 
     print("[3] serving path: edge_conditioned c12/fc96, 256^2, 24 steps/frame")
     cfg = edge_conditioned()
@@ -611,6 +973,18 @@ def main() -> int:
                                              precompute_target_style_features)
     train_launches, train_steps = phase_train(torch, ft, fs, trainer, inputs)
     phase_cli(load_params_pickle)
+
+    print("[3] grower path: InteractiveGrower, ConditionedNCA C 20 / D 64, 64^2, random "
+          "weights (seed 0)")
+    grower_launches, grower = phase_grower(torch, fc, cn, InteractiveGrower,
+                                           ConditionedNCAConfig)
+    print("[3] encoder training path: ConditionedNCATrainer, C 20 / D 64, 64^2, batch 8, "
+          "pool 1024, OT + content x 0.1 + overflow, full VGG16 (seed-16 fallback)")
+    enc_trainer = encoder_trainer(torch, ConditionedNCATrainer, ConditioningDataset,
+                                  ConditionedNCAConfig, load_vgg16, synthetic_style_image,
+                                  synthetic_video)
+    enc_launches, enc_steps = phase_encoder_train(torch, fc, enc_trainer)
+    phase_encoder_cli(load_params_pickle)
 
     print("[4] times (CUDA events, median of 5 rounds after warm-up)")
     timing = {}
@@ -716,6 +1090,28 @@ def main() -> int:
                    unit="128-step iteration")
     print(f"  card during timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
+    # the ConditionedNCA kernels, the grower and the encoder trainer
+    cnca_times, grower_steps_per_s = time_cnca(torch, fc, cn, ConditionedNCAConfig, grower)
+    enc_split = time_encoder_iteration(torch, enc_trainer, CNCA_STEPS)
+    print(f"  encoder iteration (train twice), {CNCA_STEPS} steps each: "
+          f"{sum(enc_split.values()):.3f} ms = "
+          + ", ".join(f"{k} {v:.3f}" for k, v in enc_split.items()))
+    torch.cuda.reset_peak_memory_stats()
+    enc_trainer.train_iteration(batch_size=8, num_steps=CNCA_STEPS)
+    enc_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    n_iters = 4
+    for _ in range(n_iters):
+        enc_trainer.train_iteration(batch_size=8)
+    enc_its = n_iters / (time.perf_counter() - t0)
+    print(f"  ConditionedNCATrainer.train_iteration at sampled step counts: {enc_its:.2f} "
+          f"iterations/s (host clock, {n_iters} iterations, loss read each); peak device "
+          f"memory of a {CNCA_STEPS}-step iteration {enc_peak_gb:.3f} GB")
+    profile_frames(torch, lambda: enc_trainer.train_iteration(batch_size=8,
+                                                              num_steps=CNCA_STEPS),
+                   1, unit=f"{CNCA_STEPS}-step encoder iteration")
+    print(f"  card during timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+
     metrics = {
         "card": card,
         "kernel_ms_per_step_256": timing[256]["kernel_ms_per_step"],
@@ -735,11 +1131,24 @@ def main() -> int:
         "train_peak_gb_128": peak_gb,
         "train_launches": train_launches,
         "train_step_n": train_steps,
+        "grower_launches": grower_launches,
+        "grower_steps_per_s_64": grower_steps_per_s,
+        "encoder_launches": enc_launches,
+        "encoder_step_n": enc_steps,
+        **{f"encoder_{k.replace(' ', '_')}_ms_{CNCA_STEPS}": v for k, v in enc_split.items()},
+        "encoder_iterations_per_s": enc_its,
+        "encoder_peak_gb_96": enc_peak_gb,
+        **{f"{name}_ms_b{b}": t[0] for (name, b), t in cnca_times.items()},
     }
     print("metrics " + json.dumps(metrics))
     bwd_rows = ("vsnca_tpu/ops/pallas_train.py:2235 (_make_bwd_kernel_flat :1139, "
                 "_make_bwd_kernel_flat_scatter :1657); vsnca_tpu/ops/pallas_train.py:2358 "
                 "(_make_bwd_kernel_flat_tiled :1301, scales (0,) without taps)")
+    fwd_rows = ("vsnca_tpu/ops/pallas_cnca.py:250 (_make_cnca_kernel :47); "
+                "vsnca_tpu/ops/pallas_cnca.py:610 (_make_cnca_fwd_train_kernel :350)")
+    bwd_cnca = "vsnca_tpu/ops/pallas_cnca.py:675 (_make_cnca_bwd_train_kernel :434)"
+    cnca_rows = {"cnca_update": fwd_rows, "cnca_gate": fwd_rows, "cnca_bwd_mlp": bwd_cnca,
+                 "cnca_bwd_adjoint": bwd_cnca}
     print(json.dumps({"kernels": [{
         "name": "nca_step",
         "route": "cuda",
@@ -766,7 +1175,19 @@ def main() -> int:
         "bound_ms": b,
         "bound_by": by,
         "library_ms": None,
-    } for name, (k, p, b, by) in tk.items()]}))
+    } for name, (k, p, b, by) in tk.items()] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "vsnca_tpu_torch/csrc/nca_cnca.cu",
+        "replaces": cnca_rows[name],
+        "launches": enc_launches[name],
+        "max_abs_err": cnca_err[name],
+        "ms": cnca_times[(name, 8)][0],
+        "plain_ms": cnca_times[(name, 8)][1],
+        "bound_ms": cnca_times[(name, 8)][2],
+        "bound_by": cnca_times[(name, 8)][3],
+        "library_ms": None,
+    } for name in fc.KERNEL_LAUNCHES]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -1,6 +1,8 @@
 """The CUDA kernels on the card, against their plain PyTorch versions: the
 rollout step (``csrc/nca_step.cu``), the two backward kernels of the
-training pair (``csrc/nca_train.cu``), the whole pair, and a train step.
+training pair (``csrc/nca_train.cu``), the whole pair, and a train step;
+the ConditionedNCA kernels (``csrc/nca_cnca.cu``), their pair, the grow
+routes and the grower.
 
 Needs a CUDA device and nvcc; every test skips without a card (the kernels
 have no CPU mode). This file imports neither JAX nor the JAX package, so on a
@@ -229,3 +231,122 @@ def test_stylizer_on_card_matches_cpu(cuda):
     for f in frames:
         torch.testing.assert_close(on.step_frame(f).cpu(), off.step_frame(f), **TOL["float32"])
     torch.testing.assert_close(on.state.cpu(), off.state, **TOL["float32"])
+
+
+# ---------------------------------------------------------------- ConditionedNCA
+
+
+def _cnca_case(cuda, rate=0.5, use_life=True, shape=(2, 24, 40), hidden=16, d=64, seed=0):
+    from vsnca_tpu_torch.config import ConditionedNCAConfig
+    from vsnca_tpu_torch.models import conditioned_nca as cn
+
+    b, h, w = shape
+    cfg = ConditionedNCAConfig(image_size=w, num_hidden_channels=hidden, update_hidden_dim=d,
+                               cell_fire_rate=rate, use_living_channel=use_life)
+    params = cn.conditioned_nca_init(torch.Generator().manual_seed(seed), cfg, device=cuda)
+    g = torch.Generator().manual_seed(seed + 1)
+    c = cfg.num_channels
+    x = torch.zeros((b, c, h, w))
+    x[:, cfg.alive_channel:, h // 2, w // 2] = 1.0
+    x = (x + 0.3 * torch.randn((b, c, h, w), generator=g)).to(cuda)
+    goal = (0.3 * torch.randn((b, c, h, w), generator=g)).to(cuda)
+    return cfg, params, x, goal
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rate,use_life", [(1.0, True), (0.5, True), (0.5, False)])
+def test_cnca_rollout_kernels_match_plain(cuda, rate, use_life, compute_dtype):
+    """cnca_update + cnca_gate, 6 steps on a ragged 24 x 40 grid, against the
+    plain version; two launches a step."""
+    from vsnca_tpu_torch.ops import fused_cnca as fc
+
+    cfg, params, x, goal = _cnca_case(cuda, rate, use_life)
+    before = dict(fc.KERNEL_LAUNCHES)
+    got = fc.fused_cnca_rollout(params, x, goal, 3, cfg, 6, compute_dtype)
+    want = fc.fused_cnca_rollout_reference(params, x, goal, 3, cfg, 6, compute_dtype)
+    assert fc.KERNEL_LAUNCHES["cnca_update"] == before["cnca_update"] + 6
+    assert fc.KERNEL_LAUNCHES["cnca_gate"] == before["cnca_gate"] + 6
+    _close(got, want, TRAIN_TOL[compute_dtype])
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("use_life", [True, False])
+def test_cnca_backward_kernels_match_plain(cuda, use_life, compute_dtype):
+    """One launch each of cnca_bwd_mlp and cnca_bwd_adjoint at rate 0.5 on a
+    ragged 19 x 37 grid, against their plain versions."""
+    from vsnca_tpu_torch.ops import fused_cnca as fc
+
+    cfg, params, x, goal = _cnca_case(cuda, 0.5, use_life, shape=(2, 19, 37))
+    packed = fc.pack_weights(params, cfg, compute_dtype)
+    _, life = fc.cnca_step_reference(x, goal, packed, cfg, compute_dtype, 3, 5, 0.5)
+    gy = torch.randn(x.shape, generator=torch.Generator().manual_seed(7)).to(cuda)
+    args = (packed, x, goal, life, gy, cfg, compute_dtype, 3, 5, 0.5)
+    g_xn, gp, sums = fc.cnca_bwd_mlp(*args)
+    w_xn, w_gp, w_sums = fc.cnca_bwd_mlp_reference(*args)
+    for a, b in zip((g_xn, gp, *sums), (w_xn, w_gp, *w_sums)):
+        _close(a, b, TRAIN_TOL[compute_dtype])
+    got = fc.cnca_bwd_adjoint(x, w_gp, w_xn, packed[0], cfg)
+    want = fc.cnca_bwd_adjoint_reference(x, w_gp, w_xn, packed[0], cfg)
+    for a, b in zip(got, want):
+        _close(a, b, TRAIN_TOL["float32"])
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_cnca_training_pair_matches_plain(cuda, compute_dtype):
+    """The whole pair at the reference widths, 64^2 batch 2, 7 steps, rate
+    0.5: state, every gradient, x's and the goal's; launches 2n + 2n."""
+    from vsnca_tpu_torch.ops import fused_cnca as fc
+
+    cfg, params, x, goal = _cnca_case(cuda, 0.5, True, shape=(2, 64, 64))
+    gy = torch.randn(x.shape, generator=torch.Generator().manual_seed(8)).to(cuda)
+    p = {k: v.clone().requires_grad_() for k, v in params.items()}
+    xr, gr = x.clone().requires_grad_(), goal.clone().requires_grad_()
+    before = fc.LAUNCHES
+    y = fc.fused_cnca_train(p, xr, gr, 9, cfg, 7, compute_dtype)
+    (y * gy).sum().backward()
+    assert fc.LAUNCHES == before + 28
+    want_y, grads, dx0, dgoal = fc.fused_cnca_train_reference(params, x, goal, 9, cfg, 7, gy,
+                                                              compute_dtype)
+    tol = TRAIN_TOL[compute_dtype]
+    _close(y.detach(), want_y, tol)
+    for k in fc.WEIGHT_KEYS:
+        _close(p[k].grad, grads[k], tol)
+    _close(xr.grad, dx0, tol)
+    _close(gr.grad, dgoal, tol)
+
+
+def test_cnca_grow_and_grower_take_the_kernels_on_the_card(cuda):
+    """conditioned_nca_grow on a CUDA tensor: the pair with a gradient, the
+    rollout kernels without; the grower's step(n) launches 2n for n = 1 and
+    n = 5, and matches the grower on the CPU."""
+    from vsnca_tpu_torch.infer.grower import InteractiveGrower
+    from vsnca_tpu_torch.models import conditioned_nca as cn
+    from vsnca_tpu_torch.ops import fused_cnca as fc
+
+    cfg, params, x, _ = _cnca_case(cuda, 0.5, True, shape=(2, 32, 32))
+    goal_img = torch.rand((2, 3, 32, 32), generator=torch.Generator().manual_seed(4)).to(cuda)
+    p = {k: v.clone().requires_grad_() for k, v in params.items()}
+    k0 = dict(fc.KERNEL_LAUNCHES)
+    cn.conditioned_nca_grow(p, x, goal_img, 5, cfg, 4).square().sum().backward()
+    assert fc.KERNEL_LAUNCHES["cnca_bwd_mlp"] == k0["cnca_bwd_mlp"] + 4
+    assert all(v.grad is not None for v in p.values())
+    with torch.no_grad():
+        cn.conditioned_nca_grow(p, x, goal_img, 5, cfg, 4)
+    assert fc.KERNEL_LAUNCHES["cnca_update"] == k0["cnca_update"] + 8
+    assert fc.KERNEL_LAUNCHES["cnca_bwd_mlp"] == k0["cnca_bwd_mlp"] + 4
+
+    goal = np.random.RandomState(0).rand(1, 32, 32, 3).astype(np.float32)
+    on = InteractiveGrower(params, cfg, goal, size=32, device=cuda)
+    off = InteractiveGrower({k: v.cpu() for k, v in params.items()}, cfg, goal, size=32,
+                            device="cpu")
+    for n in (1, 5):
+        before = fc.KERNEL_LAUNCHES["cnca_update"]
+        a, b = on.step(n), off.step(n)
+        assert fc.KERNEL_LAUNCHES["cnca_update"] == before + n
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-5)
+
+
+def test_cnca_kernel_limits_match_the_python_rule(cuda):
+    from vsnca_tpu_torch.ops import fused_cnca as fc
+
+    assert fc.kernel_limits() == (fc.C_MAX, fc.D_MAX)

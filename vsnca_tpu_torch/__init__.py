@@ -4,11 +4,18 @@ The JAX package ``vsnca_tpu`` stays the reference; this package mirrors its
 layout and names so each module has an obvious counterpart:
 
 - ``config``   — own copy of the typed frozen configs.
-- ``ops``      — perception stencils, padding, resize, CPE, and the rollout
-  kernel (``ops/fused_step.py`` + ``csrc/nca_step.cu``, built by
-  ``ops/_build.py``).
-- ``models``   — the DyNCA cell as plain functions on tensors.
-- ``infer``    — persistent-state video stylizer and its HTTP server.
+- ``ops``      — perception stencils, padding, resize, CPE, convolution
+  helpers, and the CUDA kernels with their wrappers: the DyNCA rollout step
+  (``ops/fused_step.py`` + ``csrc/nca_step.cu``), the DyNCA training pair
+  (``ops/fused_train.py`` + ``csrc/nca_train.cu``) and the ConditionedNCA
+  rollout and training pair (``ops/fused_cnca.py`` + ``csrc/nca_cnca.cu``),
+  built by ``ops/_build.py``.
+- ``models``   — the DyNCA cell, VGG16, and the encoder-conditioned NCA with
+  its ImageEncoder, as plain functions on tensors.
+- ``infer``    — persistent-state video stylizer and its HTTP server; the
+  interactive grower of the encoder-conditioned NCA.
+- ``train``    — the static_texture DyNCA trainer and the encoder trainer,
+  each with its CLI.
 - ``convert``  — parameters from the JAX package (numpy arrays, pickles).
 
 Conventions that differ from the JAX package: states, frames-in-flight and

@@ -53,6 +53,35 @@ class NCAConfig:
 
 
 @dataclasses.dataclass(frozen=True)
+class ConditionedNCAConfig:
+    """EncoderConditioning ConditionedNCA configuration (same fields,
+    defaults and properties as ``vsnca_tpu.config.ConditionedNCAConfig``):
+    3 target + 16 hidden + 1 alive = 20 channels, an update MLP 64 wide."""
+
+    num_target_channels: int = 3
+    num_hidden_channels: int = 16
+    use_living_channel: bool = True
+    living_channel_dim: Optional[int] = None  # defaults to num_target_channels
+    alpha_living_threshold: float = 0.1
+    cell_fire_rate: float = 0.5
+    update_hidden_dim: int = 64
+    image_size: int = 64
+    clamp_value: float = 10.0
+
+    @property
+    def num_channels(self) -> int:
+        return self.num_target_channels + self.num_hidden_channels + 1
+
+    @property
+    def alive_channel(self) -> int:
+        return (
+            self.living_channel_dim
+            if self.living_channel_dim is not None
+            else self.num_target_channels
+        )
+
+
+@dataclasses.dataclass(frozen=True)
 class LossConfig:
     """Weights and metric selections for the loss orchestrator (same fields
     and defaults as ``vsnca_tpu.config.LossConfig``; the port computes the

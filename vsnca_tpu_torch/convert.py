@@ -2,7 +2,8 @@
 
 The JAX package's DyNCA parameters are a plain dict of arrays in the layout
 the port keeps (``w1: [P, F]``, ``b1: [F]``, ``w2: [F, C]``, ``b2: [C]``), so
-carrying them across is a copy; its VGG16 kernels are HWIO and become OIHW.
+carrying them across is a copy; its VGG16 kernels are HWIO and become OIHW;
+its ConditionedNCA tree becomes the port's flat dict.
 Its pickle checkpoints
 (``vsnca_tpu/export/checkpoint.py``, the ``state.pkl`` backend) hold numpy
 arrays only and load without JAX. Orbax checkpoints are not read here.
@@ -44,6 +45,33 @@ def vgg_from_jax(np_vgg: List[dict], device=None) -> List[Dict[str, torch.Tensor
         }
         for layer in np_vgg
     ]
+
+
+def cnca_params_from_jax(np_params: dict, device=None) -> Dict[str, torch.Tensor]:
+    """The JAX package's ConditionedNCA tree (``conditioned_nca_init``'s:
+    ``perception_w`` [C, 3, 3, 3], ``update{1,2,3}`` {"w": [1, 1, in, out],
+    "b"}, ``encoder`` {"embed1": {"w": HWIO, "b"}, "embed2": {"w": HWIO}})
+    → the port's flat dict (``models.conditioned_nca``): the 1x1 kernels as
+    [in, out] matrices, the encoder's convolutions OIHW, float32 on
+    ``device``."""
+    dev = resolve_device(device)
+
+    def t(a, perm=None):
+        a = np.array(a, dtype=np.float32)
+        if perm is not None:
+            a = a.transpose(perm).copy()
+        return torch.from_numpy(a).to(dev)
+
+    out = {"perception_w": t(np_params["perception_w"])}
+    for name in ("update1", "update2", "update3"):
+        out[f"{name}.w"] = t(np.asarray(np_params[name]["w"])[0, 0])
+        if "b" in np_params[name]:
+            out[f"{name}.b"] = t(np_params[name]["b"])
+    enc = np_params["encoder"]
+    out["encoder.embed1.w"] = t(enc["embed1"]["w"], (3, 2, 0, 1))
+    out["encoder.embed1.b"] = t(enc["embed1"]["b"])
+    out["encoder.embed2.w"] = t(enc["embed2"]["w"], (3, 2, 0, 1))
+    return out
 
 
 def load_params_pickle(path: str, device=None) -> Dict[str, torch.Tensor]:

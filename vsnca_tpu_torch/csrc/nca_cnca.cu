@@ -1,0 +1,721 @@
+// The ConditionedNCA (encoder-conditioned) step, forward and backward, on
+// NCHW state — the Hopper kernels of the grower's rollout and of the
+// encoder trainer's differentiable rollout.
+//
+// Replaces (vsnca_tpu/ops/pallas_cnca.py):
+//   * _make_cnca_kernel           (:47, called by fused_cnca_rollout :250),
+//   * _make_cnca_fwd_train_kernel (:350, called by _cnca_train_fwd_call :610),
+//   * _make_cnca_bwd_train_kernel (:434, called by _cnca_train_bwd_call :675).
+// One step (models/conditioned_nca.py:87-122): pre = maxpool3x3(alpha) > thr;
+// xg = x + goal * pre; the learnable depthwise 3x3 percept of xg (3 filters a
+// channel, zero padding, rows c*3 + s); h1 = relu(W1^T p + b1), h2 =
+// relu(W2^T h1 + b2), dx = W3^T h2; xn = x + dx * fire (one Bernoulli mask a
+// pixel); post = maxpool3x3(xn alpha) > thr; out = clamp(xn * (pre & post)).
+//
+// Four kernels:
+//   cnca_update      — pre, xg, percept, MLP, fire mask: xn (before the gate);
+//   cnca_gate        — the life gate and the clamp, and the life mask;
+//   cnca_bwd_mlp     — one reverse step's recompute and MLP adjoint;
+//   cnca_bwd_adjoint — the depthwise percept's adjoint into the state and
+//                      goal cotangents.
+// The forward of the rollout and of the training pair is cnca_update then
+// cnca_gate, a step; the training forward keeps every step's input state in
+// a trace and its life mask in bytes (ops/fused_cnca.py), the backward is
+// cnca_bwd_mlp then cnca_bwd_adjoint a step, steps in reverse.
+//
+// Why the gate is a launch of its own: post pools the UPDATED alpha over a
+// pixel's 3x3 neighbourhood, so a 16 x 16 tile needs xn on its 1-pixel ring,
+// i.e. the MLP (19.5 kFLOP a pixel, the whole cost) on 18 x 18 = 1.27x the
+// pixels, with pre on 20 x 20. A second launch that reads xn back costs
+// 2 * C * 4 bytes a pixel, about 1/100 of the MLP's time at the float32
+// rate, and keeps both kernels simple. The state ping-pongs (x -> xn -> out,
+// three buffers), since the gate reads its neighbours' values. The backward
+// needs post too: the gate stores the life mask (one byte a pixel a step,
+// 3.1 MB at batch 8 x 96 steps x 64^2) rather than the backward recomputing
+// the MLP on the ring.
+//
+// What bounds it on an H100: per pixel and step the update does
+// 2 * (3C*D + D*D + D*C) + 2 * 27 * C FLOP (19.5 k at C = 20, D = 64) against
+// ~3 * C * 4 bytes (state in, goal, xn out): 80 FLOP a byte, float32
+// arithmetic (67 TFLOP/s) bounds it. cnca_bwd_mlp recomputes the forward and
+// does the three transposed products and the three weight-gradient
+// products: about 3x the update's FLOPs. cnca_gate and cnca_bwd_adjoint are
+// bound by their bytes.
+//
+// What the design does about it (simple first; tensor cores, TMA and a
+// persistent kernel are later work): cnca_update runs one thread a pixel in
+// 16 x 16 blocks, with the weights, the alpha tile (20 x 20), the pre mask
+// and the xg tile (C x 18 x 18) in shared memory; the percept (3C values),
+// the second layer's sums (D) and dx (C) in registers; weights read as
+// float4 along the output dimension and broadcast to the warp. cnca_bwd_mlp
+// keeps a 16 x 8 block's percept, h1, h2 and g_dx as per-pixel columns in
+// shared memory (stride 129 floats: 32 different rows at one pixel hit 32
+// banks), overwrites them in place with g_h2, g_h1 and g_p as the walk goes
+// down the layers, and forms each weight gradient as a block-wide product
+// over its 128 pixels: each thread owns a few outputs and walks the pixels,
+// adding into the block's own slot of a [n_blocks, S] buffer. The same block
+// owns the same pixels every step, so the sum is deterministic without
+// atomics; the wrapper sums the slots once per call.
+//
+// Rounding: the percept's 9 taps are summed as the plain version sums them
+// (products and sums unfused, in tap order), and xg as x + goal * pre.
+// bf16 mode rounds where the TPU kernels cast (pallas_cnca.py:129, 136, 141
+// forward; :497-503, :520, :529, :538 backward): the percept, h1 and h2 as
+// operands, g_dx, g_h2 and g_h1; W1..W3 come rounded from the wrapper's
+// packing. Biases, wcol, the state and every sum stay float32. The alive
+// pools fill the grid's edge with zeros, which gives the reference's -inf
+// padding because the threshold is positive (the wrapper refuses thr <= 0).
+// Fire masks come from nca_common.cuh::mask_bits(seed, batch, step, pixel),
+// so the plain version and the backward draw the same ones.
+
+#include "nca_common.cuh"
+
+#define CNCA_C_MAX 24
+#define CNCA_D_MAX 64
+#define CNCA_P_MAX (3 * CNCA_C_MAX)
+
+#define CU_TILE 16               // cnca_update / cnca_bwd_adjoint: 16 x 16
+#define CU_THREADS (CU_TILE * CU_TILE)
+#define CU_HALO (CU_TILE + 2)    // xg / gp tile side
+#define CU_AH (CU_TILE + 4)      // alpha tile side
+
+#define CB_TX 16                 // cnca_bwd_mlp: 16 wide, 8 tall
+#define CB_TY 8
+#define CB_THREADS (CB_TX * CB_TY)
+#define CB_LD (CB_THREADS + 1)   // stride of the per-pixel columns
+#define CB_HX (CB_TX + 2)
+#define CB_HY (CB_TY + 2)
+#define CB_AX (CB_TX + 4)
+#define CB_AY (CB_TY + 4)
+
+__device__ __forceinline__ float rnd_if(bool bf16, float v) {
+  return bf16 ? bf16_round(v) : v;
+}
+
+// The 3 percept values of one channel: t points at the top-left of the
+// pixel's 3x3 window in an xg tile with rows ld floats apart, wc at the
+// channel's 27 weights (slot, kh, kw).
+__device__ __forceinline__ void percept3(const float* t, int ld, const float* wc,
+                                         float out[3]) {
+  float v[9];
+#pragma unroll
+  for (int k = 0; k < 9; ++k) v[k] = t[(k / 3) * ld + k % 3];
+#pragma unroll
+  for (int s = 0; s < 3; ++s) {
+    float a = __fmul_rn(v[0], wc[s * 9]);
+#pragma unroll
+    for (int k = 1; k < 9; ++k) a = __fadd_rn(a, __fmul_rn(v[k], wc[s * 9 + k]));
+    out[s] = a;
+  }
+}
+
+// Stage the zero-filled alpha tile (ay x ax at (ay0, ax0)), then the pre mask
+// over its inner (ay - 2) x (ax - 2), as 1.f / 0.f; ones without the living
+// channel. Ends with the block synchronised.
+__device__ __forceinline__ void stage_pre(const float* xa, float* at, float* pre, int ay,
+                                          int ax, int ay0, int ax0, int H, int W,
+                                          float athr, int use_life, int tid, int nthr) {
+  if (use_life) {
+    for (int i = tid; i < ay * ax; i += nthr) {
+      const int gy = ay0 + i / ax, gx = ax0 + i % ax;
+      at[i] = (gy >= 0 && gy < H && gx >= 0 && gx < W) ? xa[gy * W + gx] : 0.f;
+    }
+  }
+  __syncthreads();
+  const int py = ay - 2, px = ax - 2;
+  for (int i = tid; i < py * px; i += nthr) {
+    float v = 1.f;
+    if (use_life) {
+      const int r = i / px, q = i % px;
+      float m = at[r * ax + q];
+#pragma unroll
+      for (int k = 1; k < 9; ++k) m = fmaxf(m, at[(r + k / 3) * ax + q + k % 3]);
+      v = m > athr ? 1.f : 0.f;
+    }
+    pre[i] = v;
+  }
+  __syncthreads();
+}
+
+// Stage the xg tile [C, hy, hx] at (y0, x0): x + goal * pre inside the grid,
+// zero outside (the percept's padding). pre is the (hy x hx) mask tile.
+__device__ __forceinline__ void stage_xg(const float* xb, const float* gb,
+                                         const float* pre, float* xg, int C, int hy,
+                                         int hx, int y0, int x0, int H, int W, int tid,
+                                         int nthr) {
+  const int HW = H * W;
+  for (int i = tid; i < C * hy * hx; i += nthr) {
+    const int c = i / (hy * hx), rq = i % (hy * hx);
+    const int gy = y0 + rq / hx, gx = x0 + rq % hx;
+    float v = 0.f;
+    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+      const size_t o = (size_t)c * HW + gy * W + gx;
+      v = __fadd_rn(xb[o], __fmul_rn(gb[o], pre[rq]));
+    }
+    xg[i] = v;
+  }
+  __syncthreads();
+}
+
+// Shared memory of cnca_update, float32, in this order (the float4-read
+// weights first, each a multiple of 4 floats long):
+//   w1s [P, D4]  w2s [D4, D4]  w3s [D4, C4]  b1s [D4]  b2s [D4]  wcs [C*27]
+//   at [20, 20]  pre [18, 18]  xg [C, 18, 18]
+template <bool BF16>
+__global__ void __launch_bounds__(CU_THREADS)
+cnca_update_kernel(const float* __restrict__ x, const float* __restrict__ goal,
+                   float* __restrict__ xn, const float* __restrict__ wcol,
+                   const float* __restrict__ w1, const float* __restrict__ b1,
+                   const float* __restrict__ w2, const float* __restrict__ b2,
+                   const float* __restrict__ w3, int C, int H, int W, int D4,
+                   int alive, float athr, int use_life, uint32_t seed, uint32_t step,
+                   uint32_t fthr) {
+  extern __shared__ __align__(16) float smem[];
+  const int P = 3 * C, C4 = (C + 3) & ~3;
+  float* w1s = smem;
+  float* w2s = w1s + P * D4;
+  float* w3s = w2s + D4 * D4;
+  float* b1s = w3s + D4 * C4;
+  float* b2s = b1s + D4;
+  float* wcs = b2s + D4;
+  float* at = wcs + C * 27;
+  float* pre = at + CU_AH * CU_AH;
+  float* xg = pre + CU_HALO * CU_HALO;
+
+  const int tid = threadIdx.y * CU_TILE + threadIdx.x;
+  const int b = blockIdx.z;
+  const int HW = H * W;
+  for (int i = tid; i < P * D4; i += CU_THREADS) w1s[i] = w1[i];
+  for (int i = tid; i < D4 * D4; i += CU_THREADS) w2s[i] = w2[i];
+  for (int i = tid; i < D4 * C4; i += CU_THREADS) w3s[i] = w3[i];
+  for (int i = tid; i < D4; i += CU_THREADS) {
+    b1s[i] = b1[i];
+    b2s[i] = b2[i];
+  }
+  for (int i = tid; i < C * 27; i += CU_THREADS) wcs[i] = wcol[i];
+
+  const int y0 = blockIdx.y * CU_TILE, x0 = blockIdx.x * CU_TILE;
+  const float* xb = x + (size_t)b * C * HW;
+  stage_pre(xb + (size_t)alive * HW, at, pre, CU_AH, CU_AH, y0 - 2, x0 - 2, H, W, athr,
+            use_life, tid, CU_THREADS);
+  stage_xg(xb, goal + (size_t)b * C * HW, pre, xg, C, CU_HALO, CU_HALO, y0 - 1, x0 - 1, H,
+           W, tid, CU_THREADS);
+
+  const int px = x0 + threadIdx.x, py = y0 + threadIdx.y;
+  if (px >= W || py >= H) return;
+  const int pix = py * W + px;
+
+  float p[CNCA_P_MAX];
+#pragma unroll
+  for (int c = 0; c < CNCA_C_MAX; ++c) {
+    float o[3] = {0.f, 0.f, 0.f};
+    if (c < C)
+      percept3(xg + (c * CU_HALO + threadIdx.y) * CU_HALO + threadIdx.x, CU_HALO,
+               wcs + c * 27, o);
+#pragma unroll
+    for (int s = 0; s < 3; ++s) p[3 * c + s] = rnd_if(BF16, o[s]);
+  }
+
+  float h2[CNCA_D_MAX];
+#pragma unroll
+  for (int e = 0; e < CNCA_D_MAX; ++e) h2[e] = 0.f;
+  for (int f = 0; f < D4; f += 4) {
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+    for (int k = 0; k < CNCA_P_MAX; ++k) {
+      if (k < P) {
+        const float4 w = *reinterpret_cast<const float4*>(w1s + k * D4 + f);
+        a.x = fmaf(w.x, p[k], a.x);
+        a.y = fmaf(w.y, p[k], a.y);
+        a.z = fmaf(w.z, p[k], a.z);
+        a.w = fmaf(w.w, p[k], a.w);
+      }
+    }
+    const float hv[4] = {
+        rnd_if(BF16, fmaxf(a.x + b1s[f], 0.f)), rnd_if(BF16, fmaxf(a.y + b1s[f + 1], 0.f)),
+        rnd_if(BF16, fmaxf(a.z + b1s[f + 2], 0.f)), rnd_if(BF16, fmaxf(a.w + b1s[f + 3], 0.f))};
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float* w2r = w2s + (f + i) * D4;
+#pragma unroll
+      for (int e = 0; e < CNCA_D_MAX; e += 4) {
+        if (e < D4) {
+          const float4 w = *reinterpret_cast<const float4*>(w2r + e);
+          h2[e] = fmaf(w.x, hv[i], h2[e]);
+          h2[e + 1] = fmaf(w.y, hv[i], h2[e + 1]);
+          h2[e + 2] = fmaf(w.z, hv[i], h2[e + 2]);
+          h2[e + 3] = fmaf(w.w, hv[i], h2[e + 3]);
+        }
+      }
+    }
+  }
+
+  float dx[CNCA_C_MAX];
+#pragma unroll
+  for (int c = 0; c < CNCA_C_MAX; ++c) dx[c] = 0.f;
+#pragma unroll
+  for (int e = 0; e < CNCA_D_MAX; ++e) {
+    if (e < D4) {
+      const float v = rnd_if(BF16, fmaxf(h2[e] + b2s[e], 0.f));
+      const float* w3r = w3s + e * C4;
+#pragma unroll
+      for (int c = 0; c < CNCA_C_MAX; c += 4) {
+        if (c < C4) {
+          const float4 w = *reinterpret_cast<const float4*>(w3r + c);
+          dx[c] = fmaf(w.x, v, dx[c]);
+          dx[c + 1] = fmaf(w.y, v, dx[c + 1]);
+          dx[c + 2] = fmaf(w.z, v, dx[c + 2]);
+          dx[c + 3] = fmaf(w.w, v, dx[c + 3]);
+        }
+      }
+    }
+  }
+
+  const bool on = (mask_bits(seed, (uint32_t)b, step, (uint32_t)pix) >> 8) >= fthr;
+  float* ob = xn + (size_t)b * C * HW + pix;
+#pragma unroll
+  for (int c = 0; c < CNCA_C_MAX; ++c) {
+    if (c < C) {
+      const float xc = xb[(size_t)c * HW + pix];
+      ob[(size_t)c * HW] = on ? __fadd_rn(xc, dx[c]) : xc;
+    }
+  }
+}
+
+// One thread a pixel: pre from x, post from xn, out = clamp(xn * life).
+__global__ void __launch_bounds__(256)
+cnca_gate_kernel(const float* __restrict__ x, const float* __restrict__ xn,
+                 float* __restrict__ out, unsigned char* __restrict__ life, int C, int H,
+                 int W, int alive, float athr, int use_life, float clampv, int total) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= total) return;
+  const int HW = H * W;
+  const int b = i / HW, q = i % HW;
+  const int y = q / W, xq = q % W;
+  float lf = 1.f;
+  if (use_life) {
+    const float* xa = x + ((size_t)b * C + alive) * HW;
+    const float* na = xn + ((size_t)b * C + alive) * HW;
+    float m1 = -INFINITY, m2 = -INFINITY;
+    for (int dy = -1; dy <= 1; ++dy) {
+      const int yy = y + dy;
+      if (yy < 0 || yy >= H) continue;
+      for (int dq = -1; dq <= 1; ++dq) {
+        const int xx = xq + dq;
+        if (xx < 0 || xx >= W) continue;
+        m1 = fmaxf(m1, xa[yy * W + xx]);
+        m2 = fmaxf(m2, na[yy * W + xx]);
+      }
+    }
+    const bool l = m1 > athr && m2 > athr;
+    lf = l ? 1.f : 0.f;
+    if (life != nullptr) life[i] = l ? 1 : 0;
+  }
+  for (int c = 0; c < C; ++c) {
+    const size_t o = ((size_t)b * C + c) * HW + q;
+    out[o] = fminf(fmaxf(__fmul_rn(xn[o], lf), -clampv), clampv);
+  }
+}
+
+// Shared memory of cnca_bwd_mlp, float32, in this order:
+//   w1s [P, D4]  w2s [D4, D4]  w3s [D4, C4]  b1s [D4]  b2s [D4]
+//   wcs [C*27, rounded up to 4]  at [12, 20]  pre [10, 18]  xg [C, 10, 18]
+//   pc [P, LD]  hc1 [D4, LD]  hc2 [D4, LD]  gd [C, LD]   (per-pixel columns)
+// pc holds the percept, then g_p; hc1 h1, then g_h1; hc2 h2, then g_h2.
+template <bool BF16>
+__global__ void __launch_bounds__(CB_THREADS)
+cnca_bwd_mlp_kernel(const float* __restrict__ x, const float* __restrict__ goal,
+                    const unsigned char* __restrict__ life, float* __restrict__ g,
+                    float* __restrict__ gp, float* __restrict__ slots,
+                    const float* __restrict__ wcol, const float* __restrict__ w1,
+                    const float* __restrict__ b1, const float* __restrict__ w2,
+                    const float* __restrict__ b2, const float* __restrict__ w3, int C,
+                    int H, int W, int D4, int alive, float athr, int use_life,
+                    float clampv, uint32_t seed, uint32_t step, uint32_t fthr) {
+  extern __shared__ __align__(16) float smem[];
+  const int P = 3 * C, C4 = (C + 3) & ~3;
+  float* w1s = smem;
+  float* w2s = w1s + P * D4;
+  float* w3s = w2s + D4 * D4;
+  float* b1s = w3s + D4 * C4;
+  float* b2s = b1s + D4;
+  float* wcs = b2s + D4;
+  float* at = wcs + ((C * 27 + 3) & ~3);
+  float* pre = at + CB_AY * CB_AX;
+  float* xg = pre + CB_HY * CB_HX;
+  float* pc = xg + C * CB_HY * CB_HX;
+  float* hc1 = pc + P * CB_LD;
+  float* hc2 = hc1 + D4 * CB_LD;
+  float* gd = hc2 + D4 * CB_LD;
+
+  const int tid = threadIdx.y * CB_TX + threadIdx.x;
+  const int b = blockIdx.z;
+  const int HW = H * W;
+  for (int i = tid; i < P * D4; i += CB_THREADS) w1s[i] = w1[i];
+  for (int i = tid; i < D4 * D4; i += CB_THREADS) w2s[i] = w2[i];
+  for (int i = tid; i < D4 * C4; i += CB_THREADS) w3s[i] = w3[i];
+  for (int i = tid; i < D4; i += CB_THREADS) {
+    b1s[i] = b1[i];
+    b2s[i] = b2[i];
+  }
+  for (int i = tid; i < C * 27; i += CB_THREADS) wcs[i] = wcol[i];
+
+  const int y0 = blockIdx.y * CB_TY, x0 = blockIdx.x * CB_TX;
+  const float* xb = x + (size_t)b * C * HW;
+  stage_pre(xb + (size_t)alive * HW, at, pre, CB_AY, CB_AX, y0 - 2, x0 - 2, H, W, athr,
+            use_life, tid, CB_THREADS);
+  stage_xg(xb, goal + (size_t)b * C * HW, pre, xg, C, CB_HY, CB_HX, y0 - 1, x0 - 1, H, W,
+           tid, CB_THREADS);
+
+  const int px = x0 + threadIdx.x, py = y0 + threadIdx.y;
+  const bool valid = px < W && py < H;
+  const int pix = valid ? py * W + px : 0;
+
+  // Percept column (zeros past the grid's edge: such a pixel's g_dx is 0,
+  // so it adds nothing to any gradient).
+  for (int c = 0; c < C; ++c) {
+    float o[3] = {0.f, 0.f, 0.f};
+    if (valid)
+      percept3(xg + (c * CB_HY + threadIdx.y) * CB_HX + threadIdx.x, CB_HX, wcs + c * 27, o);
+#pragma unroll
+    for (int s = 0; s < 3; ++s) pc[(3 * c + s) * CB_LD + tid] = rnd_if(BF16, o[s]);
+  }
+  // h1 and h2 (float32 after relu; rounded where they are operands), summed
+  // in the update kernel's order so that xn recomputes exactly.
+  for (int f = 0; f < D4; f += 4) {
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int k = 0; k < P; ++k) {
+      const float v = pc[k * CB_LD + tid];
+      const float4 w = *reinterpret_cast<const float4*>(w1s + k * D4 + f);
+      a.x = fmaf(w.x, v, a.x);
+      a.y = fmaf(w.y, v, a.y);
+      a.z = fmaf(w.z, v, a.z);
+      a.w = fmaf(w.w, v, a.w);
+    }
+    hc1[f * CB_LD + tid] = fmaxf(a.x + b1s[f], 0.f);
+    hc1[(f + 1) * CB_LD + tid] = fmaxf(a.y + b1s[f + 1], 0.f);
+    hc1[(f + 2) * CB_LD + tid] = fmaxf(a.z + b1s[f + 2], 0.f);
+    hc1[(f + 3) * CB_LD + tid] = fmaxf(a.w + b1s[f + 3], 0.f);
+  }
+  for (int e = 0; e < D4; e += 4) {
+    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int f = 0; f < D4; ++f) {
+      const float v = rnd_if(BF16, hc1[f * CB_LD + tid]);
+      const float4 w = *reinterpret_cast<const float4*>(w2s + f * D4 + e);
+      a.x = fmaf(w.x, v, a.x);
+      a.y = fmaf(w.y, v, a.y);
+      a.z = fmaf(w.z, v, a.z);
+      a.w = fmaf(w.w, v, a.w);
+    }
+    hc2[e * CB_LD + tid] = fmaxf(a.x + b2s[e], 0.f);
+    hc2[(e + 1) * CB_LD + tid] = fmaxf(a.y + b2s[e + 1], 0.f);
+    hc2[(e + 2) * CB_LD + tid] = fmaxf(a.z + b2s[e + 2], 0.f);
+    hc2[(e + 3) * CB_LD + tid] = fmaxf(a.w + b2s[e + 3], 0.f);
+  }
+  float dx[CNCA_C_MAX];
+#pragma unroll
+  for (int c = 0; c < CNCA_C_MAX; ++c) dx[c] = 0.f;
+  for (int e = 0; e < D4; ++e) {
+    const float v = rnd_if(BF16, hc2[e * CB_LD + tid]);
+#pragma unroll
+    for (int c = 0; c < CNCA_C_MAX; c += 4) {
+      if (c < C4) {
+        const float4 w = *reinterpret_cast<const float4*>(w3s + e * C4 + c);
+        dx[c] = fmaf(w.x, v, dx[c]);
+        dx[c + 1] = fmaf(w.y, v, dx[c + 1]);
+        dx[c + 2] = fmaf(w.z, v, dx[c + 2]);
+        dx[c + 3] = fmaf(w.w, v, dx[c + 3]);
+      }
+    }
+  }
+
+  // The clamp, life and mask adjoints: g <- g_xn in place, g_dx column.
+  const bool on =
+      valid && (mask_bits(seed, (uint32_t)b, step, (uint32_t)pix) >> 8) >= fthr;
+  const float lf = (!use_life || (valid && life[(size_t)b * HW + pix])) ? 1.f : 0.f;
+#pragma unroll
+  for (int c = 0; c < CNCA_C_MAX; ++c) {
+    if (c < C) {
+      float gdx = 0.f;
+      if (valid) {
+        const size_t o = ((size_t)b * C + c) * HW + pix;
+        const float xc = x[o];
+        const float xl = __fmul_rn(on ? __fadd_rn(xc, dx[c]) : xc, lf);
+        const float in_range = (xl >= -clampv && xl <= clampv) ? 1.f : 0.f;
+        const float gxn = __fmul_rn(__fmul_rn(g[o], in_range), lf);
+        g[o] = gxn;
+        gdx = on ? gxn : 0.f;
+      }
+      gd[c * CB_LD + tid] = rnd_if(BF16, gdx);
+    }
+  }
+  __syncthreads();
+
+  const int blk = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+  float* sdwc = slots + (size_t)blk * (C * 27 + P * D4 + 2 * D4 + D4 * D4 + D4 * C);
+  float* sdw1 = sdwc + C * 27;  // [P, D4]
+  float* sdb1 = sdw1 + P * D4;  // [D4]
+  float* sdw2 = sdb1 + D4;      // [D4, D4]
+  float* sdb2 = sdw2 + D4 * D4; // [D4]
+  float* sdw3 = sdb2 + D4;      // [D4, C]
+
+  // dW3 [e, c] += sum over the block's pixels of h2[e] g_dx[c].
+  for (int o = tid; o < D4 * C; o += CB_THREADS) {
+    const float* hh = hc2 + (o / C) * CB_LD;
+    const float* gg = gd + (o % C) * CB_LD;
+    float s = 0.f;
+#pragma unroll 8
+    for (int t = 0; t < CB_THREADS; ++t) s = fmaf(rnd_if(BF16, hh[t]), gg[t], s);
+    sdw3[o] += s;
+  }
+  __syncthreads();
+  // g_h2 = (W3 g_dx) * [h2 > 0], in place of h2.
+  for (int e = 0; e < D4; ++e) {
+    float a = 0.f;
+    for (int c = 0; c < C; ++c) a = fmaf(w3s[e * C4 + c], gd[c * CB_LD + tid], a);
+    float* h = hc2 + e * CB_LD + tid;
+    *h = rnd_if(BF16, *h > 0.f ? a : 0.f);
+  }
+  __syncthreads();
+  // dW2 [f, e] += sum of h1[f] g_h2[e]; db2 [e] += sum of g_h2[e].
+  for (int o = tid; o < D4 * D4 + D4; o += CB_THREADS) {
+    float s = 0.f;
+    if (o < D4 * D4) {
+      const float* hh = hc1 + (o / D4) * CB_LD;
+      const float* gg = hc2 + (o % D4) * CB_LD;
+#pragma unroll 8
+      for (int t = 0; t < CB_THREADS; ++t) s = fmaf(rnd_if(BF16, hh[t]), gg[t], s);
+      sdw2[o] += s;
+    } else {
+      const float* gg = hc2 + (o - D4 * D4) * CB_LD;
+#pragma unroll 8
+      for (int t = 0; t < CB_THREADS; ++t) s += gg[t];
+      sdb2[o - D4 * D4] += s;
+    }
+  }
+  __syncthreads();
+  // g_h1 = (W2 g_h2) * [h1 > 0], in place of h1.
+  for (int f = 0; f < D4; ++f) {
+    float a = 0.f;
+    for (int e = 0; e < D4; e += 4) {
+      const float4 w = *reinterpret_cast<const float4*>(w2s + f * D4 + e);
+      a = fmaf(w.x, hc2[e * CB_LD + tid], a);
+      a = fmaf(w.y, hc2[(e + 1) * CB_LD + tid], a);
+      a = fmaf(w.z, hc2[(e + 2) * CB_LD + tid], a);
+      a = fmaf(w.w, hc2[(e + 3) * CB_LD + tid], a);
+    }
+    float* h = hc1 + f * CB_LD + tid;
+    *h = rnd_if(BF16, *h > 0.f ? a : 0.f);
+  }
+  __syncthreads();
+  // dW1 [k, f] += sum of p[k] g_h1[f]; db1 [f] += sum of g_h1[f].
+  for (int o = tid; o < P * D4 + D4; o += CB_THREADS) {
+    float s = 0.f;
+    if (o < P * D4) {
+      const float* pp = pc + (o / D4) * CB_LD;
+      const float* gg = hc1 + (o % D4) * CB_LD;
+#pragma unroll 8
+      for (int t = 0; t < CB_THREADS; ++t) s = fmaf(pp[t], gg[t], s);
+      sdw1[o] += s;
+    } else {
+      const float* gg = hc1 + (o - P * D4) * CB_LD;
+#pragma unroll 8
+      for (int t = 0; t < CB_THREADS; ++t) s += gg[t];
+      sdb1[o - P * D4] += s;
+    }
+  }
+  __syncthreads();
+  // g_p = W1 g_h1 (float32), in place of the percept and to gp.
+  for (int k = 0; k < P; ++k) {
+    float a = 0.f;
+    for (int f = 0; f < D4; f += 4) {
+      const float4 w = *reinterpret_cast<const float4*>(w1s + k * D4 + f);
+      a = fmaf(w.x, hc1[f * CB_LD + tid], a);
+      a = fmaf(w.y, hc1[(f + 1) * CB_LD + tid], a);
+      a = fmaf(w.z, hc1[(f + 2) * CB_LD + tid], a);
+      a = fmaf(w.w, hc1[(f + 3) * CB_LD + tid], a);
+    }
+    pc[k * CB_LD + tid] = a;
+    if (valid) gp[((size_t)b * P + k) * HW + pix] = a;
+  }
+  __syncthreads();
+  // dwcol [c, s*9 + t] += sum of xg[c] at tap t times g_p[c*3 + s].
+  for (int o = tid; o < C * 27; o += CB_THREADS) {
+    const int c = o / 27, k = o % 27;
+    const int s = k / 9, di = (k % 9) / 3, dj = k % 3;
+    const float* tap = xg + (c * CB_HY + di) * CB_HX + dj;
+    const float* gg = pc + (3 * c + s) * CB_LD;
+    float acc = 0.f;
+    for (int t = 0; t < CB_THREADS; ++t)
+      acc = fmaf(tap[(t / CB_TX) * CB_HX + t % CB_TX], gg[t], acc);
+    sdwc[o] += acc;
+  }
+}
+
+// g += g_xg and dgoal += g_xg * pre, where g_xg is the adjoint of the
+// depthwise percept: sum over (slot, kh, kw) of wcol * g_p shifted back.
+__global__ void __launch_bounds__(CU_THREADS)
+cnca_bwd_adjoint_kernel(const float* __restrict__ x, const float* __restrict__ gp,
+                        const float* __restrict__ wcol, float* __restrict__ g,
+                        float* __restrict__ dgoal, int C, int H, int W, int alive,
+                        float athr, int use_life) {
+  __shared__ float tile[3][CU_HALO * CU_HALO];
+  const int tid = threadIdx.y * CU_TILE + threadIdx.x;
+  const int b = blockIdx.z;
+  const int HW = H * W;
+  const int y0 = blockIdx.y * CU_TILE - 1, x0 = blockIdx.x * CU_TILE - 1;
+  const int px = blockIdx.x * CU_TILE + threadIdx.x;
+  const int py = blockIdx.y * CU_TILE + threadIdx.y;
+  const bool valid = px < W && py < H;
+  const int pix = py * W + px;
+
+  float pre = 1.f;
+  if (use_life && valid) {
+    const float* xa = x + ((size_t)b * C + alive) * HW;
+    float m = -INFINITY;
+    for (int dy = -1; dy <= 1; ++dy)
+      for (int dq = -1; dq <= 1; ++dq) {
+        const int yy = py + dy, xx = px + dq;
+        if (yy >= 0 && yy < H && xx >= 0 && xx < W) m = fmaxf(m, xa[yy * W + xx]);
+      }
+    pre = m > athr ? 1.f : 0.f;
+  }
+  const float* gpb = gp + (size_t)b * 3 * C * HW;
+  for (int c = 0; c < C; ++c) {
+    __syncthreads();  // the previous channel's tiles are consumed
+    for (int i = tid; i < 3 * CU_HALO * CU_HALO; i += CU_THREADS) {
+      const int s = i / (CU_HALO * CU_HALO), rq = i % (CU_HALO * CU_HALO);
+      const int gy = y0 + rq / CU_HALO, gx = x0 + rq % CU_HALO;
+      tile[s][rq] = (gy >= 0 && gy < H && gx >= 0 && gx < W)
+                        ? gpb[(size_t)(3 * c + s) * HW + gy * W + gx]
+                        : 0.f;
+    }
+    __syncthreads();
+    if (valid) {
+      const float* wc = wcol + c * 27;
+      float acc = 0.f;
+#pragma unroll
+      for (int k = 0; k < 27; ++k) {
+        const int s = k / 9, di = (k % 9) / 3, dj = k % 3;
+        const float term = __fmul_rn(
+            tile[s][(threadIdx.y + 2 - di) * CU_HALO + threadIdx.x + 2 - dj], wc[k]);
+        acc = k == 0 ? term : __fadd_rn(acc, term);
+      }
+      const size_t o = ((size_t)b * C + c) * HW + pix;
+      g[o] = __fadd_rn(g[o], acc);
+      dgoal[o] = __fadd_rn(dgoal[o], __fmul_rn(acc, pre));
+    }
+  }
+}
+
+static bool bad_sizes(int C, int D4) {
+  return C < 1 || C > CNCA_C_MAX || D4 < 4 || D4 > CNCA_D_MAX || D4 % 4 != 0;
+}
+
+extern "C" {
+
+// Sizes past these limits are refused by the wrapper before launch.
+int cnca_limits(int* c_max, int* d_max) {
+  *c_max = CNCA_C_MAX;
+  *d_max = CNCA_D_MAX;
+  return 0;
+}
+
+// One step's update: x [B, C, H, W] -> xn (distinct buffers), goal as x.
+// wcol [C, 27], w1 [3C, D4], b1 [D4], w2 [D4, D4], b2 [D4], w3 [D4, C4],
+// float32. Returns the launch's cudaGetLastError().
+int cnca_update_launch(const float* x, const float* goal, float* xn, const float* wcol,
+                       const float* w1, const float* b1, const float* w2,
+                       const float* b2, const float* w3, int B, int C, int H, int W,
+                       int D4, int alive, float athr, int use_life, int bf16,
+                       unsigned int seed, unsigned int step, unsigned int fthr,
+                       void* stream) {
+  if (bad_sizes(C, D4) || alive < 0 || alive >= C) return (int)cudaErrorInvalidValue;
+  const int P = 3 * C, C4 = (C + 3) & ~3;
+  const size_t smem = sizeof(float) * ((size_t)P * D4 + D4 * D4 + D4 * C4 + 2 * D4 +
+                                       C * 27 + CU_AH * CU_AH + CU_HALO * CU_HALO +
+                                       (size_t)C * CU_HALO * CU_HALO);
+  const dim3 grid((W + CU_TILE - 1) / CU_TILE, (H + CU_TILE - 1) / CU_TILE, B);
+  const dim3 block(CU_TILE, CU_TILE);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    cudaFuncSetAttribute(cnca_update_kernel<true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cnca_update_kernel<true><<<grid, block, smem, s>>>(
+        x, goal, xn, wcol, w1, b1, w2, b2, w3, C, H, W, D4, alive, athr, use_life, seed,
+        step, fthr);
+  } else {
+    cudaFuncSetAttribute(cnca_update_kernel<false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cnca_update_kernel<false><<<grid, block, smem, s>>>(
+        x, goal, xn, wcol, w1, b1, w2, b2, w3, C, H, W, D4, alive, athr, use_life, seed,
+        step, fthr);
+  }
+  return (int)cudaGetLastError();
+}
+
+// One step's gate: out = clamp(xn * life), life = alive(x) & alive(xn)
+// written to life [B, H, W] unless it is null. Returns cudaGetLastError().
+int cnca_gate_launch(const float* x, const float* xn, float* out, unsigned char* life,
+                     int B, int C, int H, int W, int alive, float athr, int use_life,
+                     float clampv, void* stream) {
+  if (C < 1 || C > CNCA_C_MAX || alive < 0 || alive >= C) return (int)cudaErrorInvalidValue;
+  const int total = B * H * W;
+  cnca_gate_kernel<<<(total + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, xn, out, life, C, H, W, alive, athr, use_life, clampv, total);
+  return (int)cudaGetLastError();
+}
+
+// One reverse step's first pass. x the step's input, goal as x, life its
+// life mask [B, H, W] (ignored without the living channel), g the cotangent
+// of its output, overwritten with g_xn. Writes gp [B, 3C, H, W] and adds into
+// slots [n_blocks, S], n_blocks = ceil(W/16) * ceil(H/8) * B, S = C*27 +
+// 3C*D4 + D4 + D4*D4 + D4 + D4*C (dwcol | dW1 | db1 | dW2 | db2 | dW3).
+// Returns cudaGetLastError().
+int cnca_bwd_mlp_launch(const float* x, const float* goal, const unsigned char* life,
+                        float* g, float* gp, float* slots, const float* wcol,
+                        const float* w1, const float* b1, const float* w2,
+                        const float* b2, const float* w3, int B, int C, int H, int W,
+                        int D4, int alive, float athr, int use_life, float clampv,
+                        int bf16, unsigned int seed, unsigned int step,
+                        unsigned int fthr, void* stream) {
+  if (bad_sizes(C, D4) || alive < 0 || alive >= C) return (int)cudaErrorInvalidValue;
+  const int P = 3 * C, C4 = (C + 3) & ~3;
+  const size_t smem =
+      sizeof(float) * ((size_t)P * D4 + D4 * D4 + D4 * C4 + 2 * D4 + ((C * 27 + 3) & ~3) +
+                       CB_AY * CB_AX + CB_HY * CB_HX + (size_t)C * CB_HY * CB_HX +
+                       (size_t)(P + 2 * D4 + C) * CB_LD);
+  const dim3 grid((W + CB_TX - 1) / CB_TX, (H + CB_TY - 1) / CB_TY, B);
+  const dim3 block(CB_TX, CB_TY);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (bf16) {
+    cudaFuncSetAttribute(cnca_bwd_mlp_kernel<true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cnca_bwd_mlp_kernel<true><<<grid, block, smem, s>>>(
+        x, goal, life, g, gp, slots, wcol, w1, b1, w2, b2, w3, C, H, W, D4, alive, athr,
+        use_life, clampv, seed, step, fthr);
+  } else {
+    cudaFuncSetAttribute(cnca_bwd_mlp_kernel<false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cnca_bwd_mlp_kernel<false><<<grid, block, smem, s>>>(
+        x, goal, life, g, gp, slots, wcol, w1, b1, w2, b2, w3, C, H, W, D4, alive, athr,
+        use_life, clampv, seed, step, fthr);
+  }
+  return (int)cudaGetLastError();
+}
+
+// One reverse step's second pass: g += g_xg and dgoal += g_xg * pre, in
+// place, where g_xg is the depthwise adjoint of gp [B, 3C, H, W] and pre the
+// alive mask of x. Returns cudaGetLastError().
+int cnca_bwd_adjoint_launch(const float* x, const float* gp, const float* wcol, float* g,
+                            float* dgoal, int B, int C, int H, int W, int alive,
+                            float athr, int use_life, void* stream) {
+  if (C < 1 || C > CNCA_C_MAX || alive < 0 || alive >= C) return (int)cudaErrorInvalidValue;
+  const dim3 grid((W + CU_TILE - 1) / CU_TILE, (H + CU_TILE - 1) / CU_TILE, B);
+  const dim3 block(CU_TILE, CU_TILE);
+  cnca_bwd_adjoint_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, gp, wcol, g, dgoal, C, H, W, alive, athr, use_life);
+  return (int)cudaGetLastError();
+}
+
+}  // extern "C"

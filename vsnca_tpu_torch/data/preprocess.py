@@ -1,5 +1,5 @@
 """Style-image preprocessing — the port's own copy of the parts of
-``vsnca_tpu/data/preprocess.py`` the trainer uses (numpy and PIL only):
+``vsnca_tpu/data/preprocess.py`` the trainers use (numpy and PIL only):
 center-crop to a square, resize, [0, 1]; NHWC float32 numpy arrays, as the
 JAX package returns them (the trainer moves them to the device as NCHW).
 """
@@ -50,3 +50,12 @@ def synthetic_style_image(img_size=(128, 128), batch_size: int = 4,
     b = 0.5 + 0.5 * np.sin(2 * np.pi * ((xx + yy) / (h + w) * 4 + seed))
     img = np.stack([r, g, b], axis=-1)[None]
     return np.repeat(img, batch_size, axis=0).astype(np.float32)
+
+
+def synthetic_video(img_size=(128, 128), n_frames: int = 8, seed: int = 0) -> np.ndarray:
+    """Deterministic drifting texture in [-1, 1], [T, H, W, 3]: the synthetic
+    style image rolled 2 pixels a frame along the width."""
+    h, w = img_size
+    base = synthetic_style_image(img_size, 1, seed)[0]
+    frames = [np.roll(base, int(t * 2) % w, axis=1) for t in range(n_frames)]
+    return (np.stack(frames) * 2.0 - 1.0).astype(np.float32)

@@ -1,8 +1,14 @@
-"""Appearance (style) loss on VGG16 features — the port's copy of the Gram
-part of ``vsnca_tpu/losses/appearance.py``, on NCHW feature maps.
+"""Appearance (style) losses on VGG16 features — the port's copy of
+``vsnca_tpu/losses/appearance.py`` on NCHW feature maps: Gram, sliced
+Wasserstein and relaxed optimal transport (REMD + moments).
 
-The sliced-Wasserstein and relaxed-OT metrics are not ported yet (ROADMAP.md
-queue A5): asking for them raises.
+Randomness (the SlW projections, the OT pixel subsample) comes from a
+``torch.Generator``, drawn on the CPU, where the JAX package splits a
+``jax.random`` key: the same distribution, not the same numbers. The
+metrics' helpers take pixels as rows ([B, N, C], N = H*W in row-major order,
+the JAX package's ``_flatten``). ``appearance_loss``, the DyNCA
+orchestrator's dispatcher, takes "Gram" so far; the encoder trainer calls
+the metrics directly.
 """
 
 from __future__ import annotations
@@ -12,7 +18,13 @@ from typing import List, Optional, Sequence
 import torch
 
 from vsnca_tpu_torch.models.vgg import vgg16_style_features
-from vsnca_tpu_torch.ops.resize import resize_bilinear
+from vsnca_tpu_torch.ops.resize import resize_bilinear, resize_nearest_1d
+
+
+def _flatten(f: torch.Tensor) -> torch.Tensor:
+    """[B, C, H, W] → [B, N, C], pixels as rows."""
+    b, c, h, w = f.shape
+    return f.reshape(b, c, h * w).transpose(1, 2)
 
 
 def gram_matrix(f: torch.Tensor) -> torch.Tensor:
@@ -29,6 +41,82 @@ def gram_loss(gen_feats: Sequence[torch.Tensor],
     loss = 0.0
     for g, t in zip(gen_feats, tgt_feats):
         loss = loss + torch.mean((gram_matrix(t).detach() - gram_matrix(g)) ** 2)
+    return loss
+
+
+def _project_sort(x_bnc: torch.Tensor, projs: torch.Tensor) -> torch.Tensor:
+    """[B, N, C] x [C, P] → sorted [B, P, N]."""
+    return torch.sort(torch.einsum("bnc,cp->bpn", x_bnc, projs), dim=-1).values
+
+
+def sliced_wasserstein_loss(gen_feats: Sequence[torch.Tensor],
+                            tgt_feats: Sequence[torch.Tensor],
+                            generator: Optional[torch.Generator] = None, proj_n: int = 32,
+                            projections: Optional[Sequence[torch.Tensor]] = None
+                            ) -> torch.Tensor:
+    """Sum over layers of the sliced-OT loss: ``proj_n`` random projections
+    a layer (normal, drawn from ``generator``, or the given ``projections``
+    [C, proj_n] a layer), each L2-normalized; the target's sorted
+    projections, gradient-stopped, nearest-resampled to the generated
+    length."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    loss = 0.0
+    for i, (g, t) in enumerate(zip(gen_feats, tgt_feats)):
+        gf, tf_ = _flatten(g), _flatten(t)
+        if projections is not None:
+            projs = projections[i].to(gf.device, gf.dtype)
+        else:
+            projs = torch.randn((gf.shape[-1], proj_n), generator=generator).to(gf.device)
+        projs = projs / torch.linalg.vector_norm(projs, dim=0, keepdim=True)
+        sp = _project_sort(gf, projs)
+        tp = resize_nearest_1d(_project_sort(tf_, projs).detach(), sp.shape[-1])
+        loss = loss + torch.sum((sp - tp) ** 2)
+    return loss
+
+
+def _pairwise_cos_dist(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """[..., N, C] x [..., M, C] → [..., N, M] cosine distance with the
+    reference's additive epsilon."""
+    xn = torch.sqrt(torch.sum(x**2, dim=-1, keepdim=True))
+    yn = torch.sqrt(torch.sum(y**2, dim=-1, keepdim=True))
+    return 1.0 - (x @ y.transpose(-1, -2)) / (xn + 1e-10) / (yn.transpose(-1, -2) + 1e-10)
+
+
+def _remd(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Relaxed earth-mover distance of each batch item, [...]."""
+    d = _pairwise_cos_dist(x, y)
+    return torch.maximum(d.min(dim=-1).values.mean(dim=-1), d.min(dim=-2).values.mean(dim=-1))
+
+
+def _moment_loss(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """Mean + covariance matching of each batch item, unbiased covariance."""
+    mu_x, mu_y = x.mean(dim=-2, keepdim=True), y.mean(dim=-2, keepdim=True)
+    xc, yc = x - mu_x, y - mu_y
+    cov_x = (xc.transpose(-1, -2) @ xc) / (x.shape[-2] - 1)
+    cov_y = (yc.transpose(-1, -2) @ yc) / (y.shape[-2] - 1)
+    return (torch.abs(mu_x - mu_y).mean(dim=(-2, -1))
+            + torch.abs(cov_x - cov_y).mean(dim=(-2, -1)))
+
+
+def ot_style_loss(gen_feats: Sequence[torch.Tensor], tgt_feats: Sequence[torch.Tensor],
+                  generator: Optional[torch.Generator] = None, subsample: int = 1000,
+                  subsample_threshold: int = 32) -> torch.Tensor:
+    """Relaxed EMD + moment loss, summed over layers, averaged over the
+    batch (each item's metrics as batched products, one set of launches a
+    layer). A layer taller than ``subsample_threshold`` with more than
+    ``subsample`` pixels is cut to ``subsample`` pixels drawn without
+    replacement from ``generator`` (the same pixels for generated and
+    target). The target features are not gradient-stopped here, as in the
+    reference."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    loss = 0.0
+    for g, t in zip(gen_feats, tgt_feats):
+        h, w = g.shape[-2:]
+        gf, tf_ = _flatten(g), _flatten(t)
+        if h > subsample_threshold and h * w > subsample:
+            idx = torch.randperm(h * w, generator=generator)[:subsample].to(gf.device)
+            gf, tf_ = gf[:, idx], tf_[:, idx]
+        loss = loss + (_remd(tf_, gf) + _moment_loss(tf_, gf)).mean()
     return loss
 
 
@@ -59,8 +147,8 @@ def appearance_loss(
     skips the target's forward."""
     if loss_type != "Gram":
         raise NotImplementedError(
-            f"appearance loss {loss_type!r} is not ported yet (ROADMAP.md A5); "
-            "the port has 'Gram'"
+            f"the DyNCA orchestrator's appearance loss {loss_type!r} waits for its "
+            "presets (ROADMAP.md A6); this dispatcher takes 'Gram'"
         )
     gen_f = vgg16_style_features(vgg_params, (generated + 1.0) / 2.0)
     if target_features is not None:

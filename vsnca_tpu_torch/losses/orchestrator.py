@@ -22,7 +22,7 @@ _NOT_PORTED = {
     "vector_field_motion_weight": "A6",
     "video_motion_weight": "A7",
     "style_consistency_weight": "A6",
-    "content_weight": "A8",
+    "content_weight": "A6",
 }
 
 

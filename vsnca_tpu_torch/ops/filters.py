@@ -16,3 +16,13 @@ SOBEL_Y = SOBEL_X.T.copy()
 LAPLACIAN = np.array(
     [[1.0, 2.0, 1.0], [2.0, -12.0, 2.0], [1.0, 2.0, 1.0]], dtype=np.float32
 )
+
+
+def gaussian_kernel_2d(size: int, sigma: float) -> np.ndarray:
+    """Normalized 2-D Gaussian (the ImageEncoder's blur kernel): un-truncated,
+    evaluated on the integer grid centered at ``size // 2``, summing to 1."""
+    c = size // 2
+    ii, jj = np.meshgrid(np.arange(size), np.arange(size), indexing="ij")
+    k = np.exp(-(((ii - c) ** 2) + ((jj - c) ** 2)) / (2.0 * sigma**2))
+    k = k / k.sum()
+    return k.astype(np.float32)

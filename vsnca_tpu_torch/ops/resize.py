@@ -21,6 +21,17 @@ def _bilinear_matrix(n_out: int, n_in: int) -> np.ndarray:
     return a.astype(np.float32)
 
 
+def resize_nearest_1d(x: torch.Tensor, n: int) -> torch.Tensor:
+    """Nearest-neighbour resize along the last axis of a [..., N] tensor,
+    with torch ``F.interpolate(mode='nearest')``'s index rule
+    src = floor(dst * N_in / N_out)."""
+    n_in = x.shape[-1]
+    if n_in == n:
+        return x
+    idx = np.minimum(np.floor(np.arange(n) * (n_in / n)).astype(np.int64), n_in - 1)
+    return x.index_select(-1, torch.from_numpy(idx).to(x.device))
+
+
 def resize_bilinear(x: torch.Tensor, size) -> torch.Tensor:
     """Bilinear resize of an NCHW tensor to (H, W) = ``size``, without
     antialiasing, as two separable products with static sampling matrices

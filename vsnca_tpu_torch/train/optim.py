@@ -16,8 +16,8 @@ from typing import Dict, Sequence
 import torch
 
 
-def _normalize(g: torch.Tensor) -> torch.Tensor:
-    return g / (torch.linalg.vector_norm(g) + 1e-8)
+def _normalize(g: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
+    return g / (torch.linalg.vector_norm(g) + eps)
 
 
 def normalize_grads(grads: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -34,11 +34,15 @@ def multistep_lr(optimizer: torch.optim.Optimizer, boundaries: Sequence[int],
 
 class NormalizedAdam:
     """grad-normalize → Adam(schedule), over a dict of leaf tensors.
-    ``step()`` takes the gradients in ``.grad`` (left by ``backward``)."""
+    ``step()`` takes the gradients in ``.grad`` (left by ``backward``).
+    ``eps`` is the normalization's: 1e-8 for DyNCA, 1e-10 for the encoder
+    trainer (conditioned_trainer.py:136 of the reference); Adam's own eps
+    stays 1e-8."""
 
     def __init__(self, params: Dict[str, torch.Tensor], lr: float,
-                 boundaries: Sequence[int] = (), gamma: float = 0.5):
+                 boundaries: Sequence[int] = (), gamma: float = 0.5, eps: float = 1e-8):
         self.params = params
+        self.eps = eps
         self.adam = torch.optim.Adam(list(params.values()), lr=lr,
                                      betas=(0.9, 0.999), eps=1e-8)
         self.schedule = multistep_lr(self.adam, boundaries, gamma) if boundaries else None
@@ -50,7 +54,7 @@ class NormalizedAdam:
     def step(self) -> None:
         for p in self.params.values():
             if p.grad is not None:
-                p.grad = _normalize(p.grad)
+                p.grad = _normalize(p.grad, self.eps)
         self.adam.step()
         if self.schedule is not None:
             self.schedule.step()
@@ -61,6 +65,7 @@ class NormalizedAdam:
 
 
 def make_optimizer(params: Dict[str, torch.Tensor], lr: float,
-                   boundaries: Sequence[int] = (), gamma: float = 0.5) -> NormalizedAdam:
-    """grad-normalize → Adam(lr, MultiStepLR(boundaries, gamma))."""
-    return NormalizedAdam(params, lr, boundaries, gamma)
+                   boundaries: Sequence[int] = (), gamma: float = 0.5,
+                   eps: float = 1e-8) -> NormalizedAdam:
+    """grad-normalize (``eps``) → Adam(lr, MultiStepLR(boundaries, gamma))."""
+    return NormalizedAdam(params, lr, boundaries, gamma, eps)
