@@ -20,6 +20,14 @@ exit and no result line:
    cnca_bwd_adjoint): the rollout at 64^2 b1 and b8 and 40x72 b2, rates 1
    and 0.5, living channel on and off, f32 and bf16, the training pair's
    state, dx0, dgoal and weight gradients, and each kernel alone at 64^2 b8;
+   the multiscale kernels of the video_motion cell (c16/fc128, perception
+   scales (0, 1)): nca_step_ms at 40x72 b2 under the three paddings, pos_emb
+   on and off, rates 1 and 0.5, f32 and bf16, and at 256^2 b3; the
+   multiscale pair (nca_step_ms forward, nca_bwd_mlp_ms and
+   nca_bwd_adjoint_ms backward) at 40x72 and at 256^2 b3 x 16 steps, the
+   tapped pair at scales (0,) and (0, 1), each multiscale backward kernel
+   alone at 256^2 b3; one video_motion train step on the card against the
+   CPU at 32^2;
 3. the serving path: ``StylizeServer`` with the edge-conditioned model at
    full width (c12/fc96, random weights from a seed) answers session, frame,
    damage, reset, stream and stats requests at 256^2 with 24 steps a frame;
@@ -34,7 +42,17 @@ exit and no result line:
    a step. The encoder training path: ``ConditionedNCATrainer`` as the
    encoder CLI sets it up (64^2, batch 8, pool 1024, OT + content + overflow,
    steps 48-96) trains 3 iterations, each cnca kernel launched once a step;
-   then the encoder CLI runs 3 epochs in a subprocess;
+   then the encoder CLI runs 3 epochs in a subprocess. The video_motion
+   path: ``DyNCATrainer`` with the video_motion preset at full width
+   (c16/fc128, pos_emb, scales (0, 1), 256^2, batch 3, pool 256, OT +
+   MotionOT + overflow, VGG16 and MSOE from their seeded fallbacks, a
+   synthetic 16-frame video, precomputed target features) trains at step_n
+   80, 144 and one sampled with the reference's tap schedule, each
+   multiscale kernel launched once a step; the CLI trains 2 iterations of
+   it in a subprocess; ``VideoMotionProtocol`` runs warmup 2, calibrates,
+   re-initializes and runs 1 main iteration; ``VideoStylizer`` with the
+   multiscale cell stylizes 12 frames at 256^2, 24 nca_step_ms launches a
+   frame;
 4. times with CUDA events (median of repeats after warm-up): kernel and plain
    ms/step at 256^2 and 512^2, stylizer frames/s, the cell-update rate of
    ``bench.py``'s primary metric; on the host clock the server's frames/s and
@@ -47,7 +65,13 @@ exit and no result line:
    kernel's ms per launch at 64^2 b8 (and the forward's at b1) beside its
    bound and its plain version, the grower's steps/s, one 96-step encoder
    iteration split into its parts, encoder iterations/s, peak memory and a
-   profiler window over one iteration.
+   profiler window over one iteration; each multiscale kernel's ms per launch
+   at 256^2 b3 (and nca_step_ms at the stylizer's b1 bf16) beside its bound
+   and its plain version, one 144-step video_motion iteration split into its
+   parts and its two loss forwards (VGG16 + OT, MSOE + MotionOT) alone,
+   video_motion iterations/s, peak memory and a profiler window over one
+   iteration, the multiscale stylizer's frames/s and a profiler window over
+   its frames.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Needs one card; exits non-zero without
@@ -145,6 +169,14 @@ def get(url: str) -> bytes:
         return r.read()
 
 
+def reset_counts(*mods):
+    """Set every launch count of the wrapper modules ``mods`` to 0 (just
+    before a path is driven)."""
+    for m in mods:
+        m.LAUNCHES = 0
+        m.KERNEL_LAUNCHES.update({k: 0 for k in m.KERNEL_LAUNCHES})
+
+
 def phase_compare(torch, fs, NCAConfig, dynca_init):
     """Kernel vs plain on the card; returns the largest difference seen."""
     dev = "cuda"
@@ -219,7 +251,7 @@ def phase_serve(torch, fs, server_mod, cfg, params):
         base = f"http://127.0.0.1:{srv.port}"
         rng = np.random.RandomState(0)
         bodies = [jpeg(rng.rand(256, 256, 3)) for _ in range(8)]
-        fs.LAUNCHES = 0
+        reset_counts(fs)
         sid = json.loads(post(f"{base}/session",
                               json.dumps({"size": 256, "step_n": STEPS}).encode()))["session"]
         outs = [post(f"{base}/frame/{sid}", b) for b in bodies]
@@ -448,9 +480,7 @@ def phase_train(torch, ft, fs, trainer, inputs):
     """The training path: iterations at 32 and 128 steps and two sampled
     lengths. Returns (launches by kernel, the step counts)."""
     steps = [32, 128, trainer.sample_step_n(), trainer.sample_step_n()]
-    ft.LAUNCHES = 0
-    ft.KERNEL_LAUNCHES.update({k: 0 for k in ft.KERNEL_LAUNCHES})
-    fs.LAUNCHES = 0
+    reset_counts(ft, fs)
     logs, written = [], []
     for n in steps:
         log = trainer.train_iteration(inputs, step_n=n)
@@ -509,12 +539,12 @@ def phase_cli(load_params_pickle):
         raise SystemExit("the CLI's checkpoint does not load")
 
 
-def time_train_iteration(torch, trainer, inputs, step_n: int, reps: int = 3):
-    """One static_texture iteration (``DyNCATrainer.train_iteration``)
-    split with CUDA events, recorded by the train step's ``mark`` hook, into
-    rollout forward, loss forward (VGG16, Gram, overflow), loss backward,
-    rollout backward and optimizer (median of ``reps`` after one warm-up).
-    Returns ms by part."""
+def time_train_iteration(torch, trainer, inputs, step_n: int, reps: int = 3, **iter_kw):
+    """One training iteration (``DyNCATrainer.train_iteration``, with
+    ``iter_kw``'s tap schedule when given) split with CUDA events, recorded
+    by the train step's ``mark`` hook, into rollout forward, loss forward,
+    loss backward, rollout backward and optimizer (median of ``reps`` after
+    one warm-up). Returns ms by part."""
     runs = []
     for _ in range(reps + 1):
         events = {}
@@ -523,7 +553,7 @@ def time_train_iteration(torch, trainer, inputs, step_n: int, reps: int = 3):
             events[name] = torch.cuda.Event(enable_timing=True)
             events[name].record()
 
-        trainer.train_iteration(inputs, step_n=step_n, mark=mark)
+        trainer.train_iteration(inputs, step_n=step_n, mark=mark, **iter_kw)
         torch.cuda.synchronize()
         names = list(events)
         runs.append({a: events[a].elapsed_time(events[b])
@@ -724,8 +754,7 @@ def phase_grower(torch, fc, cn, InteractiveGrower, ConditionedNCAConfig):
     rng = np.random.RandomState(0)
     goals = rng.rand(2, 1, 64, 64, 3).astype(np.float32)
     grower = InteractiveGrower(params, cfg, goals[0], device="cuda")
-    fc.LAUNCHES = 0
-    fc.KERNEL_LAUNCHES.update({k: 0 for k in fc.KERNEL_LAUNCHES})
+    reset_counts(fc)
     chunks = [1, 7, 24, 24, 40]
     rgbs = []
     for i, n in enumerate(chunks):
@@ -780,8 +809,7 @@ def phase_encoder_train(torch, fc, trainer):
         return drawn[-1]
 
     trainer.sample_num_steps = recording
-    fc.LAUNCHES = 0
-    fc.KERNEL_LAUNCHES.update({k: 0 for k in fc.KERNEL_LAUNCHES})
+    reset_counts(fc)
     logs = [trainer.train_iteration(batch_size=8) for _ in range(3)]
     torch.cuda.synchronize()
     trainer.sample_num_steps = sample
@@ -903,6 +931,492 @@ def time_cnca(torch, fc, cn, ConditionedNCAConfig, grower):
     return out, steps_per_s
 
 
+# ------------------------------------------- video_motion: multiscale kernels
+
+# the multiscale kernels' states against their plain versions, float32,
+# relative to the largest element
+MS_STATE_TOL = 1e-6
+VM_SIZE = 256  # the video_motion preset's frame size
+# FLOPs a pixel and channel beyond the scale-0 step: the percept's half state
+# and half-resolution stencils (2x2 mean 4, three stencils 42, over the 4
+# pixels of a half pixel) and the upsample and average of its 4 blocks (4 x
+# 11); the adjoint's transposed upsample over W and H of 4 blocks (56) and
+# half-resolution stencil adjoint (50), over 4 pixels, plus the scale-0
+# adjoint (50) and the average (3)
+MS_PERCEPT_FLOP = (4 + 42) / 4 + 4 * 11
+MS_ADJ_FLOP = (56 + 50) / 4 + 50 + 3
+
+
+def ms_bound_ms(kernel: str, c: int, cc: int, f: int, hw: int, compute_dtype="float32"):
+    """Least time of one launch of a multiscale kernel on an H100, ``hw``
+    pixels over the batch: the bytes it must move (each input read once,
+    each output written once, float32) over the memory rate, against its
+    FLOPs over the peak for the operand type. nca_step_ms reads the state,
+    cond and weights and writes the state: the scale-0 step's MLP
+    (2 (P*F + F*C) a pixel) plus MS_PERCEPT_FLOP a pixel and channel;
+    nca_bwd_mlp_ms moves what nca_bwd_mlp does and adds the same percept
+    recompute to its 2 (3 P*F + 2 F*C); nca_bwd_adjoint_ms reads gp (4C)
+    and gx and writes gx, MS_ADJ_FLOP a pixel and channel."""
+    p = 4 * c + cc
+    weights = (p * f + f + f * c + c) * 4
+    if kernel == "nca_step_ms":
+        n_bytes = (2 * c + cc) * hw * 4 + weights
+        flops = 2 * hw * (p * f + f * c) + MS_PERCEPT_FLOP * c * hw
+    elif kernel == "nca_bwd_mlp_ms":
+        n_bytes = (c + cc + c + 4 * c) * hw * 4 + weights
+        flops = 2 * hw * (3 * p * f + 2 * f * c) + MS_PERCEPT_FLOP * c * hw
+    else:
+        n_bytes = 6 * c * hw * 4
+        flops = MS_ADJ_FLOP * c * hw
+    peak = H100_BF16_FLOPS if compute_dtype == "bfloat16" else H100_F32_FLOPS
+    t_bytes, t_ops = n_bytes / H100_BYTES_PER_S, flops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def ms_cfg(NCAConfig, pad="circular", conditioning="pos_emb", rate=0.5, scales=(0, 1)):
+    """The video_motion preset's cell (c16/fc128) under other settings."""
+    return NCAConfig(c_in=16, fc_dim=128, padding_mode=pad, conditioning=conditioning,
+                     perception_scales=scales, update_rate=rate)
+
+
+def ms_inputs(torch, cfg, dynca_init, shape, seed=0):
+    params = dynca_init(torch.Generator().manual_seed(seed), cfg, device="cuda")
+    g = torch.Generator().manual_seed(seed + 1)
+    x = (torch.rand(shape, generator=g) - 0.5).cuda()
+    cond = None
+    if cfg.conditioning:
+        b, _, h, w = shape
+        cond = (torch.rand((b, cfg.c_cond, h, w), generator=g) - 0.5).cuda()
+    return params, x, cond
+
+
+def phase_compare_ms(torch, fs, NCAConfig, dynca_init):
+    """nca_step_ms against its plain version: 40x72 b2 (ragged, even) under
+    the three padding modes, with and without pos_emb, rates 1 and 0.5, f32
+    and bf16, 4 steps; then 256^2 b3 pos_emb, 24 steps, f32 and bf16. f32
+    states within MS_STATE_TOL of the largest element, bf16 within
+    TOL["bfloat16"]. Returns the largest absolute difference."""
+    worst, n_cases, rows = 0.0, 0, []
+
+    def case(cfg, shape, n_steps, cdt):
+        nonlocal worst, n_cases
+        params, x, cond = ms_inputs(torch, cfg, dynca_init, shape)
+        before = fs.KERNEL_LAUNCHES["nca_step_ms"]
+        got = fs.fused_rollout_chw(params, x, 7, cfg, n_steps, cond, None, cdt)
+        launched = fs.KERNEL_LAUNCHES["nca_step_ms"] - before
+        want = fs.fused_rollout_chw_reference(params, x, 7, cfg, n_steps, cond, None, cdt)
+        torch.cuda.synchronize()
+        err = float((got - want).abs().max())
+        rel = scaled_err(got, want)
+        ok = (rel <= MS_STATE_TOL if cdt == "float32" else err <= TOL[cdt]) and \
+            bool(torch.isfinite(got).all()) and launched == n_steps and \
+            float((want - x).abs().max()) > 0
+        n_cases += 1
+        worst = max(worst, err)
+        return ok, err, rel
+
+    for pad in ("circular", "replicate", "zeros"):
+        for cond in (None, "pos_emb"):
+            for rate in (1.0, 0.5):
+                for cdt in ("float32", "bfloat16"):
+                    ok, err, rel = case(ms_cfg(NCAConfig, pad, cond, rate), (2, 16, 40, 72), 4,
+                                        cdt)
+                    rows.append((cdt, rel, err))
+                    if not ok:
+                        raise SystemExit(f"nca_step_ms disagrees with its plain version: 40x72 "
+                                         f"{pad} {cond} rate {rate} {cdt}: {err:.3e} ({rel:.2e})")
+    f32 = max(r[1] for r in rows if r[0] == "float32")
+    bf = max(r[2] for r in rows if r[0] == "bfloat16")
+    print(f"  nca_step_ms 40x72 b2 c16/fc128, 4 steps: {n_cases} cases (3 paddings x pos_emb "
+          f"on/off x rate 1/0.5 x f32/bf16): f32 max|kernel-plain|/max|plain| {f32:.2e} (tol "
+          f"{MS_STATE_TOL:.0e}), bf16 max|kernel-plain| {bf:.2e} (tol {TOL['bfloat16']:.0e}) ok")
+    for cdt in ("float32", "bfloat16"):
+        ok, err, rel = case(ms_cfg(NCAConfig), (3, 16, VM_SIZE, VM_SIZE), STEPS, cdt)
+        print(f"  nca_step_ms {VM_SIZE}^2 b3 pos_emb rate 0.5, {STEPS} steps {cdt}: "
+              f"max|kernel-plain| {err:.3e} ({rel:.2e} of max|plain|) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit("nca_step_ms disagrees with its plain version at 256^2")
+    return worst
+
+
+def phase_compare_ms_train(torch, ft, NCAConfig, dynca_init):
+    """The multiscale pair (nca_step_ms forward, nca_bwd_mlp_ms and
+    nca_bwd_adjoint_ms backward) against its plain version: states, dx0,
+    dcond and weight gradients at 40x72 b2 (pos_emb on/off, rates 1 and
+    0.5, f32 and bf16) and at 256^2 b3 x 16 steps; the tapped pair at
+    scales (0,) and (0, 1); each multiscale backward kernel alone at
+    256^2 b3. Returns the largest absolute difference of each backward
+    kernel's outputs."""
+    worst = {"nca_bwd_mlp_ms": 0.0, "nca_bwd_adjoint_ms": 0.0}
+
+    def case(name, cfg, shape, n_steps, cdt, taps=()):
+        params, x, cond = ms_inputs(torch, cfg, dynca_init, shape)
+        g = torch.Generator().manual_seed(5)
+        gy = torch.randn(shape, generator=g).cuda()
+        gt = [torch.randn(shape, generator=g).cuda() for _ in taps]
+        p = {k: v.clone().requires_grad_() for k, v in params.items()}
+        xr = x.clone().requires_grad_()
+        cr = None if cond is None else cond.clone().requires_grad_()
+        before = ft.LAUNCHES
+        out = ft.fused_rollout_train(p, xr, 7, cfg, n_steps, cr, None, cdt, tap_steps=taps)
+        y, ys = (out[0], out[1]) if taps else (out, [])
+        ((y * gy).sum() + sum((a * b).sum() for a, b in zip(ys, gt))).backward()
+        launched = ft.LAUNCHES - before
+        ref = ft.fused_rollout_train_reference(params, x, 7, cfg, n_steps, cond, gy, None, cdt,
+                                               need_dcond=cond is not None, tap_steps=taps,
+                                               gtaps=gt)
+        want_y, want_taps, grads, dx0, dcond = ref if taps else (ref[0], [], *ref[1:])
+        torch.cuda.synchronize()
+        pairs = {"dx0": (xr.grad, dx0), **{f"d{k}": (p[k].grad, grads[k]) for k in grads}}
+        if cond is not None:
+            pairs["dcond"] = (cr.grad, dcond)
+        errs = {k: scaled_err(a, b) for k, (a, b) in pairs.items()}
+        states = [(y.detach(), want_y)] + [(a.detach(), b) for a, b in zip(ys, want_taps)]
+        y_err = max(scaled_err(a, b) for a, b in states)
+        y_tol = MS_STATE_TOL if cdt == "float32" else TRAIN_TOL[cdt]
+        nonzero = all(float(b.abs().max()) > 0 for _, b in pairs.values())
+        ok = max(errs.values()) <= TRAIN_TOL[cdt] and y_err <= y_tol and nonzero and \
+            launched == 3 * n_steps and all(bool(torch.isfinite(a).all()) for a, _ in
+                                            pairs.values())
+        print(f"  {name:<42} states {y_err:.2e} of max; grads max|kernel-plain|/max|plain|: "
+              + ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
+              + f" (tol {TRAIN_TOL[cdt]:.0e}; launches {launched}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"multiscale training pair disagrees with its plain version: {name}")
+
+    for cond in (None, "pos_emb"):
+        for rate in (1.0, 0.5):
+            for cdt in ("float32", "bfloat16"):
+                case(f"ms 40x72 b2 4 steps {cond} rate {rate} {cdt[:4]}",
+                     ms_cfg(NCAConfig, conditioning=cond, rate=rate), (2, 16, 40, 72), 4, cdt)
+    case(f"ms {VM_SIZE}^2 b3 16 steps pos_emb rate 0.5 f32", ms_cfg(NCAConfig),
+         (3, 16, VM_SIZE, VM_SIZE), 16, "float32")
+    for scales in ((0,), (0, 1)):
+        case(f"tapped {scales} 40x72 b2 6 steps, taps 1 and 4", ms_cfg(NCAConfig, scales=scales),
+             (2, 16, 40, 72), 6, "float32", taps=(1, 4))
+
+    # each multiscale backward kernel alone at the video_motion shape
+    cfg = ms_cfg(NCAConfig)
+    params, x, cond = ms_inputs(torch, cfg, dynca_init, (3, 16, VM_SIZE, VM_SIZE), seed=2)
+    g = torch.Generator().manual_seed(6)
+    gx = torch.randn(x.shape, generator=g).cuda()
+    gtap = torch.randn(x.shape, generator=g).cuda()
+    packed = ft.fs.pack_weights(params, 16, 2, "float32")
+    args = (packed, x, cond, gx, 5, 17, 0.5, "float32", True, True)
+    got, want = ft.nca_bwd_mlp(*args), ft.nca_bwd_mlp_reference(*args)
+    adj = ft.nca_bwd_adjoint(want[0], gx, gtap, True)
+    adj_want = ft.nca_bwd_adjoint_reference(want[0], gx, gtap, True)
+    torch.cuda.synchronize()
+    mlp_err = max(scaled_err(a, b) for a, b in zip(got, want))
+    adj_err = scaled_err(adj, adj_want)
+    worst["nca_bwd_mlp_ms"] = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    worst["nca_bwd_adjoint_ms"] = float((adj - adj_want).abs().max())
+    ok = mlp_err <= TRAIN_TOL["float32"] and adj_err <= MS_STATE_TOL
+    print(f"  one launch each at {VM_SIZE}^2 b3 pos_emb f32: nca_bwd_mlp_ms max|kernel-plain| "
+          f"{worst['nca_bwd_mlp_ms']:.3e} ({mlp_err:.2e} of max|plain|), nca_bwd_adjoint_ms "
+          f"with a tap {worst['nca_bwd_adjoint_ms']:.3e} ({adj_err:.2e}) "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("a multiscale backward kernel disagrees with its plain version")
+    return worst
+
+
+def vm_iteration(inputs, motion_feats, step_n: int, rng):
+    """(inputs, train_iteration keywords) of one video_motion iteration as
+    the CLI plans it: the reference's tap schedule for ``step_n`` (a frame
+    after steps 1, 65, ...) and a window of the precomputed motion features
+    from ``rng``."""
+    from vsnca_tpu_torch.models.dynca import tap_schedule
+
+    chunks, tail = tap_schedule(step_n, 64)
+    nf = len(chunks)
+    start = rng.randint(0, max(motion_feats.shape[0] + 1 - nf, 1))
+    return ({**inputs, "target_motion_features": motion_feats[start:start + nf - 1]},
+            dict(step_n=step_n, tap_chunks=chunks, tail_steps=tail))
+
+
+def phase_vm_step_parity(torch, make_train_step, LossState, presets, dynca_init,
+                         vgg16_random_init, msoe_random_init, make_optimizer, tap_schedule,
+                         precompute_target_motion_features):
+    """One video_motion train step on the card (the multiscale pair with
+    in-kernel taps) against the same step on the CPU (eager steps a chunk):
+    the preset's cell and losses at 32^2 (OT and MotionOT, nothing
+    subsampled), batch 2, step_n 9 tapped every 4 steps, update rate 1,
+    float32."""
+    import dataclasses
+
+    nca, loss_cfg, _ = presets.video_motion(32)
+    cfg = dataclasses.replace(nca, update_rate=1.0)
+    params = dynca_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    vgg = vgg16_random_init(torch.Generator().manual_seed(16), device="cpu")
+    msoe = msoe_random_init(torch.Generator().manual_seed(175), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    states = torch.rand((2, 16, 32, 32), generator=g) - 0.5
+    style = torch.rand((2, 3, 32, 32), generator=g) * 2 - 1
+    video = torch.rand((4, 3, 32, 32), generator=g) * 2 - 1
+    chunks, tail = tap_schedule(9, 4)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: v.detach().clone().to(dev).requires_grad_() for k, v in params.items()}
+        vg = [{k: v.to(dev) for k, v in d.items()} for d in vgg]
+        ms = {k: v.to(dev) for k, v in msoe.items()}
+        feats = precompute_target_motion_features(ms, video.to(dev), (32, 32))
+        step = make_train_step(cfg, LossState(cfg=loss_cfg, vgg_params=vg, msoe_params=ms),
+                               "none", "auto")
+        _, _, new_states, loss, logs = step(
+            p, make_optimizer(p, 1e-3), states.to(dev), 4,
+            {"target_style": style.to(dev), "target_motion_features": feats[:len(chunks) - 1]},
+            step_n=9, tap_chunks=chunks, tail_steps=tail)
+        out[dev] = (float(loss), {k: float(v) for k, v in logs.items()},
+                    {k: v.detach().cpu() for k, v in p.items()}, new_states.cpu())
+    (lc, gc, pc, sc), (lg, gg, pg, sg) = out["cpu"], out["cuda"]
+    p_err = max(float((pg[k] - pc[k]).abs().max()) for k in pc)
+    s_err = float((sg - sc).abs().max())
+    log_err = max(abs(gg[k] - gc[k]) / abs(gc[k]) for k in gc)
+    ok = abs(lg - lc) <= 1e-4 * abs(lc) and log_err <= 1e-4 and p_err <= 5e-5 and s_err <= 1e-4
+    print(f"  video_motion train step card vs CPU, 32^2 b2 c16/fc128 ms, step_n 9 tapped "
+          f"{chunks}: loss {lg:.6f} vs {lc:.6f} (terms {sorted(gc)} within {log_err:.1e}), "
+          f"params max diff {p_err:.2e} (tol 5e-05), new states {s_err:.2e} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the video_motion train step on the card disagrees with the CPU")
+
+
+def video_motion_trainer(torch, presets, DyNCATrainer, load_vgg16, load_msoe,
+                         synthetic_style_image, synthetic_video,
+                         precompute_target_style_features, precompute_target_motion_features):
+    """DyNCATrainer with the video_motion preset at full width (c16/fc128,
+    pos_emb, circular, scales (0, 1), 256^2, batch 3, pool 256, OT +
+    MotionOT x 5 + overflow), the full VGG16 and MSOE from their seeded
+    fallbacks, the synthetic style image and 16-frame video, and the
+    target's VGG16 and MSOE features precomputed as the CLI does."""
+    nca, loss, train = presets.video_motion()
+    vgg, _ = load_vgg16(device="cuda")
+    msoe, _ = load_msoe(device="cuda")
+    trainer = DyNCATrainer(nca, loss, train, vgg_params=vgg, msoe_params=msoe, device="cuda")
+    hw = train.img_size
+    style = synthetic_style_image(hw, train.batch_size)
+    style = torch.from_numpy(style * 2.0 - 1.0).permute(0, 3, 1, 2).contiguous().cuda()
+    video = torch.from_numpy(synthetic_video(hw, 16)).permute(0, 3, 1, 2).contiguous().cuda()
+    t0 = time.perf_counter()
+    inputs = {"target_style": style,
+              "target_style_features": precompute_target_style_features(
+                  vgg, style, loss.appearance_loss_type, hw)}
+    motion_feats = precompute_target_motion_features(msoe, video, loss.motion_img_size)
+    torch.cuda.synchronize()
+    print(f"  target features: VGG16 of the style batch and MSOE of the video's "
+          f"{motion_feats.shape[0]} pairs {tuple(motion_feats.shape[1:])} in "
+          f"{time.perf_counter() - t0:.2f} s")
+    return trainer, inputs, motion_feats, (vgg, msoe, style, video)
+
+
+def phase_vm_train(torch, ft, fs, trainer, inputs, motion_feats):
+    """The video_motion training path: iterations at step_n 80, 144 and one
+    sampled (at least 65), each with the reference's tap schedule, through
+    the multiscale pair with in-kernel taps. Returns (launches by kernel,
+    the step counts)."""
+    rng = np.random.RandomState(0)
+    steps = [80, 144, max(trainer.sample_step_n(), 65)]
+    reset_counts(ft, fs)
+    logs, written = [], []
+    for n in steps:
+        it_inputs, kw = vm_iteration(inputs, motion_feats, n, rng)
+        logs.append(trainer.train_iteration(it_inputs, **kw))
+        idx = trainer.last_batch_idx
+        written.append(bool(torch.isfinite(trainer.pool.states[idx]).all())
+                       and float(trainer.pool.states[idx].abs().max()) > 0)
+    torch.cuda.synchronize()
+    launches = dict(ft.KERNEL_LAUNCHES)
+    total = sum(steps)
+    ms_names = ("nca_step_ms", "nca_bwd_mlp_ms", "nca_bwd_adjoint_ms")
+    checks = {
+        "losses finite, with appearance and video_motion terms": all(
+            np.isfinite(l.loss) and {"appearance", "video_motion"} <= set(l.logs)
+            and all(np.isfinite(v) for v in l.logs.values()) for l in logs),
+        "nca_step_ms == nca_bwd_mlp_ms == nca_bwd_adjoint_ms == sum(step_n)":
+            all(launches[k] == total for k in ms_names),
+        "no scale-0 launches": all(launches[k] == 0 for k in launches if k not in ms_names),
+        "fused_step nca_step_ms == sum(step_n)": fs.KERNEL_LAUNCHES["nca_step_ms"] == total,
+        "pool written back (finite, non-zero)": all(written),
+    }
+    for log, n in zip(logs, steps):
+        terms = " ".join(f"{k}={v:.4f}" for k, v in log.logs.items())
+        print(f"  iter {log.iteration} step_n {n}: loss={log.loss:.4f} {terms}")
+    print(f"  launches {launches} for sum(step_n) = {total}")
+    for k, v in checks.items():
+        print(f"  {k}: {'ok' if v else 'FAIL'}")
+    if not all(checks.values()):
+        raise SystemExit("video_motion training phase failed")
+    return launches, steps
+
+
+def phase_vm_cli(load_params_pickle):
+    """``python -m vsnca_tpu_torch.train.cli --preset video_motion`` in a
+    subprocess, 2 iterations; its checkpoint must load. The run's directory
+    (the checkpoint holds the 1.07 GB pool) is removed afterwards."""
+    import shutil
+
+    out = "out/chip_smoke_vm_cli"
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "vsnca_tpu_torch.train.cli", "--preset", "video_motion",
+         "--max-iterations", "2", "--log-every", "1", "--out", out],
+        capture_output=True, text=True, timeout=600,
+    )
+    print("\n".join(f"    {line}" for line in r.stdout.strip().splitlines()))
+    if r.returncode != 0:
+        print(r.stderr[-4000:])
+        raise SystemExit(f"the video_motion CLI exited {r.returncode}")
+    params = load_params_pickle(f"{out}/checkpoint", "cpu")
+    shutil.rmtree(out)
+    ok = tuple(params["w1"].shape) == (66, 128) and tuple(params["w2"].shape) == (128, 16)
+    print(f"  video_motion CLI: 2 iterations in {time.perf_counter() - t0:.1f} s (process "
+          f"start, kernel load and target features included); checkpoint loads: "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the video_motion CLI's checkpoint does not load")
+
+
+def phase_vm_protocol(torch, ft, presets, VideoMotionProtocol, extractors):
+    """VideoMotionProtocol at full width: warmup 2 -> calibrate -> reinit ->
+    main 1, its windows of precomputed features; each multiscale kernel
+    launched once a step."""
+    import dataclasses
+
+    vgg, msoe, style, video = extractors
+    nca, loss, train = presets.video_motion()
+    proto = VideoMotionProtocol(nca, loss, dataclasses.replace(train, max_iterations=3),
+                                video, style, warmup_iters=2, device="cuda")
+    drawn = []
+    plan = proto._iteration_kwargs
+
+    def recording(trainer):
+        inputs, kw = plan(trainer)
+        drawn.append(kw["step_n"])
+        return inputs, kw
+
+    proto._iteration_kwargs = recording
+    reset_counts(ft)
+    t0 = time.perf_counter()
+    trainer = proto.run(vgg, msoe)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(ft.KERNEL_LAUNCHES)
+    w = proto.loss_cfg.video_motion_weight
+    checks = {
+        "two warm-up motion losses, finite": len(proto._motion_losses) == 2
+        and all(np.isfinite(proto._motion_losses)),
+        "calibrated weight in [2, 10] (the 256px rule)": 2.0 <= w <= 10.0,
+        "main phase on a fresh trainer, loss finite": trainer.iteration == 1
+        and np.isfinite(trainer.history[-1].loss),
+        "each ms kernel == sum(step_n)": all(
+            launches[k] == sum(drawn) for k in ("nca_step_ms", "nca_bwd_mlp_ms",
+                                                "nca_bwd_adjoint_ms")),
+    }
+    print(f"  step counts {drawn}; warm-up motion losses {proto._motion_losses}; calibrated "
+          f"video_motion weight {w:.4f}; main loss {trainer.history[-1].loss:.4f}; {secs:.2f} s")
+    for k, v in checks.items():
+        print(f"  {k}: {'ok' if v else 'FAIL'}")
+    if not all(checks.values()):
+        raise SystemExit("video_motion protocol phase failed")
+
+
+def phase_ms_stylizer(torch, fs, presets, VideoStylizer, dynca_init):
+    """VideoStylizer with the video_motion cell (c16/fc128, scales (0, 1),
+    random weights from a seed) stylizes 12 frames at 256^2, 24 steps a
+    frame through nca_step_ms. Returns (launches, the stylizer)."""
+    cfg = presets.video_motion()[0]
+    params = dynca_init(torch.Generator().manual_seed(0), cfg, device="cuda")
+    styl = VideoStylizer(params, cfg, VM_SIZE, step_n=STEPS, device="cuda")
+    frames = (torch.rand((12, 1, VM_SIZE, VM_SIZE, 3), generator=torch.Generator().manual_seed(3))
+              * 2 - 1).cuda()
+    reset_counts(fs)
+    rgbs = [styl.step_frame(f) for f in frames]
+    torch.cuda.synchronize()
+    launches = dict(fs.KERNEL_LAUNCHES)
+    checks = {
+        "nca_step_ms == 12 x 24, no nca_step": launches["nca_step_ms"] == 12 * STEPS
+        and launches["nca_step"] == 0,
+        "rgb [1, 256, 256, 3] in [0, 1], state finite": all(
+            tuple(r.shape) == (1, VM_SIZE, VM_SIZE, 3) and float(r.min()) >= 0
+            and float(r.max()) <= 1 for r in rgbs) and bool(torch.isfinite(styl.state).all()),
+    }
+    print(f"  12 frames, {STEPS} steps a frame, bf16: launches {launches}")
+    for k, v in checks.items():
+        print(f"  {k}: {'ok' if v else 'FAIL'}")
+    if not all(checks.values()):
+        raise SystemExit("multiscale stylizer phase failed")
+    return launches["nca_step_ms"], styl
+
+
+def time_ms_kernels(torch, fs, ft, params):
+    """Each multiscale kernel's ms per launch at the video_motion training
+    shape (256^2 b3, pos_emb, f32) beside its bound and its plain version,
+    and nca_step_ms at the stylizer's (256^2 b1, bf16)."""
+    g = torch.Generator().manual_seed(3)
+    shape = (3, 16, VM_SIZE, VM_SIZE)
+    x = (torch.rand(shape, generator=g) - 0.5).cuda()
+    gx = torch.randn(shape, generator=g).cuda()
+    gx_acc = gx.clone()
+    dst = torch.empty_like(x)
+    cond = (torch.rand((3, 2, VM_SIZE, VM_SIZE), generator=g) - 0.5).cuda()
+    gp = torch.empty((3, 64, VM_SIZE, VM_SIZE), device="cuda")
+    packed = fs.pack_weights(params, 16, 2, "float32")
+    slots = ft._zero_slots(3, 16, VM_SIZE, VM_SIZE, packed)
+    thr = fs.uniform_threshold(0.5)
+    hw = 3 * VM_SIZE * VM_SIZE
+    out = {}
+    runs = {
+        "nca_step_ms": (
+            lambda: fs.launch_step(x, dst, cond, packed, "circular", "float32", 5, 17, thr, True),
+            lambda: fs.reference_step(x, cond, packed, "circular", "float32", 5, 17, 0.5, True)),
+        "nca_bwd_mlp_ms": (
+            lambda: ft._launch_mlp(x, cond, gx, gp, None, slots, packed, "float32", 5, 17, thr,
+                                   True),
+            lambda: ft.nca_bwd_mlp_reference(packed, x, cond, gx, 5, 17, 0.5, "float32", False,
+                                             True)),
+        "nca_bwd_adjoint_ms": (
+            lambda: ft._launch_adjoint(gp, gx_acc, None, True),
+            lambda: ft.nca_bwd_adjoint_reference(gp, gx, None, True)),
+    }
+    for name, (kern, plain) in runs.items():
+        bound, by = ms_bound_ms(name, 16, 2, 128, hw)
+        k_ms, p_ms = cuda_ms(kern, 20), cuda_ms(plain, 2)
+        out[name] = (k_ms, p_ms, bound, by)
+        print(f"  {name} {VM_SIZE}^2 b3 pos_emb f32: kernel {k_ms:.4f} ms/launch, plain "
+              f"{p_ms:.4f} ms, bound {bound:.5f} ms ({by}); {k_ms / bound:.1f}x the bound")
+    x1, d1, c1 = x[:1].contiguous(), dst[:1].contiguous(), cond[:1].contiguous()
+    pb = fs.pack_weights(params, 16, 2, "bfloat16")
+    k_ms = cuda_ms(lambda: fs.launch_step(x1, d1, c1, pb, "circular", "bfloat16", 5, 17, thr,
+                                          True), 20)
+    p_ms = cuda_ms(lambda: fs.reference_step(x1, c1, pb, "circular", "bfloat16", 5, 17, 0.5,
+                                             True), 3)
+    bound, by = ms_bound_ms("nca_step_ms", 16, 2, 128, VM_SIZE * VM_SIZE, "bfloat16")
+    out["nca_step_ms_b1_bf16"] = (k_ms, p_ms, bound, by)
+    print(f"  nca_step_ms {VM_SIZE}^2 b1 pos_emb bf16 (the stylizer's): kernel {k_ms:.4f} "
+          f"ms/launch, plain {p_ms:.4f} ms, bound {bound:.5f} ms ({by}); {k_ms / bound:.1f}x "
+          f"the bound")
+    return out
+
+
+def time_vm_losses(torch, vgg, msoe, loss_cfg, frames, style_feats, motion_feats,
+                   appearance_loss, video_motion_loss):
+    """The two loss forwards of a 144-step video_motion iteration (3 tapped
+    frames of batch 3 at 256^2), alone on the same frames: the VGG16 OT
+    appearance on the stacked frames, and MSOE MotionOT on their 2 pairs
+    (CUDA events, median)."""
+    gen = torch.Generator().manual_seed(0)
+    stacked = torch.cat(frames, dim=0)
+    app = cuda_ms(lambda: appearance_loss(vgg, stacked, frames[0][:1], "OT", style_feats, gen,
+                                          loss_cfg.ot_subsample), 2, rounds=3)
+    mot = cuda_ms(lambda: video_motion_loss(msoe, frames, None, "MotionOT", gen,
+                                            loss_cfg.motion_img_size, loss_cfg.ot_subsample,
+                                            target_features=motion_feats), 2, rounds=3)
+    print(f"  of the loss forward, alone on 3 frames b3 at {VM_SIZE}^2: VGG16 + OT appearance "
+          f"{app:.3f} ms, MSOE + MotionOT on 2 pairs {mot:.3f} ms")
+    return app, mot
+
+
 def main() -> int:
     import torch
 
@@ -921,10 +1435,24 @@ def main() -> int:
     from vsnca_tpu_torch.infer import server as server_mod
     from vsnca_tpu_torch.infer.grower import InteractiveGrower
     from vsnca_tpu_torch.infer.stylize import VideoStylizer
-    from vsnca_tpu_torch.losses.appearance import precompute_target_style_features
+    from vsnca_tpu_torch.losses.appearance import (
+        appearance_loss,
+        precompute_target_style_features,
+    )
     from vsnca_tpu_torch.losses.orchestrator import LossState
+    from vsnca_tpu_torch.losses.video_motion import (
+        precompute_target_motion_features,
+        video_motion_loss,
+    )
     from vsnca_tpu_torch.models import conditioned_nca as cn
-    from vsnca_tpu_torch.models.dynca import dynca_init
+    from vsnca_tpu_torch.models.dynca import (
+        dynca_init,
+        make_conditioning,
+        rollout_taps,
+        tap_schedule,
+        to_rgb,
+    )
+    from vsnca_tpu_torch.models.msoe import load_msoe, msoe_random_init
     from vsnca_tpu_torch.models.vgg import load_vgg16, vgg16_random_init
     from vsnca_tpu_torch.ops import _build
     from vsnca_tpu_torch.ops import fused_cnca as fc
@@ -934,6 +1462,7 @@ def main() -> int:
     from vsnca_tpu_torch.train.encoder_trainer import ConditionedNCATrainer
     from vsnca_tpu_torch.train.optim import make_optimizer
     from vsnca_tpu_torch.train.trainer import DyNCATrainer, make_train_step
+    from vsnca_tpu_torch.train.video_motion_protocol import VideoMotionProtocol
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -960,6 +1489,13 @@ def main() -> int:
                             dynca_init, vgg16_random_init, make_optimizer)
     print("[2] ConditionedNCA kernels vs their plain versions on the card (C 20, D 64)")
     cnca_err = phase_compare_cnca(torch, fc, cn, ConditionedNCAConfig)
+    print("[2] multiscale kernels (the video_motion cell, c16/fc128, scales (0, 1)) vs their "
+          "plain versions on the card")
+    ms_err = phase_compare_ms(torch, fs, NCAConfig, dynca_init)
+    ms_train_err = phase_compare_ms_train(torch, ft, NCAConfig, dynca_init)
+    phase_vm_step_parity(torch, make_train_step, LossState, presets, dynca_init,
+                         vgg16_random_init, msoe_random_init, make_optimizer, tap_schedule,
+                         precompute_target_motion_features)
 
     print("[3] serving path: edge_conditioned c12/fc96, 256^2, 24 steps/frame")
     cfg = edge_conditioned()
@@ -985,6 +1521,20 @@ def main() -> int:
                                   synthetic_video)
     enc_launches, enc_steps = phase_encoder_train(torch, fc, enc_trainer)
     phase_encoder_cli(load_params_pickle)
+    print("[3] video_motion training path: DyNCATrainer, video_motion c16/fc128/pos_emb, "
+          "scales (0, 1), 256^2, batch 3, pool 256, OT + MotionOT x 5 + overflow, full VGG16 "
+          "(seed-16 fallback) and MSOE (seed-175 fallback), synthetic 16-frame video")
+    vm_trainer, vm_inputs, vm_feats, vm_extractors = video_motion_trainer(
+        torch, presets, DyNCATrainer, load_vgg16, load_msoe, synthetic_style_image,
+        synthetic_video, precompute_target_style_features, precompute_target_motion_features)
+    vm_launches, vm_steps = phase_vm_train(torch, ft, fs, vm_trainer, vm_inputs, vm_feats)
+    phase_vm_cli(load_params_pickle)
+    print("[3] video_motion protocol: VideoMotionProtocol, warmup 2 -> calibrate -> reinit -> "
+          "main 1, full width")
+    phase_vm_protocol(torch, ft, presets, VideoMotionProtocol, vm_extractors)
+    print("[3] multiscale stylizer: VideoStylizer, video_motion cell c16/fc128, 256^2, random "
+          "weights (seed 0)")
+    ms_styl_launches, ms_styl = phase_ms_stylizer(torch, fs, presets, VideoStylizer, dynca_init)
 
     print("[4] times (CUDA events, median of 5 rounds after warm-up)")
     timing = {}
@@ -1112,6 +1662,62 @@ def main() -> int:
                    1, unit=f"{CNCA_STEPS}-step encoder iteration")
     print(f"  card during timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
+    # the multiscale kernels, the video_motion iteration and the multiscale
+    # stylizer
+    ms_times = time_ms_kernels(torch, fs, ft, {k: v.detach() for k, v in
+                                               vm_trainer.params.items()})
+    vm_rng = np.random.RandomState(1)
+    it_inputs, it_kw = vm_iteration(vm_inputs, vm_feats, 144, vm_rng)
+    it_kw.pop("step_n")
+    vm_split = time_train_iteration(torch, vm_trainer, it_inputs, 144, reps=2, **it_kw)
+    print(f"  video_motion iteration, 144 steps (frames after steps 1, 65, 129): "
+          f"{sum(vm_split.values()):.3f} ms = "
+          + ", ".join(f"{k} {v:.3f}" for k, v in vm_split.items()))
+    with torch.no_grad():
+        vm_params = {k: v.detach() for k, v in vm_trainer.params.items()}
+        x0 = vm_trainer.pool.states[:3].contiguous()
+        cond0 = make_conditioning(vm_trainer.nca_cfg, (VM_SIZE, VM_SIZE), batch=3,
+                                  device="cuda")
+        _, taps = rollout_taps(vm_params, x0, 0, vm_trainer.nca_cfg, it_kw["tap_chunks"],
+                               it_kw["tail_steps"], cond0)
+        frames = [to_rgb(t, 3) for t in taps]
+        vm_app_ms, vm_mot_ms = time_vm_losses(
+            torch, vm_extractors[0], vm_extractors[1], vm_trainer.loss_state.cfg, frames,
+            vm_inputs["target_style_features"], it_inputs["target_motion_features"],
+            appearance_loss, video_motion_loss)
+    torch.cuda.synchronize()
+    vm_held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    vm_trainer.train_iteration(it_inputs, step_n=144, **it_kw)
+    vm_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    n_iters = 4
+    for _ in range(n_iters):
+        n = max(vm_trainer.sample_step_n(), 65)
+        a, kw = vm_iteration(vm_inputs, vm_feats, n, vm_rng)
+        vm_trainer.train_iteration(a, **kw)
+    vm_its = n_iters / (time.perf_counter() - t0)
+    print(f"  video_motion DyNCATrainer.train_iteration at sampled step counts: {vm_its:.3f} "
+          f"iterations/s (host clock, {n_iters} iterations, loss read each); peak device "
+          f"memory of a 144-step iteration {vm_peak_gb:.3f} GB, of which {vm_held_gb:.3f} GB "
+          f"held before it (every phase's pools, weights and buffers)")
+    profile_frames(torch, lambda: vm_trainer.train_iteration(it_inputs, step_n=144, **it_kw),
+                   1, unit="144-step video_motion iteration")
+    ms_frame = (torch.rand((1, VM_SIZE, VM_SIZE, 3), generator=torch.Generator().manual_seed(2))
+                * 2 - 1).cuda()
+
+    def next_ms_frame():  # reset every 24 frames: see phase_serve
+        if ms_styl._frame_idx % STEPS == 0:
+            ms_styl.reset()
+        return ms_styl.step_frame(ms_frame)
+
+    ms_frame_ms = cuda_ms(next_ms_frame, 10)
+    print(f"  multiscale stylizer {VM_SIZE}^2 c16/fc128 bf16: {ms_frame_ms:.4f} ms/frame = "
+          f"{1e3 / ms_frame_ms:.1f} frames/s; nca_step_ms "
+          f"{100 * ms_times['nca_step_ms_b1_bf16'][0] * STEPS / ms_frame_ms:.1f}% of the frame")
+    profile_frames(torch, next_ms_frame, unit="multiscale frame")
+    print(f"  card during timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+
     metrics = {
         "card": card,
         "kernel_ms_per_step_256": timing[256]["kernel_ms_per_step"],
@@ -1139,6 +1745,19 @@ def main() -> int:
         "encoder_iterations_per_s": enc_its,
         "encoder_peak_gb_96": enc_peak_gb,
         **{f"{name}_ms_b{b}": t[0] for (name, b), t in cnca_times.items()},
+        **{f"{name}_ms_256_b3": t[0] for name, t in ms_times.items() if not name.endswith("bf16")},
+        "nca_step_ms_ms_256_b1_bf16": ms_times["nca_step_ms_b1_bf16"][0],
+        "vm_launches": vm_launches,
+        "vm_step_n": vm_steps,
+        **{f"vm_{k.replace(' ', '_')}_ms_144": v for k, v in vm_split.items()},
+        "vm_appearance_loss_fwd_ms": vm_app_ms,
+        "vm_motion_loss_fwd_ms": vm_mot_ms,
+        "vm_iterations_per_s": vm_its,
+        "vm_peak_gb_144": vm_peak_gb,
+        "vm_held_gb_before_144": vm_held_gb,
+        "ms_stylizer_ms_per_frame_256": ms_frame_ms,
+        "ms_stylizer_fps_256": 1e3 / ms_frame_ms,
+        "ms_stylizer_launches": ms_styl_launches,
     }
     print("metrics " + json.dumps(metrics))
     bwd_rows = ("vsnca_tpu/ops/pallas_train.py:2235 (_make_bwd_kernel_flat :1139, "
@@ -1147,6 +1766,8 @@ def main() -> int:
     fwd_rows = ("vsnca_tpu/ops/pallas_cnca.py:250 (_make_cnca_kernel :47); "
                 "vsnca_tpu/ops/pallas_cnca.py:610 (_make_cnca_fwd_train_kernel :350)")
     bwd_cnca = "vsnca_tpu/ops/pallas_cnca.py:675 (_make_cnca_bwd_train_kernel :434)"
+    ms_bwd_rows = ("vsnca_tpu/ops/pallas_train.py:2358 (_make_bwd_kernel_flat_tiled :1301 with "
+                   "_flat_percept_ms_adj :185 and the tap injection :1361-1373, :1542)")
     cnca_rows = {"cnca_update": fwd_rows, "cnca_gate": fwd_rows, "cnca_bwd_mlp": bwd_cnca,
                  "cnca_bwd_adjoint": bwd_cnca}
     print(json.dumps({"kernels": [{
@@ -1187,7 +1808,28 @@ def main() -> int:
         "bound_ms": cnca_times[(name, 8)][2],
         "bound_by": cnca_times[(name, 8)][3],
         "library_ms": None,
-    } for name in fc.KERNEL_LAUNCHES]}))
+    } for name in fc.KERNEL_LAUNCHES] + [{
+        "name": name,
+        "route": "cuda",
+        "source": src,
+        "replaces": rows,
+        "launches": vm_launches[name],
+        "max_abs_err": err,
+        "ms": ms_times[name][0],
+        "plain_ms": ms_times[name][1],
+        "bound_ms": ms_times[name][2],
+        "bound_by": ms_times[name][3],
+        "library_ms": None,
+    } for name, src, rows, err in (
+        ("nca_step_ms", "vsnca_tpu_torch/csrc/nca_step.cu",
+         "vsnca_tpu/ops/pallas_step.py:731 (fused_rollout_chw, _make_kernel_roll_ms :308); "
+         "vsnca_tpu/ops/pallas_train.py:2144 (_fwd_call_flat_tiled_ms, "
+         "_make_fwd_kernel_flat_tiled_ms :1031)", ms_err),
+        ("nca_bwd_mlp_ms", "vsnca_tpu_torch/csrc/nca_train.cu", ms_bwd_rows,
+         ms_train_err["nca_bwd_mlp_ms"]),
+        ("nca_bwd_adjoint_ms", "vsnca_tpu_torch/csrc/nca_train.cu", ms_bwd_rows,
+         ms_train_err["nca_bwd_adjoint_ms"]),
+    )]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

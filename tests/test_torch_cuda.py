@@ -16,6 +16,8 @@ flip a bf16 rounding). Masks are bit-identical, so rate < 1 is held to the
 same tolerances.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -172,8 +174,13 @@ def test_dynca_rollout_takes_the_kernels_on_the_card(cuda):
     ms = NCAConfig(c_in=12, fc_dim=96, padding_mode="circular", perception_scales=(0, 1))
     pm = {k: v.requires_grad_() for k, v in
           dynca.dynca_init(torch.Generator().manual_seed(0), ms, device=cuda).items()}
-    with pytest.raises(NotImplementedError, match="ROADMAP B1"):
-        dynca.dynca_rollout(pm, x, 9, ms, 4)
+    before = dict(ft.KERNEL_LAUNCHES)
+    y3, _ = dynca.dynca_rollout(pm, x, 9, ms, 4)
+    y3.square().sum().backward()
+    assert ft.KERNEL_LAUNCHES["nca_step_ms"] == before["nca_step_ms"] + 4
+    assert ft.KERNEL_LAUNCHES["nca_bwd_adjoint_ms"] == before["nca_bwd_adjoint_ms"] + 4
+    _close(y3.detach(), fs.fused_rollout_chw_reference(
+        {k: v.detach() for k, v in pm.items()}, x, 9, ms, 4), TOL["float32"]["atol"])
 
 
 def test_train_kernel_limits_match_the_python_rule(cuda):
@@ -350,3 +357,104 @@ def test_cnca_kernel_limits_match_the_python_rule(cuda):
     from vsnca_tpu_torch.ops import fused_cnca as fc
 
     assert fc.kernel_limits() == (fc.C_MAX, fc.D_MAX)
+
+
+# ------------------------------------------------ multiscale kernels and taps
+
+
+def _ms_case(cuda, conditioning, shape, pad="circular", seed=0, rate=0.5):
+    cfg = NCAConfig(c_in=shape[1], fc_dim=32, padding_mode=pad, conditioning=conditioning,
+                    perception_scales=(0, 1), update_rate=rate)
+    params = dynca.dynca_init(torch.Generator().manual_seed(seed), cfg, device=cuda)
+    g = torch.Generator().manual_seed(seed + 1)
+    x = (torch.rand(shape, generator=g) - 0.5).to(cuda)
+    gy = torch.randn(shape, generator=g).to(cuda)
+    cond = None
+    if conditioning:
+        b, _, h, w = shape
+        cond = (torch.rand((b, cfg.c_cond, h, w), generator=g) - 0.5).to(cuda)
+    return cfg, params, x, gy, cond
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("conditioning", [None, "pos_emb"])
+@pytest.mark.parametrize("pad_mode", ["circular", "replicate", "zeros"])
+def test_multiscale_kernel_matches_plain(cuda, pad_mode, conditioning, compute_dtype):
+    """nca_step_ms (perception_scales (0, 1)) against its plain version,
+    5 steps at rate 0.5 on a ragged, even 22 x 38 grid (partial blocks and
+    half-resolution halos at every edge); one launch a step."""
+    cfg, params, x, _, cond = _ms_case(cuda, conditioning, (2, 8, 22, 38), pad_mode)
+    before = fs.KERNEL_LAUNCHES["nca_step_ms"]
+    got = fs.fused_rollout_chw(params, x, 3, cfg, 5, cond, None, compute_dtype)
+    assert fs.KERNEL_LAUNCHES["nca_step_ms"] == before + 5
+    want = fs.fused_rollout_chw_reference(params, x, 3, cfg, 5, cond, None, compute_dtype)
+    torch.testing.assert_close(got, want, **TOL[compute_dtype])
+
+
+def test_multiscale_kernel_refuses_odd_sizes(cuda):
+    cfg, params, x, _, _ = _ms_case(cuda, None, (1, 4, 10, 12))
+    with pytest.raises(ValueError, match="even H and W"):
+        fs.fused_rollout_chw(params, x[..., :11], 0, cfg, 1)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_multiscale_backward_kernels_match_plain(cuda, compute_dtype):
+    """One launch each of nca_bwd_mlp_ms and nca_bwd_adjoint_ms (with a tap
+    cotangent) at rate 0.5 on a ragged 22 x 38 grid."""
+    from vsnca_tpu_torch.ops import fused_train as ft
+
+    cfg, params, x, gx, cond = _ms_case(cuda, "pos_emb", (2, 8, 22, 38))
+    packed = fs.pack_weights(params, 8, 2, compute_dtype)
+    args = (packed, x, cond, gx, 3, 5, 0.5, compute_dtype, True, True)
+    before = dict(ft.KERNEL_LAUNCHES)
+    got = ft.nca_bwd_mlp(*args)
+    want = ft.nca_bwd_mlp_reference(*args)
+    assert ft.KERNEL_LAUNCHES["nca_bwd_mlp_ms"] == before["nca_bwd_mlp_ms"] + 1
+    for a, b in zip(got, want):
+        _close(a, b, TRAIN_TOL[compute_dtype])
+    gtap = torch.randn(x.shape, generator=torch.Generator().manual_seed(9)).to(cuda)
+    _close(ft.nca_bwd_adjoint(want[0], gx, gtap, True),
+           ft.nca_bwd_adjoint_reference(want[0], gx, gtap, True), TRAIN_TOL["float32"])
+    assert ft.KERNEL_LAUNCHES["nca_bwd_adjoint_ms"] == before["nca_bwd_adjoint_ms"] + 1
+
+
+@pytest.mark.parametrize("scales", [(0,), (0, 1)])
+def test_tapped_pair_matches_plain(cuda, scales):
+    """The pair with taps after steps 1 and 3 of 5: state, taps and every
+    gradient against the plain version; n forward and 2n backward launches,
+    whatever the taps."""
+    from vsnca_tpu_torch.ops import fused_train as ft
+
+    cfg, params, x, gy, cond = _ms_case(cuda, "pos_emb", (2, 8, 24, 40))
+    cfg = dataclasses.replace(cfg, perception_scales=scales)
+    g = torch.Generator().manual_seed(4)
+    gtaps = [torch.randn(x.shape, generator=g).to(cuda) for _ in range(2)]
+    p = {k: v.clone().requires_grad_() for k, v in params.items()}
+    xr = x.clone().requires_grad_()
+    before = ft.LAUNCHES
+    y, taps = ft.fused_rollout_train(p, xr, 9, cfg, 5, cond, tap_steps=(1, 3))
+    ((y * gy).sum() + sum((t * q).sum() for t, q in zip(taps, gtaps))).backward()
+    assert ft.LAUNCHES == before + 15
+    want_y, want_taps, grads, dx0, _ = ft.fused_rollout_train_reference(
+        params, x, 9, cfg, 5, cond, gy, tap_steps=(1, 3), gtaps=gtaps)
+    _close(y.detach(), want_y, TOL["float32"]["atol"])
+    for a, b in zip(taps, want_taps):
+        _close(a.detach(), b, TOL["float32"]["atol"])
+    for k in grads:
+        _close(p[k].grad, grads[k], TRAIN_TOL["float32"])
+    _close(xr.grad, dx0, TRAIN_TOL["float32"])
+
+
+def test_multiscale_stylizer_on_card_matches_cpu(cuda):
+    """A multiscale model through VideoStylizer: one nca_step_ms launch a
+    step, the same frames as the CPU path, float32."""
+    cfg = NCAConfig(c_in=8, fc_dim=32, padding_mode="circular", conditioning="pos_emb",
+                    perception_scales=(0, 1))
+    params = dynca.dynca_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    frames = np.random.RandomState(3).uniform(-1, 1, (2, 1, 40, 24, 3)).astype(np.float32)
+    on = VideoStylizer(params, cfg, (40, 24), step_n=8, device=cuda, compute_dtype="float32")
+    off = VideoStylizer(params, cfg, (40, 24), step_n=8, device="cpu", compute_dtype="float32")
+    before = fs.KERNEL_LAUNCHES["nca_step_ms"]
+    for f in frames:
+        torch.testing.assert_close(on.step_frame(f).cpu(), off.step_frame(f), **TOL["float32"])
+    assert fs.KERNEL_LAUNCHES["nca_step_ms"] == before + 16

@@ -41,7 +41,8 @@ def _frames(n, h, w, seed=0):
 @pytest.mark.parametrize("kw", [
     dict(c_in=6, fc_dim=16, conditioning="edges"),
     dict(c_in=6, seed_channels=5, fc_dim=16),
-], ids=["edge_conditioned", "extra_channel"])
+    dict(c_in=6, fc_dim=16, conditioning="pos_emb", perception_scales=(0, 1)),
+], ids=["edge_conditioned", "extra_channel", "multiscale"])
 def test_stylizer_matches_jax(kw):
     kw = dict(kw, update_rate=1.0)
     jp = jdynca_init(jax.random.PRNGKey(0), JNCAConfig(**kw))

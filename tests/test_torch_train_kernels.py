@@ -211,7 +211,7 @@ def test_pair_refuses_what_it_does_not_compute(bad):
     if bad == "padding":
         kw["padding_mode"] = "replicate"
     elif bad == "scales":
-        kw["perception_scales"] = (0, 1)
+        kw["perception_scales"] = (0, 1, 2)
     cfg = NCAConfig(**kw)
     params = dynca.dynca_init(torch.Generator().manual_seed(0), cfg, device="cpu")
     n_steps = 0 if bad == "steps" else 2
@@ -222,10 +222,11 @@ def test_pair_refuses_what_it_does_not_compute(bad):
 
 def test_rollout_route_runs_kernels_on_the_card_wherever_jax_runs_pallas():
     """``dynca_rollout``'s one routing rule, for a CUDA tensor: the pair
-    for a trainable circular scales-(0,) config, the rollout kernel without
-    a gradient, eager steps where the JAX trainer scans (other paddings,
-    other scales), NotImplementedError where the JAX trainer runs a Pallas
-    pair the port lacks; on the CPU 'auto' is eager and 'fused' the pair."""
+    for a trainable circular config at scales (0,) or (0, 1), the rollout
+    kernels without a gradient under any padding, eager steps where the JAX
+    trainer scans (other paddings under a gradient, other scales),
+    NotImplementedError for a circular config past the kernels' size
+    limits; on the CPU 'auto' is eager and 'fused' the pair."""
     route = dynca.rollout_route
     circ = dict(padding_mode="circular")
     st = NCAConfig(c_in=12, fc_dim=96, conditioning="pos_emb", **circ)
@@ -236,10 +237,13 @@ def test_rollout_route_runs_kernels_on_the_card_wherever_jax_runs_pallas():
     assert route(st, 8, "cuda", True, "xla") == "eager"
     assert route(NCAConfig(padding_mode="replicate"), 8, "cuda", True) == "eager"
     assert route(NCAConfig(perception_scales=(0, 1, 2), **circ), 8, "cuda", True) == "eager"
-    assert route(NCAConfig(perception_scales=(0, 1), **circ), 8, "cuda", False) == "eager"
-    for cfg in (NCAConfig(perception_scales=(0, 1), **circ), NCAConfig(c_in=20, **circ)):
-        with pytest.raises(NotImplementedError, match="ROADMAP B1"):
-            route(cfg, 8, "cuda", True)
+    assert route(NCAConfig(perception_scales=(0, 1, 2), **circ), 8, "cuda", False) == "eager"
+    for pad in ("circular", "replicate", "zeros"):
+        ms = NCAConfig(perception_scales=(0, 1), padding_mode=pad)
+        assert route(ms, 8, "cuda", False) == "step"
+        assert route(ms, 8, "cuda", True) == ("pair" if pad == "circular" else "eager")
+    with pytest.raises(NotImplementedError, match="kernels take C <= 16"):
+        route(NCAConfig(c_in=20, **circ), 8, "cuda", True)
     with pytest.raises(ValueError, match="rollout_path"):
         route(st, 8, "cuda", True, "scan")
 

@@ -37,7 +37,7 @@ from vsnca_tpu_torch.convert import params_from_jax, vgg_from_jax
 from vsnca_tpu_torch.losses.appearance import precompute_target_style_features
 from vsnca_tpu_torch.losses.orchestrator import LossState
 from vsnca_tpu_torch.train.optim import make_optimizer
-from vsnca_tpu_torch.train.presets import PRESETS, static_texture
+from vsnca_tpu_torch.train.presets import PRESETS, static_texture, video_motion
 from vsnca_tpu_torch.train.trainer import DyNCATrainer, make_train_step
 
 from test_torch_losses import np_vgg16
@@ -157,12 +157,15 @@ def test_trainer_iterations_match_jax_draw_for_draw():
 
 def test_presets_match_jax():
     from vsnca_tpu.train.presets import static_texture as jstatic
+    from vsnca_tpu.train.presets import video_motion as jvideo
 
-    for mine, theirs in zip(static_texture(), jstatic()):
-        assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
-    for size in (64, 256):
-        assert dataclasses.asdict(static_texture(size)[2]) == dataclasses.asdict(jstatic(size)[2])
-    assert set(PRESETS) == {"static_texture"}
+    for mine_fn, theirs_fn in ((static_texture, jstatic), (video_motion, jvideo)):
+        for mine, theirs in zip(mine_fn(), theirs_fn()):
+            assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
+        for size in (64, 256):
+            for mine, theirs in zip(mine_fn(size), theirs_fn(size)):
+                assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
+    assert set(PRESETS) == {"static_texture", "video_motion"}
     assert dataclasses.asdict(TrainConfig()) == dataclasses.asdict(JTrainConfig())
     assert dataclasses.asdict(LossConfig()) == dataclasses.asdict(JLossConfig())
 
@@ -171,9 +174,11 @@ def test_unported_loss_terms_raise():
     from vsnca_tpu_torch.losses.appearance import appearance_loss
     from vsnca_tpu_torch.losses.orchestrator import make_loss_fn
 
-    for term in ("video_motion_weight", "vector_field_motion_weight", "auxiliary_weight"):
+    for term in ("vector_field_motion_weight", "auxiliary_weight", "content_weight"):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             make_loss_fn(LossState(cfg=LossConfig(**{term: 1.0})))
+    with pytest.raises(ValueError, match="MSOE"):
+        make_loss_fn(LossState(cfg=LossConfig(video_motion_weight=1.0)))
     img = torch.zeros((1, 3, 32, 32))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        appearance_loss([], img, img, "OT")
+    with pytest.raises(ValueError, match="appearance loss type"):
+        appearance_loss([], img, img, "MotionOT")

@@ -83,3 +83,17 @@ def load_params_pickle(path: str, device=None) -> Dict[str, torch.Tensor]:
     with open(path, "rb") as f:
         state = pickle.load(f)
     return params_from_jax(state["params"], device)
+
+
+def msoe_from_jax(np_msoe: dict, device=None) -> Dict[str, torch.Tensor]:
+    """The JAX package's MSOE parameters (``msoe_random_init``'s or a
+    converted npz's: {name: array}, kernels HWIO) → the port's float32
+    tensors, kernels OIHW, on ``device``."""
+    dev = resolve_device(device)
+    out = {}
+    for name, a in np_msoe.items():
+        a = np.array(a, dtype=np.float32)
+        if a.ndim == 4:
+            a = a.transpose(3, 2, 0, 1).copy()
+        out[name] = torch.from_numpy(a).to(dev)
+    return out

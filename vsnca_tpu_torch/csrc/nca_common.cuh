@@ -1,7 +1,8 @@
 // Pieces shared by the DyNCA kernels (nca_step.cu, nca_train.cu): the tile
 // geometry, the size limits, the update-mask hash, bf16 rounding, the
-// padding rule and the perception stencils. Every kernel that includes this
-// draws the same masks and rounds the same way.
+// padding rule, the perception stencils and the multiscale (scales (0, 1))
+// percept. Every kernel that includes this draws the same masks, rounds the
+// same way and forms the same percept bit for bit.
 
 #pragma once
 
@@ -14,6 +15,13 @@
 #define NCA_C_MAX 16
 #define NCA_CC_MAX 4
 #define NCA_F_MAX 128
+
+// Multiscale geometry of a 16 x 16 block: its pixels read the upsampled
+// half-resolution percept on a 10 x 10 footprint of half pixels (the 8 x 8
+// half pixels under the block plus one each side, for the 0.25 taps), and
+// that percept's 3x3 stencils read a 12 x 12 tile of the half state.
+#define NCA_HFOOT (NCA_TILE / 2 + 2)
+#define NCA_HHALO (NCA_HFOOT + 2)
 
 __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   h ^= h >> 16;
@@ -47,13 +55,13 @@ __device__ __forceinline__ int pad_index(int i, int n, int mode) {
 // The JAX stencil's term order (perception.py::stencil_3x3), with products
 // and sums kept unfused so the float32 percept rounds as the reference's.
 // t points at the top-left tap of a 3x3 window in a row-major tile whose
-// rows are NCA_HALO floats apart.
+// rows are LD floats apart.
+template <int LD = NCA_HALO>
 __device__ __forceinline__ void stencils(const float* t, float& sx, float& sy,
                                          float& lap) {
   const float v00 = t[0], v01 = t[1], v02 = t[2];
-  const float v10 = t[NCA_HALO], v11 = t[NCA_HALO + 1], v12 = t[NCA_HALO + 2];
-  const float v20 = t[2 * NCA_HALO], v21 = t[2 * NCA_HALO + 1],
-              v22 = t[2 * NCA_HALO + 2];
+  const float v10 = t[LD], v11 = t[LD + 1], v12 = t[LD + 2];
+  const float v20 = t[2 * LD], v21 = t[2 * LD + 1], v22 = t[2 * LD + 2];
   // SOBEL_X = [[-1,0,1],[-2,0,2],[-1,0,1]]
   float a = __fmul_rn(v00, -1.f);
   a = __fadd_rn(a, v02);
@@ -78,4 +86,92 @@ __device__ __forceinline__ void stencils(const float* t, float& sx, float& sy,
   a = __fadd_rn(a, v20);
   a = __fadd_rn(a, __fmul_rn(v21, 2.f));
   lap = __fadd_rn(a, v22);
+}
+
+// The C x 18 x 18 state tile of the block whose top-left halo pixel is
+// (y0, x0), halo resolved by the padding mode. All threads of the block
+// call it; the caller synchronises.
+__device__ __forceinline__ void stage_tile(float* tile, const float* xb, int C,
+                                           int H, int W, int y0, int x0,
+                                           int pad_mode, int tid, int nthr) {
+  const int HW = H * W;
+  for (int i = tid; i < C * NCA_HALO * NCA_HALO; i += nthr) {
+    const int c = i / (NCA_HALO * NCA_HALO);
+    const int r = (i / NCA_HALO) % NCA_HALO, q = i % NCA_HALO;
+    const int gy = pad_index(y0 + r, H, pad_mode);
+    const int gx = pad_index(x0 + q, W, pad_mode);
+    tile[i] = (gy < 0 || gx < 0) ? 0.f : xb[(size_t)c * HW + gy * W + gx];
+  }
+}
+
+// perception_scales (0, 1), first part: the block's half-resolution
+// percept hp [4C][10][10] (blocks raw, sobel_x, sobel_y, laplacian; entry
+// (r, q) is half pixel (by*8 - 1 + r, bx*8 - 1 + q)) from a 12 x 12 tile
+// of the half state, each half pixel the exact 2x2 mean of the state,
+// ((x00 + x01) + x10) + x11 times 0.25 (fused_step.py::half_state), the
+// tile's halo resolved at half resolution under the padding mode. Even H
+// and W. htile [C][12][12] is scratch. All threads of the block call it;
+// it synchronises between its two passes and at its end.
+__device__ __forceinline__ void half_percept(float* htile, float* hp,
+                                             const float* xb, int C, int H,
+                                             int W, int by, int bx,
+                                             int pad_mode, int tid, int nthr) {
+  const int HW = H * W, H2 = H / 2, W2 = W / 2;
+  const int hy0 = by * (NCA_TILE / 2) - 2, hx0 = bx * (NCA_TILE / 2) - 2;
+  for (int i = tid; i < C * NCA_HHALO * NCA_HHALO; i += nthr) {
+    const int c = i / (NCA_HHALO * NCA_HHALO);
+    const int r = (i / NCA_HHALO) % NCA_HHALO, q = i % NCA_HHALO;
+    const int gy = pad_index(hy0 + r, H2, pad_mode);
+    const int gx = pad_index(hx0 + q, W2, pad_mode);
+    float v = 0.f;
+    if (gy >= 0 && gx >= 0) {
+      const float* p = xb + (size_t)c * HW + (2 * gy) * W + 2 * gx;
+      v = __fmul_rn(__fadd_rn(__fadd_rn(__fadd_rn(p[0], p[1]), p[W]), p[W + 1]),
+                    0.25f);
+    }
+    htile[i] = v;
+  }
+  __syncthreads();
+  const int nf = NCA_HFOOT * NCA_HFOOT;
+  for (int i = tid; i < C * nf; i += nthr) {
+    const int c = i / nf, r = (i / NCA_HFOOT) % NCA_HFOOT, q = i % NCA_HFOOT;
+    const float* t = htile + (c * NCA_HHALO + r) * NCA_HHALO + q;
+    float sx, sy, lap;
+    stencils<NCA_HHALO>(t, sx, sy, lap);
+    const int o = r * NCA_HFOOT + q;
+    hp[(0 * C + c) * nf + o] = t[NCA_HHALO + 1];
+    hp[(1 * C + c) * nf + o] = sx;
+    hp[(2 * C + c) * nf + o] = sy;
+    hp[(3 * C + c) * nf + o] = lap;
+  }
+  __syncthreads();
+}
+
+// Footprint indices of the upsample for local pixel p (0..15) of a block
+// along one axis of n full pixels: f is the half pixel under it, fn the
+// neighbour its 0.25 tap reads — the one before for an even pixel, after
+// for an odd one, itself at the edges (the clamp of resize_matrix(2m, m)).
+__device__ __forceinline__ void upsample_taps(int block, int p, int n, int& f,
+                                              int& fn) {
+  const int g = block * NCA_TILE + p, i = g >> 1;
+  f = (p >> 1) + 1;
+  if ((g & 1) == 0) {
+    fn = i == 0 ? f : f - 1;
+  } else {
+    fn = i == n / 2 - 1 ? f : f + 1;
+  }
+}
+
+// perception_scales (0, 1), second part: a pixel's averaged percept value
+// from its scale-0 value p0 and one [10][10] block s of hp: the upsample
+// over W (0.75 s[j] + 0.25 s[jn]) on the half rows i and in, then over H,
+// then (p0 + p1) * 0.5 (fused_step.py::multiscale_percept's order).
+__device__ __forceinline__ float ms_average(const float* s, int fi, int fin,
+                                            int fj, int fjn, float p0) {
+  const float ua = __fadd_rn(__fmul_rn(s[fi * NCA_HFOOT + fj], 0.75f),
+                             __fmul_rn(s[fi * NCA_HFOOT + fjn], 0.25f));
+  const float ub = __fadd_rn(__fmul_rn(s[fin * NCA_HFOOT + fj], 0.75f),
+                             __fmul_rn(s[fin * NCA_HFOOT + fjn], 0.25f));
+  const float p1 = __fadd_rn(__fmul_rn(ua, 0.75f), __fmul_rn(ub, 0.25f));
+  return __fmul_rn(__fadd_rn(p0, p1), 0.5f);
 }

@@ -40,6 +40,28 @@
 // (fused_step.py::mask_bits), so the kernel and its plain version draw
 // bit-identical masks, and the training backward (nca_train.cu) replays
 // them.
+//
+// nca_step_ms — the same kernel compiled with MS = true, for
+// perception_scales (0, 1) — replaces
+//   * _make_kernel_roll_ms          (pallas_step.py:308, called by
+//     fused_rollout_chw :731), the multiscale inference rollout,
+//   * _make_fwd_kernel_flat_tiled_ms (pallas_train.py:1031, called by
+//     _fwd_call_flat_tiled_ms :2144), the multiscale training forward
+//     (ops/fused_train.py launches it once a step into the checkpoint).
+// Per step it computes perceive_multiscale: the state's exact 2x2 mean at
+// half resolution, that half state's stencils under the padding mode, the
+// 0.75/0.25 upsample with edge clamping, the average with the scale-0
+// percept. The half state is a prologue, not a separate launch: each block
+// builds the 12 x 12 half-state tile it needs straight from the state (each
+// half pixel reads its four full pixels, ~1.8x the full tile's reads, from
+// L2), then the 4C x 10 x 10 half percept of its footprint in shared memory
+// (nca_common.cuh::half_percept), and each thread upsamples its pixel's
+// share of it (ms_average). Nothing of the half resolution reaches device
+// memory, so the training backward recomputes it from the checkpointed
+// state through the same device functions rather than keep a second buffer
+// a step. What bounds it is the same MLP as the scale-0 step (the half
+// percept adds ~0.3 kFLOP a pixel to ~12-37 kFLOP); its shared memory
+// (~98 KB at c16/fc128/cc2) allows two blocks an SM.
 
 #include "nca_common.cuh"
 
@@ -49,7 +71,8 @@
 //   w2s [F4, C_MAX] zero columns past C
 //   b1s [F4], b2s [C_MAX]
 //   tile [C, 18, 18]
-template <bool BF16>
+//   MS only: htile [C, 12, 12], hp [4C, 10, 10]
+template <bool BF16, bool MS>
 __global__ void __launch_bounds__(NCA_TILE * NCA_TILE)
 nca_step_kernel(const float* __restrict__ x, float* __restrict__ out,
                 const float* __restrict__ cond, const float* __restrict__ w1,
@@ -64,6 +87,8 @@ nca_step_kernel(const float* __restrict__ x, float* __restrict__ out,
   float* b1s = w2s + F4 * NCA_C_MAX;
   float* b2s = b1s + F4;
   float* tile = b2s + NCA_C_MAX;
+  float* htile = tile + C * NCA_HALO * NCA_HALO;
+  float* hp = htile + C * NCA_HHALO * NCA_HHALO;
 
   const int tid = threadIdx.y * NCA_TILE + threadIdx.x;
   const int nthr = NCA_TILE * NCA_TILE;
@@ -78,21 +103,26 @@ nca_step_kernel(const float* __restrict__ x, float* __restrict__ out,
   for (int i = tid; i < F4; i += nthr) b1s[i] = b1[i];
   for (int i = tid; i < NCA_C_MAX; i += nthr) b2s[i] = i < C ? b2[i] : 0.f;
 
-  const int y0 = blockIdx.y * NCA_TILE - 1, x0 = blockIdx.x * NCA_TILE - 1;
   const float* xb = x + (size_t)b * C * HW;
-  for (int i = tid; i < C * NCA_HALO * NCA_HALO; i += nthr) {
-    const int c = i / (NCA_HALO * NCA_HALO);
-    const int r = (i / NCA_HALO) % NCA_HALO, q = i % NCA_HALO;
-    const int gy = pad_index(y0 + r, H, pad_mode);
-    const int gx = pad_index(x0 + q, W, pad_mode);
-    tile[i] = (gy < 0 || gx < 0) ? 0.f : xb[(size_t)c * HW + gy * W + gx];
+  stage_tile(tile, xb, C, H, W, blockIdx.y * NCA_TILE - 1,
+             blockIdx.x * NCA_TILE - 1, pad_mode, tid, nthr);
+  if (MS) {
+    half_percept(htile, hp, xb, C, H, W, blockIdx.y, blockIdx.x, pad_mode, tid,
+                 nthr);
+  } else {
+    __syncthreads();
   }
-  __syncthreads();
 
   const int px = blockIdx.x * NCA_TILE + threadIdx.x;
   const int py = blockIdx.y * NCA_TILE + threadIdx.y;
   if (px >= W || py >= H) return;
   const int pix = py * W + px;
+  int fi = 0, fin = 0, fj = 0, fjn = 0;
+  if (MS) {
+    upsample_taps(blockIdx.y, threadIdx.y, H, fi, fin);
+    upsample_taps(blockIdx.x, threadIdx.x, W, fj, fjn);
+  }
+  const int nf = NCA_HFOOT * NCA_HFOOT;
 
   // Percept in registers: pc[k][c] is block k (raw, sx, sy, lap) of
   // channel c; every index is a compile-time constant after unrolling.
@@ -109,6 +139,11 @@ nca_step_kernel(const float* __restrict__ x, float* __restrict__ out,
       pc[1][c] = sx;
       pc[2][c] = sy;
       pc[3][c] = lap;
+      if (MS) {
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          pc[k][c] = ms_average(hp + (k * C + c) * nf, fi, fin, fj, fjn, pc[k][c]);
+      }
     } else {
       pc[0][c] = pc[1][c] = pc[2][c] = pc[3][c] = 0.f;
     }
@@ -192,6 +227,19 @@ nca_step_kernel(const float* __restrict__ x, float* __restrict__ out,
   }
 }
 
+template <bool BF16, bool MS>
+static void launch(dim3 grid, dim3 block, size_t smem, cudaStream_t s,
+                   const float* x, float* out, const float* cond,
+                   const float* w1, const float* b1, const float* w2,
+                   const float* b2, int C, int H, int W, int cc, int F4,
+                   int pad_mode, unsigned int seed, unsigned int step,
+                   unsigned int thr) {
+  cudaFuncSetAttribute(nca_step_kernel<BF16, MS>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  nca_step_kernel<BF16, MS><<<grid, block, smem, s>>>(
+      x, out, cond, w1, b1, w2, b2, C, H, W, cc, F4, pad_mode, seed, step, thr);
+}
+
 extern "C" {
 
 // Sizes past these limits are refused by the wrapper before launch.
@@ -205,36 +253,39 @@ int nca_step_limits(int* c_max, int* cc_max, int* f_max) {
 // One step: x [B, C, H, W] -> out [B, C, H, W] (distinct buffers). cond is
 // [B, cc, H, W] or null when cc == 0. w1 [4C + cc, F4], b1 [F4], w2 [F4, C],
 // b2 [C], all float32, F4 a multiple of 4. pad_mode: 0 circular,
-// 1 replicate, 2 zeros. Returns the launch's cudaGetLastError().
+// 1 replicate, 2 zeros. ms: perception_scales (0, 1) (nca_step_ms; even H
+// and W) instead of (0,). Returns the launch's cudaGetLastError().
 int nca_step_launch(const float* x, float* out, const float* cond,
                     const float* w1, const float* b1, const float* w2,
                     const float* b2, int B, int C, int H, int W, int cc,
-                    int F4, int pad_mode, int bf16, unsigned int seed,
+                    int F4, int pad_mode, int bf16, int ms, unsigned int seed,
                     unsigned int step, unsigned int thr, void* stream) {
   if (C < 1 || C > NCA_C_MAX || cc < 0 || cc > NCA_CC_MAX || F4 < 4 ||
-      F4 > NCA_F_MAX || F4 % 4 != 0 || pad_mode < 0 || pad_mode > 2)
+      F4 > NCA_F_MAX || F4 % 4 != 0 || pad_mode < 0 || pad_mode > 2 ||
+      (ms && (H % 2 || W % 2)))
     return (int)cudaErrorInvalidValue;
   const int P = 4 * C + cc;
-  const size_t smem = sizeof(float) * ((size_t)P * F4 + (size_t)F4 * NCA_C_MAX +
-                                       F4 + NCA_C_MAX +
-                                       (size_t)C * NCA_HALO * NCA_HALO);
+  size_t floats = (size_t)P * F4 + (size_t)F4 * NCA_C_MAX + F4 + NCA_C_MAX +
+                  (size_t)C * NCA_HALO * NCA_HALO;
+  if (ms)
+    floats += (size_t)C * (NCA_HHALO * NCA_HHALO + 4 * NCA_HFOOT * NCA_HFOOT);
+  const size_t smem = sizeof(float) * floats;
   const dim3 grid((W + NCA_TILE - 1) / NCA_TILE, (H + NCA_TILE - 1) / NCA_TILE,
                   B);
   const dim3 block(NCA_TILE, NCA_TILE);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    cudaFuncSetAttribute(nca_step_kernel<true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    nca_step_kernel<true><<<grid, block, smem, s>>>(
-        x, out, cond, w1, b1, w2, b2, C, H, W, cc, F4, pad_mode, seed, step,
-        thr);
-  } else {
-    cudaFuncSetAttribute(nca_step_kernel<false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    nca_step_kernel<false><<<grid, block, smem, s>>>(
-        x, out, cond, w1, b1, w2, b2, C, H, W, cc, F4, pad_mode, seed, step,
-        thr);
-  }
+  if (bf16 && ms)
+    launch<true, true>(grid, block, smem, s, x, out, cond, w1, b1, w2, b2, C,
+                       H, W, cc, F4, pad_mode, seed, step, thr);
+  else if (bf16)
+    launch<true, false>(grid, block, smem, s, x, out, cond, w1, b1, w2, b2, C,
+                        H, W, cc, F4, pad_mode, seed, step, thr);
+  else if (ms)
+    launch<false, true>(grid, block, smem, s, x, out, cond, w1, b1, w2, b2, C,
+                        H, W, cc, F4, pad_mode, seed, step, thr);
+  else
+    launch<false, false>(grid, block, smem, s, x, out, cond, w1, b1, w2, b2, C,
+                         H, W, cc, F4, pad_mode, seed, step, thr);
   return (int)cudaGetLastError();
 }
 

@@ -4,16 +4,18 @@
 // [n_steps, B, C, H, W] (ops/fused_train.py), so nothing is recomputed
 // across steps.
 //
-// Replaces (vsnca_tpu/ops/pallas_train.py), for perception_scales (0,) and
-// circular padding:
+// Replaces (vsnca_tpu/ops/pallas_train.py), for circular padding:
 //   * _make_bwd_kernel_flat         (:1139, 'gather'; called by _bwd_call_flat
 //     :2235),
 //   * _make_bwd_kernel_flat_scatter (:1657, 'scatter'; same call site),
 //   * _make_bwd_kernel_flat_tiled   (:1301; called by _bwd_call_flat_tiled
-//     :2358) without its multiscale adjoint and tap injection.
+//     :2358) with its multiscale adjoint _flat_percept_ms_adj (:185) and its
+//     tap injection (:1361-1373, :1542; fused_rollout_train_flat_taps_hw
+//     :2458).
 // The three differ only in how a TPU core's VMEM holds the perception
 // cotangent; they compute one function, the two passes of backward_step
-// (:1219-1280):
+// (:1219-1280), for perception_scales (0,) and, with the kernels' MS forms,
+// (0, 1):
 //   nca_bwd_mlp     — recompute the percept p (halo tile, circular wrap),
 //     z1 = W1^T p + b1, the mask; gdx = gx * mask,
 //     gz1 = (W2 gdx) * [z1 > 0], gp = W1 gz1 (the 4C percept rows to a
@@ -28,6 +30,20 @@
 //     Each thread reads and writes only its own pixel of gx, so it updates
 //     gx in place; launched after nca_bwd_mlp on the same stream, which has
 //     read gx by then.
+// Scales (0, 1): nca_bwd_mlp's MS form recomputes the averaged percept
+// through nca_step's own device functions (nca_common.cuh::half_percept,
+// ms_average), so z1 and the relu gates agree with the forward bit for bit,
+// and its gp is the cotangent of the average. nca_bwd_adjoint_ms is the
+// transpose of down -> half-res stencils -> clamped up, plus the scale-0
+// stencils, averaged 0.5 — in gather form: each block forms U^T gp over W,
+// then H, on its 10 x 10 half-pixel footprint from gp in device memory, the
+// half-resolution stencil adjoint (circular at half resolution) on its 8 x 8
+// half pixels, and adds 0.5 * (scale-0 adjoint + 0.25 * parent's g_h) (D^T
+// of the 2x2 mean) to each of its pixels. No atomics and no scratch buffer.
+// Frame taps: a tap at state t (the input of step t) adds its cotangent in
+// the adjoint launch of step t, right after gx has become the cotangent of
+// that state (an optional gtap pointer of both adjoint kernels), so one
+// reverse walk serves a whole tapped schedule.
 //
 // What bounds it on an H100: per pixel and step nca_bwd_mlp does the
 // forward's first layer again (z1 = W1^T p, P*F FMAs; the second layer is
@@ -45,6 +61,11 @@
 // products over the block's 256 pixels in shared memory — 256 threads each
 // own a few (row, unit) outputs and walk the pixels — instead of a
 // 96 x 50 outer product per thread or atomics.
+// The multiscale adjoint adds per pixel and channel 4 x 22 x 10 / 256 U_W^T
+// gathers of 4 reads (from L1/L2) and the half-resolution stencils: bytes
+// and latency, not FLOPs; its 9.3 KB of static shared memory leaves room for
+// many blocks an SM. nca_bwd_mlp's MS form needs ~182 KB of shared memory
+// at c16/fc128/cc2 (one block an SM).
 //
 // bf16 mode rounds where the TPU kernel casts to its compute dtype
 // (:1232-1238): the percept (with the conditioning rows), hid, gdx and gz1;
@@ -59,24 +80,40 @@
 
 // The adjoint stencils: the flipped filters in the JAX term order
 // (_stencil_from over SOBEL_X_F, SOBEL_Y_F, LAPLACIAN_F).
+// (t as in nca_common.cuh::stencils: a 3x3 window, rows LD floats apart.)
+template <int LD = NCA_HALO>
 __device__ __forceinline__ float sobel_x_adj(const float* t) {
   // flip(SOBEL_X) = [[1,0,-1],[2,0,-2],[1,0,-1]]
   float a = t[0];
   a = __fadd_rn(a, __fmul_rn(t[2], -1.f));
-  a = __fadd_rn(a, __fmul_rn(t[NCA_HALO], 2.f));
-  a = __fadd_rn(a, __fmul_rn(t[NCA_HALO + 2], -2.f));
-  a = __fadd_rn(a, t[2 * NCA_HALO]);
-  return __fadd_rn(a, __fmul_rn(t[2 * NCA_HALO + 2], -1.f));
+  a = __fadd_rn(a, __fmul_rn(t[LD], 2.f));
+  a = __fadd_rn(a, __fmul_rn(t[LD + 2], -2.f));
+  a = __fadd_rn(a, t[2 * LD]);
+  return __fadd_rn(a, __fmul_rn(t[2 * LD + 2], -1.f));
 }
 
+template <int LD = NCA_HALO>
 __device__ __forceinline__ float sobel_y_adj(const float* t) {
   // flip(SOBEL_Y) = [[1,2,1],[0,0,0],[-1,-2,-1]]
   float a = t[0];
   a = __fadd_rn(a, __fmul_rn(t[1], 2.f));
   a = __fadd_rn(a, t[2]);
-  a = __fadd_rn(a, __fmul_rn(t[2 * NCA_HALO], -1.f));
-  a = __fadd_rn(a, __fmul_rn(t[2 * NCA_HALO + 1], -2.f));
-  return __fadd_rn(a, __fmul_rn(t[2 * NCA_HALO + 2], -1.f));
+  a = __fadd_rn(a, __fmul_rn(t[2 * LD], -1.f));
+  a = __fadd_rn(a, __fmul_rn(t[2 * LD + 1], -2.f));
+  return __fadd_rn(a, __fmul_rn(t[2 * LD + 2], -1.f));
+}
+
+// The 3x3 stencil adjoint at one position: raw + the flipped Sobel-x,
+// Sobel-y and Laplacian correlations of the three stencil blocks' windows
+// (the Laplacian is its own flip), summed in the JAX term order.
+template <int LD = NCA_HALO>
+__device__ __forceinline__ float stencil_adjoint(float raw, const float* tx,
+                                                 const float* ty,
+                                                 const float* tl) {
+  float sx_unused, sy_unused, lap;
+  stencils<LD>(tl, sx_unused, sy_unused, lap);
+  return __fadd_rn(
+      __fadd_rn(__fadd_rn(raw, sobel_x_adj<LD>(tx)), sobel_y_adj<LD>(ty)), lap);
 }
 
 // Shared memory, float32, in this order (the float4-read parts first, each
@@ -88,8 +125,10 @@ __device__ __forceinline__ float sobel_y_adj(const float* t) {
 //   gds [C, LD]   gdx
 //   hs  [FC, LD]  hid of the current chunk of hidden units
 //   gzs [FC, LD]  gz1 of the current chunk
-// The C x 18 x 18 state tile lives in hs/gzs until the percept is built.
-template <bool BF16>
+// The C x 18 x 18 state tile (and with MS the half-state tile and the half
+// percept, nca_common.cuh::half_percept) lives in hs/gzs and past them until
+// the percept is built.
+template <bool BF16, bool MS>
 __global__ void __launch_bounds__(NT_THREADS)
 nca_bwd_mlp_kernel(const float* __restrict__ x, const float* __restrict__ cond,
                    const float* __restrict__ gx, float* __restrict__ gp,
@@ -107,6 +146,8 @@ nca_bwd_mlp_kernel(const float* __restrict__ x, const float* __restrict__ cond,
   float* hs = gds + C * NT_LD;
   float* gzs = hs + NT_FC * NT_LD;
   float* tile = hs;
+  float* htile = tile + C * NCA_HALO * NCA_HALO;
+  float* hp = htile + C * NCA_HHALO * NCA_HHALO;
 
   const int tid = threadIdx.y * NCA_TILE + threadIdx.x;
   const int b = blockIdx.z;
@@ -119,20 +160,28 @@ nca_bwd_mlp_kernel(const float* __restrict__ x, const float* __restrict__ cond,
   }
   for (int i = tid; i < F4; i += NT_THREADS) b1s[i] = b1[i];
 
-  const int y0 = blockIdx.y * NCA_TILE - 1, x0 = blockIdx.x * NCA_TILE - 1;
+  // The forward's percept, through the forward's own device functions
+  // (circular padding), so z1 and the relu gates agree bit for bit.
   const float* xb = x + (size_t)b * C * HW;
-  for (int i = tid; i < C * NCA_HALO * NCA_HALO; i += NT_THREADS) {
-    const int c = i / (NCA_HALO * NCA_HALO);
-    const int r = (i / NCA_HALO) % NCA_HALO, q = i % NCA_HALO;
-    const int row = pad_index(y0 + r, H, 0), col = pad_index(x0 + q, W, 0);
-    tile[i] = xb[(size_t)c * HW + row * W + col];
+  stage_tile(tile, xb, C, H, W, blockIdx.y * NCA_TILE - 1,
+             blockIdx.x * NCA_TILE - 1, 0, tid, NT_THREADS);
+  if (MS) {
+    half_percept(htile, hp, xb, C, H, W, blockIdx.y, blockIdx.x, 0, tid,
+                 NT_THREADS);
+  } else {
+    __syncthreads();
   }
-  __syncthreads();
 
   const int px = blockIdx.x * NCA_TILE + threadIdx.x;
   const int py = blockIdx.y * NCA_TILE + threadIdx.y;
   const bool valid = px < W && py < H;
   const int pix = valid ? py * W + px : 0;
+  int fi = 0, fin = 0, fj = 0, fjn = 0;
+  if (MS && valid) {
+    upsample_taps(blockIdx.y, threadIdx.y, H, fi, fin);
+    upsample_taps(blockIdx.x, threadIdx.x, W, fj, fjn);
+  }
+  const int nf = NCA_HFOOT * NCA_HFOOT;
 
   // Percept and gdx columns. A thread past the grid's edge writes zeros,
   // which add nothing to any gradient (its gdx is 0, so is its gz1).
@@ -143,6 +192,12 @@ nca_bwd_mlp_kernel(const float* __restrict__ x, const float* __restrict__ cond,
           tile + (c * NCA_HALO + threadIdx.y) * NCA_HALO + threadIdx.x;
       stencils(t, sx, sy, lap);
       v = t[NCA_HALO + 1];
+      if (MS) {
+        v = ms_average(hp + (0 * C + c) * nf, fi, fin, fj, fjn, v);
+        sx = ms_average(hp + (1 * C + c) * nf, fi, fin, fj, fjn, sx);
+        sy = ms_average(hp + (2 * C + c) * nf, fi, fin, fj, fjn, sy);
+        lap = ms_average(hp + (3 * C + c) * nf, fi, fin, fj, fjn, lap);
+      }
     }
     if (BF16) {
       v = bf16_round(v);
@@ -318,10 +373,12 @@ nca_bwd_mlp_kernel(const float* __restrict__ x, const float* __restrict__ cond,
   }
 }
 
-// gx [B, C, H, W] += gp[:, :C] + adjoint stencils of gp[:, C:4C], circular.
+// gx [B, C, H, W] += gp[:, :C] + adjoint stencils of gp[:, C:4C], circular;
+// then, when gtap is not null, += gtap [B, C, H, W] (a frame tap's
+// cotangent: gx has just become the cotangent of the state it taps).
 __global__ void __launch_bounds__(NT_THREADS)
 nca_bwd_adjoint_kernel(const float* __restrict__ gp, float* __restrict__ gx,
-                       int C, int H, int W) {
+                       const float* __restrict__ gtap, int C, int H, int W) {
   __shared__ float tile[3][NCA_HALO * NCA_HALO];
   const int tid = threadIdx.y * NCA_TILE + threadIdx.x;
   const int b = blockIdx.z;
@@ -345,16 +402,126 @@ nca_bwd_adjoint_kernel(const float* __restrict__ gp, float* __restrict__ gx,
     }
     __syncthreads();
     if (valid) {
-      float sx_unused, sy_unused, lap;  // the Laplacian is its own flip
-      stencils(&tile[2][o], sx_unused, sy_unused, lap);
-      const float adj = __fadd_rn(
-          __fadd_rn(__fadd_rn(gpb[(size_t)c * HW + pix], sobel_x_adj(&tile[0][o])),
-                    sobel_y_adj(&tile[1][o])),
-          lap);
-      float* g = gx + ((size_t)b * C + c) * HW + pix;
-      *g = __fadd_rn(*g, adj);
+      const float adj = stencil_adjoint(gpb[(size_t)c * HW + pix], &tile[0][o],
+                                        &tile[1][o], &tile[2][o]);
+      const size_t at = ((size_t)b * C + c) * HW + pix;
+      float v = __fadd_rn(gx[at], adj);
+      if (gtap != nullptr) v = __fadd_rn(v, gtap[at]);
+      gx[at] = v;
     }
   }
+}
+
+// The transposed clamped 2x upsample at one half pixel of an axis: a and b
+// are its two children (full 2i and 2i + 1, weight 0.75 each), l and r the
+// 0.25 taps of the neighbouring outputs (full 2i - 1 and 2i + 2; at the
+// edges the clamp's own child, 2i at i = 0 and 2i + 1 at i = m - 1). Plain
+// version: fused_train.py::upsample2_adjoint.
+__device__ __forceinline__ float upsample2_t(float a, float b, float l,
+                                             float r) {
+  return __fadd_rn(__fadd_rn(__fmul_rn(a, 0.75f), __fmul_rn(b, 0.75f)),
+                   __fadd_rn(__fmul_rn(l, 0.25f), __fmul_rn(r, 0.25f)));
+}
+
+#define ADJ_WROWS (2 * NCA_HFOOT + 2)  // full rows a footprint's U^T reads
+
+// The multiscale (scales (0, 1)) state cotangent of one step, in gather
+// form: for the block's 16 x 16 pixels and each channel c,
+//   g_h = S_h^T U^T gp at the 8 x 8 half pixels under the block — U^T over
+//         W then over H (upsample2_t) on the 10 x 10 footprint (the 8 x 8
+//         and a one-half-pixel ring, wrapped circularly at half
+//         resolution), then the half-resolution stencil adjoint;
+//   gx += 0.5 * (gx0 + 0.25 * g_h[parent]), gx0 the scale-0 adjoint of gp
+//         (0.25 g_h[parent] is D^T g_h, the 2x2 mean's transpose), and
+//         gtap's value when gtap is not null.
+// Every value is computed where it is used: no atomics, no scratch in
+// device memory.
+__global__ void __launch_bounds__(NT_THREADS)
+nca_bwd_adjoint_ms_kernel(const float* __restrict__ gp, float* __restrict__ gx,
+                          const float* __restrict__ gtap, int C, int H,
+                          int W) {
+  __shared__ float tile[3][NCA_HALO * NCA_HALO];
+  __shared__ float wt[4][ADJ_WROWS * NCA_HFOOT];  // U_W^T of 22 full rows
+  __shared__ float gph[4][NCA_HFOOT * NCA_HFOOT];  // U^T gp on the footprint
+  __shared__ float gh[(NCA_TILE / 2) * (NCA_TILE / 2)];
+  const int tid = threadIdx.y * NCA_TILE + threadIdx.x;
+  const int b = blockIdx.z;
+  const int HW = H * W, H2 = H / 2, W2 = W / 2;
+  const int y0 = blockIdx.y * NCA_TILE - 1, x0 = blockIdx.x * NCA_TILE - 1;
+  const int hb = blockIdx.y * (NCA_TILE / 2), wb = blockIdx.x * (NCA_TILE / 2);
+  const int fr0 = 2 * (hb - 1) - 1;  // full row of wt's first row, mod H
+  const int px = blockIdx.x * NCA_TILE + threadIdx.x;
+  const int py = blockIdx.y * NCA_TILE + threadIdx.y;
+  const bool valid = px < W && py < H;
+  const int pix = py * W + px;
+  const float* gpb = gp + (size_t)b * 4 * C * HW;
+  const int o = threadIdx.y * NCA_HALO + threadIdx.x;
+  const int nf = NCA_HFOOT * NCA_HFOOT;
+
+  for (int c = 0; c < C; ++c) {
+    __syncthreads();  // the previous channel's shared arrays are consumed
+    for (int i = tid; i < 3 * NCA_HALO * NCA_HALO; i += NT_THREADS) {
+      const int k = i / (NCA_HALO * NCA_HALO);
+      const int r = (i / NCA_HALO) % NCA_HALO, q = i % NCA_HALO;
+      const int row = pad_index(y0 + r, H, 0), col = pad_index(x0 + q, W, 0);
+      tile[k][r * NCA_HALO + q] =
+          gpb[(size_t)((k + 1) * C + c) * HW + row * W + col];
+    }
+    for (int i = tid; i < 4 * ADJ_WROWS * NCA_HFOOT; i += NT_THREADS) {
+      const int k = i / (ADJ_WROWS * NCA_HFOOT);
+      const int lr = (i / NCA_HFOOT) % ADJ_WROWS, q = i % NCA_HFOOT;
+      const int row = pad_index(fr0 + lr, H, 0);
+      const int j = pad_index(wb - 1 + q, W2, 0);
+      const float* g = gpb + (size_t)(k * C + c) * HW + (size_t)row * W;
+      wt[k][lr * NCA_HFOOT + q] =
+          upsample2_t(g[2 * j], g[2 * j + 1], g[j >= 1 ? 2 * j - 1 : 2 * j],
+                      g[j <= W2 - 2 ? 2 * j + 2 : 2 * j + 1]);
+    }
+    __syncthreads();
+    for (int i = tid; i < 4 * nf; i += NT_THREADS) {
+      const int k = i / nf, r = (i / NCA_HFOOT) % NCA_HFOOT, q = i % NCA_HFOOT;
+      const int hi = pad_index(hb - 1 + r, H2, 0);
+      const float* col = &wt[k][q];
+      gph[k][r * NCA_HFOOT + q] = upsample2_t(
+          col[(2 * r + 1) * NCA_HFOOT], col[(2 * r + 2) * NCA_HFOOT],
+          col[(hi >= 1 ? 2 * r : 2 * r + 1) * NCA_HFOOT],
+          col[(hi <= H2 - 2 ? 2 * r + 3 : 2 * r + 2) * NCA_HFOOT]);
+    }
+    __syncthreads();
+    if (tid < (NCA_TILE / 2) * (NCA_TILE / 2)) {
+      const int r = tid / (NCA_TILE / 2), q = tid % (NCA_TILE / 2);
+      const int w0 = r * NCA_HFOOT + q;  // the 3x3 window's top-left
+      gh[tid] = stencil_adjoint<NCA_HFOOT>(gph[0][w0 + NCA_HFOOT + 1],
+                                          &gph[1][w0], &gph[2][w0],
+                                          &gph[3][w0]);
+    }
+    __syncthreads();
+    if (valid) {
+      const float adj0 = stencil_adjoint(gpb[(size_t)c * HW + pix], &tile[0][o],
+                                         &tile[1][o], &tile[2][o]);
+      const float h =
+          gh[(threadIdx.y >> 1) * (NCA_TILE / 2) + (threadIdx.x >> 1)];
+      const size_t at = ((size_t)b * C + c) * HW + pix;
+      float v = __fadd_rn(
+          gx[at], __fmul_rn(__fadd_rn(adj0, __fmul_rn(h, 0.25f)), 0.5f));
+      if (gtap != nullptr) v = __fadd_rn(v, gtap[at]);
+      gx[at] = v;
+    }
+  }
+}
+
+template <bool BF16, bool MS>
+static void launch_mlp(dim3 grid, dim3 block, size_t smem, cudaStream_t s,
+                       const float* x, const float* cond, const float* gx,
+                       float* gp, float* dcond, float* slots, const float* w1,
+                       const float* b1, const float* w2, int C, int H, int W,
+                       int cc, int F4, unsigned int seed, unsigned int step,
+                       unsigned int thr) {
+  cudaFuncSetAttribute(nca_bwd_mlp_kernel<BF16, MS>,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  nca_bwd_mlp_kernel<BF16, MS><<<grid, block, smem, s>>>(
+      x, cond, gx, gp, dcond, slots, w1, b1, w2, C, H, W, cc, F4, seed, step,
+      thr);
 }
 
 extern "C" {
@@ -369,53 +536,69 @@ int nca_train_limits(int* c_max, int* cc_max, int* f_max) {
 
 // One backward step's first pass. x [B, C, H, W] is the step's input state,
 // cond [B, cc, H, W] or null when cc == 0, gx [B, C, H, W] the cotangent of
-// the step's output. Writes gp [B, 4C, H, W]; adds into dcond [B, cc, H, W]
-// when it is not null, and into slots [n_blocks, S] with n_blocks =
-// ceil(W/16) * ceil(H/16) * B and S = P*F4 + F4 + F4*C + C (dW1 [P, F4],
-// db1 [F4], dW2 [F4, C], db2 [C]). w1 [P, F4], b1 [F4], w2 [F4, C] as
-// nca_step takes them. Circular padding. Returns cudaGetLastError().
+// the step's output. Writes gp [B, 4C, H, W] (the cotangent of the step's
+// percept: with ms, of the scales-(0, 1) average); adds into dcond
+// [B, cc, H, W] when it is not null, and into slots [n_blocks, S] with
+// n_blocks = ceil(W/16) * ceil(H/16) * B and S = P*F4 + F4 + F4*C + C
+// (dW1 [P, F4], db1 [F4], dW2 [F4, C], db2 [C]). w1 [P, F4], b1 [F4],
+// w2 [F4, C] as nca_step takes them. Circular padding; ms needs even H and
+// W. Returns cudaGetLastError().
 int nca_bwd_mlp_launch(const float* x, const float* cond, const float* gx,
                        float* gp, float* dcond, float* slots, const float* w1,
                        const float* b1, const float* w2, int B, int C, int H,
-                       int W, int cc, int F4, int bf16, unsigned int seed,
-                       unsigned int step, unsigned int thr, void* stream) {
+                       int W, int cc, int F4, int bf16, int ms,
+                       unsigned int seed, unsigned int step, unsigned int thr,
+                       void* stream) {
   if (C < 1 || C > NCA_C_MAX || cc < 0 || cc > NCA_CC_MAX || F4 < 4 ||
-      F4 > NCA_F_MAX || F4 % 4 != 0)
+      F4 > NCA_F_MAX || F4 % 4 != 0 || (ms && (H % 2 || W % 2)))
     return (int)cudaErrorInvalidValue;
   const int P = 4 * C + cc;
+  // hs/gzs hold the state tile (and with ms the half tile and percept)
+  // until the percept columns are built
+  size_t scratch = (size_t)C * NCA_HALO * NCA_HALO;
+  if (ms)
+    scratch += (size_t)C * (NCA_HHALO * NCA_HHALO + 4 * NCA_HFOOT * NCA_HFOOT);
+  if (scratch < (size_t)2 * NT_FC * NT_LD) scratch = (size_t)2 * NT_FC * NT_LD;
   const size_t smem =
       sizeof(float) * ((size_t)P * F4 + (size_t)C * F4 + F4 +
-                       (size_t)(P + C + 2 * NT_FC) * NT_LD);
+                       (size_t)(P + C) * NT_LD + scratch);
   const dim3 grid((W + NCA_TILE - 1) / NCA_TILE, (H + NCA_TILE - 1) / NCA_TILE,
                   B);
   const dim3 block(NCA_TILE, NCA_TILE);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16) {
-    cudaFuncSetAttribute(nca_bwd_mlp_kernel<true>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    nca_bwd_mlp_kernel<true><<<grid, block, smem, s>>>(
-        x, cond, gx, gp, dcond, slots, w1, b1, w2, C, H, W, cc, F4, seed, step,
-        thr);
-  } else {
-    cudaFuncSetAttribute(nca_bwd_mlp_kernel<false>,
-                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    nca_bwd_mlp_kernel<false><<<grid, block, smem, s>>>(
-        x, cond, gx, gp, dcond, slots, w1, b1, w2, C, H, W, cc, F4, seed, step,
-        thr);
-  }
+  if (bf16 && ms)
+    launch_mlp<true, true>(grid, block, smem, s, x, cond, gx, gp, dcond, slots,
+                           w1, b1, w2, C, H, W, cc, F4, seed, step, thr);
+  else if (bf16)
+    launch_mlp<true, false>(grid, block, smem, s, x, cond, gx, gp, dcond, slots,
+                            w1, b1, w2, C, H, W, cc, F4, seed, step, thr);
+  else if (ms)
+    launch_mlp<false, true>(grid, block, smem, s, x, cond, gx, gp, dcond, slots,
+                            w1, b1, w2, C, H, W, cc, F4, seed, step, thr);
+  else
+    launch_mlp<false, false>(grid, block, smem, s, x, cond, gx, gp, dcond,
+                             slots, w1, b1, w2, C, H, W, cc, F4, seed, step,
+                             thr);
   return (int)cudaGetLastError();
 }
 
-// One backward step's second pass: gx += gp[:, :C] + the flipped-stencil
-// adjoint of gp[:, C:4C], in place, circular. Returns cudaGetLastError().
-int nca_bwd_adjoint_launch(const float* gp, float* gx, int B, int C, int H,
-                           int W, void* stream) {
-  if (C < 1 || C > NCA_C_MAX) return (int)cudaErrorInvalidValue;
+// One backward step's second pass, in place, circular: gx += the state
+// cotangent of the percept cotangent gp — gp[:, :C] + the flipped-stencil
+// adjoint of gp[:, C:4C] (scales (0,)), or with ms the multiscale adjoint
+// (nca_bwd_adjoint_ms; even H and W) — then += gtap [B, C, H, W] when it is
+// not null. Returns cudaGetLastError().
+int nca_bwd_adjoint_launch(const float* gp, float* gx, const float* gtap,
+                           int B, int C, int H, int W, int ms, void* stream) {
+  if (C < 1 || C > NCA_C_MAX || (ms && (H % 2 || W % 2)))
+    return (int)cudaErrorInvalidValue;
   const dim3 grid((W + NCA_TILE - 1) / NCA_TILE, (H + NCA_TILE - 1) / NCA_TILE,
                   B);
   const dim3 block(NCA_TILE, NCA_TILE);
-  nca_bwd_adjoint_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      gp, gx, C, H, W);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ms)
+    nca_bwd_adjoint_ms_kernel<<<grid, block, 0, s>>>(gp, gx, gtap, C, H, W);
+  else
+    nca_bwd_adjoint_kernel<<<grid, block, 0, s>>>(gp, gx, gtap, C, H, W);
   return (int)cudaGetLastError();
 }
 

@@ -3,7 +3,8 @@
 Counterpart of ``vsnca_tpu/infer/stylize.py``: the NCA state persists across
 frames while each frame's grayscale / edge content steers it; per frame the
 cell runs ``step_n`` (default 24) steps through the rollout kernel
-(``ops.fused_step.fused_rollout_chw``) and the RGB readout is clipped to
+(``ops.fused_step.fused_rollout_chw``: ``nca_step``, or ``nca_step_ms`` for
+a perception_scales (0, 1) model at even sizes) and the RGB readout is clipped to
 [-1, 1] → [0, 1]. The state is NCHW ``[1, C, H, W]``, as on the TPU fused
 path; ``state_nhwc`` gives the JAX stylizer's layout.
 """

@@ -6,8 +6,8 @@ Randomness (the SlW projections, the OT pixel subsample) comes from a
 ``torch.Generator``, drawn on the CPU, where the JAX package splits a
 ``jax.random`` key: the same distribution, not the same numbers. The
 metrics' helpers take pixels as rows ([B, N, C], N = H*W in row-major order,
-the JAX package's ``_flatten``). ``appearance_loss``, the DyNCA
-orchestrator's dispatcher, takes "Gram" so far; the encoder trainer calls
+the JAX package's ``_flatten``). ``appearance_loss`` is the DyNCA
+orchestrator's dispatcher ("Gram", "SlW", "OT"); the encoder trainer calls
 the metrics directly.
 """
 
@@ -140,17 +140,19 @@ def appearance_loss(
     target: torch.Tensor,
     loss_type: str,
     target_features: Optional[Sequence[torch.Tensor]] = None,
+    generator: Optional[torch.Generator] = None,
+    subsample: int = 1000,
+    proj_n: int = 32,
 ) -> torch.Tensor:
     """Appearance loss between NCHW RGB batches in [-1, 1]: rescale to
-    [0, 1], resize the target to the generated size, VGG features, the
-    metric. ``target_features`` (from ``precompute_target_style_features``)
-    skips the target's forward."""
-    if loss_type != "Gram":
-        raise NotImplementedError(
-            f"the DyNCA orchestrator's appearance loss {loss_type!r} waits for its "
-            "presets (ROADMAP.md A6); this dispatcher takes 'Gram'"
-        )
-    gen_f = vgg16_style_features(vgg_params, (generated + 1.0) / 2.0)
+    [0, 1], resize the target to the generated size, VGG features (with the
+    image itself as a feature for "SlW"), the metric ("Gram", "SlW" or
+    "OT", whose draws come from ``generator``). ``target_features`` (from
+    ``precompute_target_style_features``) skips the target's forward."""
+    if loss_type not in ("Gram", "SlW", "OT"):
+        raise ValueError(f"unknown appearance loss type {loss_type!r}")
+    gen_f = vgg16_style_features(vgg_params, (generated + 1.0) / 2.0,
+                                 include_image_as_feat=(loss_type == "SlW"))
     if target_features is not None:
         tgt_f = [t.detach() for t in target_features]
     else:
@@ -164,4 +166,8 @@ def appearance_loss(
             raise ValueError(f"generated batch {gen_f[0].shape[0]} is not a multiple "
                              f"of the target batch {tgt_f[0].shape[0]}")
         tgt_f = [t.repeat((rep,) + (1,) * (t.dim() - 1)) for t in tgt_f]
-    return gram_loss(gen_f, tgt_f)
+    if loss_type == "Gram":
+        return gram_loss(gen_f, tgt_f)
+    if loss_type == "SlW":
+        return sliced_wasserstein_loss(gen_f, tgt_f, generator, proj_n)
+    return ot_style_loss(gen_f, tgt_f, generator, subsample)

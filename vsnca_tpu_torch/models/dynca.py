@@ -5,13 +5,14 @@ concat(conditioning) → relu MLP → masked residual update, and the
 differentiable rollout. Parameters keep the JAX layout, input-major
 ``w1: [P, F]``, ``b1: [F]``, ``w2: [F, C]``, ``b2: [C]``, with the percept
 rows in block order [C raw | C sobel_x | C sobel_y | C lap | cond]. Frame
-taps and tap schedules (video motion) are not ported yet.
+taps (video motion) come from ``dynca_rollout_with_taps``, ``tap_schedule``
+and ``dynca_rollout_schedule``, on every route ``rollout_route`` picks.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 from torch.utils.checkpoint import checkpoint
@@ -19,7 +20,7 @@ from torch.utils.checkpoint import checkpoint
 from vsnca_tpu_torch.config import NCAConfig
 from vsnca_tpu_torch.device import resolve_device
 from vsnca_tpu_torch.ops.cpe import cartesian_positional_encoding
-from vsnca_tpu_torch.ops.fused_step import batch_mask, fused_rollout_chw
+from vsnca_tpu_torch.ops.fused_step import SCALES, batch_mask, fused_rollout_chw
 from vsnca_tpu_torch.ops.fused_train import (
     C_MAX,
     CC_MAX,
@@ -136,7 +137,7 @@ ROLLOUT_PATHS = ("auto", "fused", "xla")
 def rollout_route(cfg: NCAConfig, n_steps: int, device_type: str, needs_grad: bool,
                   rollout_path: str = "auto") -> str:
     """What ``dynca_rollout`` runs: 'pair' (the training kernel pair,
-    ``ops.fused_train.fused_rollout_train``), 'step' (the rollout kernel,
+    ``ops.fused_train.fused_rollout_train``), 'step' (the rollout kernels,
     ``ops.fused_step.fused_rollout_chw``) or 'eager' (``dynca_step``s under
     autograd, the counterpart of the JAX package's scan).
 
@@ -146,15 +147,14 @@ def rollout_route(cfg: NCAConfig, n_steps: int, device_type: str, needs_grad: bo
       assert does.
     - 'auto': eager on the CPU, as the JAX package scans off the TPU. On a
       CUDA tensor, the kernels wherever the JAX package runs Pallas
-      kernels: without a gradient the rollout kernel (perception_scales
-      (0,)); with one the pair where ``fused_train_supported``. A config
-      that the JAX trainer trains through a Pallas pair the port lacks —
-      circular multiscale (PERF.md rows 8 and 10, ROADMAP B1), or past the
-      kernels' size limits — raises NotImplementedError rather than run
-      plain steps on the card. The JAX CHW pair (rows 5, 6) takes nothing
-      the port's pair does not: its scope is circular, scales (0,), under
-      TPU layout rules. Every other config (other paddings and scales)
-      runs eager, as the JAX trainer's scan does.
+      kernels: without a gradient the rollout kernels (perception_scales
+      (0,) or (0, 1), any padding); with one the pair where
+      ``fused_train_supported`` (circular padding, scales (0,) or (0, 1)).
+      A circular config past the kernels' size limits, which the JAX
+      trainer trains through a Pallas pair, raises NotImplementedError
+      rather than run plain steps on the card. Every other config (other
+      paddings under a gradient, other scales) runs eager, as the JAX
+      trainer's scan does: the TPU's multiscale pair is circular only.
     """
     if rollout_path not in ROLLOUT_PATHS:
         raise ValueError(f"rollout_path must be one of {ROLLOUT_PATHS}")
@@ -164,17 +164,21 @@ def rollout_route(cfg: NCAConfig, n_steps: int, device_type: str, needs_grad: bo
         return "pair"
     scales = tuple(cfg.perception_scales)
     if not needs_grad:
-        return "step" if scales == (0,) else "eager"
+        return "step" if scales in SCALES else "eager"
     if fused_train_supported(cfg, n_steps):
         return "pair"
-    if n_steps >= 1 and cfg.padding_mode == "circular" and scales in ((0,), (0, 1)):
+    if n_steps >= 1 and cfg.padding_mode == "circular" and scales in SCALES:
         raise NotImplementedError(
             f"the JAX trainer trains c_in {cfg.c_in}, c_cond {cfg.c_cond}, fc_dim "
-            f"{cfg.fc_dim}, perception_scales {scales} through a Pallas pair that the "
-            "port has not ported: multiscale is ROADMAP B1 (PERF.md rows 8 and 10); "
-            f"the kernels take C <= {C_MAX}, c_cond <= {CC_MAX}, fc_dim <= {F_MAX}"
+            f"{cfg.fc_dim} through a Pallas pair; the port's kernels take C <= {C_MAX}, "
+            f"c_cond <= {CC_MAX}, fc_dim <= {F_MAX}"
         )
     return "eager"
+
+
+def _needs_grad(params, x, cond) -> bool:
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in (x, cond, *params.values()))
 
 
 def dynca_rollout(
@@ -187,6 +191,7 @@ def dynca_rollout(
     update_rate: Optional[float] = None,
     remat: str = "none",
     rollout_path: str = "auto",
+    first_step: int = 0,
 ):
     """Roll the NCA ``n_steps`` and return (state, rgb), differentiable
     w.r.t. ``params``, ``x`` and ``cond``, through the route
@@ -195,18 +200,21 @@ def dynca_rollout(
     'none' keeps every step's activations, 'per_step' recomputes each step
     in the backward, 'segment:K' checkpoints blocks of K steps (per step
     when K does not divide ``n_steps``). The masks are the kernels' hash
-    masks for ``seed``, so every route computes the same values at any
-    rate.
+    masks for ``seed``, step ``i`` drawing the mask of absolute step
+    ``first_step + i``, so every route computes the same values at any
+    rate, and a rollout cut into chunks the same values as one call.
     """
-    needs_grad = torch.is_grad_enabled() and any(
-        t is not None and t.requires_grad for t in (x, cond, *params.values()))
-    route = rollout_route(cfg, n_steps, x.device.type, needs_grad, rollout_path)
+    route = rollout_route(cfg, n_steps, x.device.type, _needs_grad(params, x, cond),
+                          rollout_path)
     if route == "eager":
-        return _rollout_eager(params, x, seed, cfg, n_steps, cond, update_rate, remat)
-    if route == "step":
-        x = fused_rollout_chw(params, x, seed, cfg, n_steps, cond, update_rate)
+        x = _rollout_eager(params, x, seed, cfg, n_steps, cond, update_rate, remat,
+                           first_step)
+    elif route == "step":
+        x = fused_rollout_chw(params, x, seed, cfg, n_steps, cond, update_rate,
+                              first_step=first_step)
     else:
-        x = fused_rollout_train(params, x, seed, cfg, n_steps, cond, update_rate)
+        x = fused_rollout_train(params, x, seed, cfg, n_steps, cond, update_rate,
+                                first_step=first_step)
     return x, to_rgb(x, cfg.c_out)
 
 
@@ -219,9 +227,10 @@ def _rollout_eager(
     cond: Optional[torch.Tensor] = None,
     update_rate: Optional[float] = None,
     remat: str = "none",
-):
+    first_step: int = 0,
+) -> torch.Tensor:
     """The 'eager' route of ``dynca_rollout``: ``dynca_step``s under
-    autograd, on any device and config."""
+    autograd, on any device and config; returns the state."""
     rate = cfg.update_rate if update_rate is None else update_rate
 
     def step_fn(x, step):
@@ -242,9 +251,99 @@ def _rollout_eager(
             x = step_fn(x, step)
         return x
 
+    stop = first_step + n_steps
     if block == 0 or not torch.is_grad_enabled():
-        x = run(x, 0, n_steps)
-    else:
-        for start in range(0, n_steps, block):
-            x = checkpoint(run, x, start, start + block, use_reentrant=False)
-    return x, to_rgb(x, cfg.c_out)
+        return run(x, first_step, stop)
+    for start in range(first_step, stop, block):
+        x = checkpoint(run, x, start, start + block, use_reentrant=False)
+    return x
+
+
+def rollout_taps(
+    params: dict,
+    x: torch.Tensor,
+    seed: int,
+    cfg: NCAConfig,
+    chunks: Sequence[int],
+    tail_steps: int = 0,
+    cond: Optional[torch.Tensor] = None,
+    remat: str = "none",
+    rollout_path: str = "auto",
+) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Roll ``chunks[i]`` steps and keep the state after each chunk, then
+    ``tail_steps`` more: (final state, [tapped states]), sum(chunks) +
+    tail_steps steps in all. Where ``rollout_route`` picks the training
+    pair, ONE call with in-kernel taps (``fused_rollout_train``'s
+    ``tap_steps``; a tap that is the final state is that state);
+    otherwise one rollout call a chunk, each continuing the absolute step
+    count, so every route draws the same masks."""
+    bounds, acc = [], 0
+    for c in chunks:
+        acc += int(c)
+        bounds.append(acc)
+    total = acc + int(tail_steps)
+    route = rollout_route(cfg, total, x.device.type, _needs_grad(params, x, cond),
+                          rollout_path)
+    interior = [t for t in bounds if t < total]
+    if route == "pair" and interior:
+        state, taps = fused_rollout_train(params, x, seed, cfg, total, cond,
+                                          tap_steps=interior)
+        return state, taps + [state] * (len(bounds) - len(interior))
+    taps, start = [], 0
+    for stop in bounds + [total]:
+        if stop > start:
+            x, _ = dynca_rollout(params, x, seed, cfg, stop - start, cond, remat=remat,
+                                 rollout_path=rollout_path, first_step=start)
+        start = stop
+        taps.append(x)
+    return x, taps[: len(bounds)]
+
+
+def dynca_rollout_with_taps(
+    params: dict,
+    x: torch.Tensor,
+    seed: int,
+    cfg: NCAConfig,
+    n_segments: int,
+    steps_per_segment: int,
+    cond: Optional[torch.Tensor] = None,
+    remat: str = "per_step",
+    rollout_path: str = "auto",
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Rollout emitting an RGB frame every ``steps_per_segment`` steps
+    (dynca.py:223): (state, frames [n_segments, B, c_out, H, W])."""
+    state, taps = rollout_taps(params, x, seed, cfg, [steps_per_segment] * n_segments, 0,
+                               cond, remat, rollout_path)
+    return state, torch.stack([to_rgb(t, cfg.c_out) for t in taps])
+
+
+def tap_schedule(step_n: int, tap_every: int = 64) -> Tuple[Tuple[int, ...], int]:
+    """The reference's frame-tap schedule for a ``step_n``-step rollout
+    (dynca.py:253; fit_video_motion.py:230-235): frames after steps 1,
+    1 + tap_every, ... <= step_n, then a frameless tail to ``step_n``.
+    Returns ``(frame_chunks, tail_steps)``."""
+    if step_n < 1 or tap_every < 1:
+        raise ValueError(f"tap_schedule needs step_n >= 1 and tap_every >= 1, got "
+                         f"{step_n}, {tap_every}")
+    frame_steps = list(range(1, step_n + 1, tap_every))
+    chunks = [frame_steps[0]] + [b - a for a, b in zip(frame_steps, frame_steps[1:])]
+    return tuple(chunks), step_n - frame_steps[-1]
+
+
+def dynca_rollout_schedule(
+    params: dict,
+    x: torch.Tensor,
+    seed: int,
+    cfg: NCAConfig,
+    frame_chunks: Sequence[int],
+    tail_steps: int = 0,
+    cond: Optional[torch.Tensor] = None,
+    remat: str = "per_step",
+    rollout_path: str = "auto",
+) -> Tuple[torch.Tensor, List[torch.Tensor]]:
+    """Rollout with an explicit tap schedule (dynca.py:276, see
+    ``tap_schedule``): an RGB frame after each chunk, then ``tail_steps``
+    more steps. Returns (state, [frames])."""
+    state, taps = rollout_taps(params, x, seed, cfg, frame_chunks, tail_steps, cond, remat,
+                               rollout_path)
+    return state, [to_rgb(t, cfg.c_out) for t in taps]

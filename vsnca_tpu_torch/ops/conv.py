@@ -51,3 +51,91 @@ def alive_pool(alpha: torch.Tensor, threshold: float) -> torch.Tensor:
     """maxpool3x3(alpha) > threshold (stride 1, -inf padding) — bool, no
     gradient; ``alpha`` is [B, 1, H, W]."""
     return F.max_pool2d(alpha.detach(), 3, 1, 1) > threshold
+
+
+def conv2d(x: torch.Tensor, w: torch.Tensor, b=None, stride: int = 1, padding="SAME",
+           groups: int = 1) -> torch.Tensor:
+    """Cross-correlation on NCHW input with an OIHW kernel — the port of
+    ``vsnca_tpu/ops/conv.py::conv2d`` (:18), whose kernels are HWIO.
+    ``padding`` is 'SAME' (stride 1), 'VALID' or an int (zeros). Full
+    float32 (TF32 off), as the JAX package computes it at 'highest'."""
+    torch.backends.cudnn.allow_tf32 = False
+    if isinstance(padding, str):
+        padding = padding.lower()
+    return F.conv2d(x, w, b, stride=stride, padding=padding, groups=groups)
+
+
+def _max_1d(x: torch.Tensor, window: int, padding: int, dim: int) -> torch.Tensor:
+    """Stride-1 max over ``window`` along ``dim``, padded with -inf."""
+    n_out = x.shape[dim] + 2 * padding - window + 1
+    xp = _pad_dim(x, dim, padding, padding, float("-inf"))
+    y = xp.narrow(dim, 0, n_out)
+    for d in range(1, window):
+        y = torch.maximum(y, xp.narrow(dim, d, n_out))
+    return y
+
+
+def _pad_dim(x: torch.Tensor, dim: int, lo: int, hi: int, value: float) -> torch.Tensor:
+    shape = list(x.shape)
+    parts = []
+    if lo:
+        shape[dim] = lo
+        parts.append(x.new_full(shape, value))
+    parts.append(x)
+    if hi:
+        shape[dim] = hi
+        parts.append(x.new_full(shape, value))
+    return torch.cat(parts, dim) if len(parts) > 1 else x
+
+
+def _eq_bwd_1d(x, y, g, window: int, padding: int, dim: int) -> torch.Tensor:
+    """The VJP of a stride-1 1-D max pool by equality masks (conv.py:130):
+    with T[o] the number of window elements equal to y[o],
+    gx[i] = sum over the windows o holding i of (g[o] / T[o]) [x[i] == y[o]]
+    — a tie's cotangent split evenly."""
+    w, p = window, padding
+    n_out, n_in = y.shape[dim], x.shape[dim]
+    xp = _pad_dim(x, dim, p, p, float("-inf"))
+    ties = None
+    for d in range(w):
+        eq = (xp.narrow(dim, d, n_out) == y).to(x.dtype)
+        ties = eq if ties is None else ties + eq
+    gs = g / ties
+    yp = _pad_dim(y, dim, w - 1 - p, w - 1 - p, float("-inf"))
+    gp = _pad_dim(gs, dim, w - 1 - p, w - 1 - p, 0.0)
+    gx = None
+    for s in range(w):
+        term = gp.narrow(dim, s, n_in) * (x == yp.narrow(dim, s, n_in)).to(x.dtype)
+        gx = term if gx is None else gx + term
+    return gx
+
+
+class _MaxPoolEq(torch.autograd.Function):
+    """Stride-1 max pool, W then H (separable: the 2-D window's values),
+    with the equality-mask backward of ``_max_pool_2d_eq`` (conv.py:160):
+    the H pass, then the W pass."""
+
+    @staticmethod
+    def forward(ctx, x, window: int, padding: int):
+        y1 = _max_1d(x, window, padding, -1)
+        y = _max_1d(y1, window, padding, -2)
+        ctx.save_for_backward(x, y1, y)
+        ctx.window, ctx.padding = window, padding
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y1, y = ctx.saved_tensors
+        g1 = _eq_bwd_1d(y1, y, g, ctx.window, ctx.padding, -2)
+        return _eq_bwd_1d(x, y1, g1, ctx.window, ctx.padding, -1), None, None
+
+
+def max_pool_2d(x: torch.Tensor, window: int, stride: int = 1, padding: int = 0) -> torch.Tensor:
+    """Max pool on NCHW with -inf padding (``vsnca_tpu/ops/conv.py::max_pool_2d``
+    :237). A stride-1 float pool splits a tie's gradient evenly over the
+    tied elements, as the JAX package's custom VJP does (``F.max_pool2d``
+    sends it to one of them; MSOE's square-then-pool makes real ties);
+    other strides are ``F.max_pool2d``."""
+    if stride == 1 and window > 1 and x.is_floating_point():
+        return _MaxPoolEq.apply(x, window, padding)
+    return F.max_pool2d(x, window, stride, padding)

@@ -26,3 +26,17 @@ def gaussian_kernel_2d(size: int, sigma: float) -> np.ndarray:
     k = np.exp(-(((ii - c) ** 2) + ((jj - c) ** 2)) / (2.0 * sigma**2))
     k = k / k.sum()
     return k.astype(np.float32)
+
+
+def matlab_gaussian_kernel_2d(shape=(3, 3), sigma: float = 0.5) -> np.ndarray:
+    """fspecial('gaussian')-style kernel (the MSOE pyramid blur,
+    MSOEmultiscale.py:71-83): values below eps * max are zeroed before the
+    normalization to sum 1."""
+    m, n = [(s - 1.0) / 2.0 for s in shape]
+    y, x = np.ogrid[-m : m + 1, -n : n + 1]
+    h = np.exp(-(x * x + y * y) / (2.0 * sigma * sigma))
+    h[h < np.finfo(h.dtype).eps * h.max()] = 0.0
+    s = h.sum()
+    if s != 0:
+        h /= s
+    return h.astype(np.float32)

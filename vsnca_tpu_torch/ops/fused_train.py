@@ -1,37 +1,45 @@
 """The differentiable training rollout: N DyNCA steps on NCHW state whose
 forward runs the inference kernel ``csrc/nca_step.cu`` and whose backward
-runs the two kernels of ``csrc/nca_train.cu``, with the plain PyTorch
-version of each beside it.
+runs the kernels of ``csrc/nca_train.cu``, with the plain PyTorch version of
+each beside it.
 
 Counterpart of ``vsnca_tpu/ops/pallas_train.py::fused_rollout_train_flat``
-(:2535) and its custom VJP ``fused_rollout_train_flat_hw`` (:2403):
+(:2535) and its custom VJPs ``fused_rollout_train_flat_hw`` (:2403) and
+``fused_rollout_train_flat_taps_hw`` (:2458):
 
-- forward (``_make_fwd_kernel_flat`` :942): one ``nca_step`` launch a step,
-  each step's input state written into a checkpoint buffer
-  [n_steps, B, C, H, W] — the TPU's segment 1, with no recompute. The masks
-  are the hash of (seed, batch, step, pixel) (``fused_step.mask_bits``), so
-  the backward regenerates them exactly;
+- forward (``_make_fwd_kernel_flat`` :942, and for perception_scales (0, 1)
+  ``_make_fwd_kernel_flat_tiled_ms`` :1031): one ``nca_step`` (or
+  ``nca_step_ms``) launch a step, each step's input state written into a
+  checkpoint buffer [n_steps, B, C, H, W] — the TPU's segment 1, with no
+  recompute. The masks are the hash of (seed, batch, step, pixel)
+  (``fused_step.mask_bits``), so the backward regenerates them exactly;
 - backward (``_make_bwd_kernel_flat`` :1139, ``_make_bwd_kernel_flat_scatter``
-  :1657 and ``_make_bwd_kernel_flat_tiled`` :1301 at scales (0,)): two
-  launches a step, steps in reverse — ``nca_bwd_mlp`` (MLP cotangents,
-  perception cotangent gp, per-block weight-gradient partials, dcond) and
-  ``nca_bwd_adjoint`` (gx += the flipped-stencil adjoint of gp). The
-  wrapper sums the per-block partials once per call.
+  :1657 and ``_make_bwd_kernel_flat_tiled`` :1301 with its multiscale adjoint
+  ``_flat_percept_ms_adj`` :185): two launches a step, steps in reverse —
+  ``nca_bwd_mlp`` (MLP cotangents, perception cotangent gp, per-block
+  weight-gradient partials, dcond) and ``nca_bwd_adjoint`` (gx += the
+  flipped-stencil adjoint of gp), or their multiscale forms
+  ``nca_bwd_mlp_ms`` and ``nca_bwd_adjoint_ms``. The wrapper sums the
+  per-block partials once per call;
+- frame taps (``tap_steps``): tap t is the checkpoint of state t, free in the
+  forward; the backward adds each tap's cotangent inside the adjoint launch
+  of step t, where gx has just become the cotangent of that state.
 
 Scope (``fused_train_supported``): circular padding and perception_scales
-(0,), as the TPU pair; its ``W % 128`` rule and VMEM plans are TPU layout
-and do not apply. ``fused_rollout_train`` launches the kernels for CUDA
-tensors and runs the plain versions only for CPU tensors; there is no
-fallback. ``LAUNCHES`` counts every launch the pair makes, and
-``KERNEL_LAUNCHES`` splits it by kernel (the forward's ``nca_step``
-launches also count in ``fused_step.LAUNCHES``).
+(0,) or (0, 1), as the TPU pair; its ``W % 128`` rule and VMEM plans are TPU
+layout and do not apply (scales (0, 1) need even H and W, as the TPU pair
+asserts). ``fused_rollout_train`` launches the kernels for CUDA tensors and
+runs the plain versions only for CPU tensors; there is no fallback.
+``LAUNCHES`` counts every launch the pair makes, and ``KERNEL_LAUNCHES``
+splits it by kernel (the forward's launches also count in
+``fused_step.LAUNCHES``).
 """
 
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Dict, Optional, Tuple
+from typing import Dict, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,7 +52,10 @@ from vsnca_tpu_torch.ops.filters import LAPLACIAN, SOBEL_X, SOBEL_Y
 from vsnca_tpu_torch.ops.perception import perceive, stencil_3x3
 
 LAUNCHES = 0
-KERNEL_LAUNCHES: Dict[str, int] = {"nca_step": 0, "nca_bwd_mlp": 0, "nca_bwd_adjoint": 0}
+KERNEL_LAUNCHES: Dict[str, int] = {
+    "nca_step": 0, "nca_bwd_mlp": 0, "nca_bwd_adjoint": 0,
+    "nca_step_ms": 0, "nca_bwd_mlp_ms": 0, "nca_bwd_adjoint_ms": 0,
+}
 
 # NCA_C_MAX, NCA_CC_MAX, NCA_F_MAX of csrc/nca_common.cuh (the card tests
 # check them against the built library): enough for every preset.
@@ -64,11 +75,11 @@ SOBEL_X_F, SOBEL_Y_F, LAPLACIAN_F = _flip(SOBEL_X), _flip(SOBEL_Y), _flip(LAPLAC
 def fused_train_supported(cfg: NCAConfig, n_steps: int) -> bool:
     """True when the training pair applies — the port's rule for
     ``fused_train_flat_supported`` (pallas_train.py:2014): circular padding,
-    perception_scales (0,) (the multiscale pair is not ported), at least one
-    step, and the kernels' size limits. Any H and W."""
+    perception_scales (0,) or (0, 1), at least one step, and the kernels'
+    size limits. Any H and W (even for (0, 1); the wrapper raises on odd)."""
     return (
         cfg.padding_mode == "circular"
-        and tuple(cfg.perception_scales) == (0,)
+        and tuple(cfg.perception_scales) in fs.SCALES
         and n_steps >= 1
         and cfg.c_in <= C_MAX
         and cfg.c_cond <= CC_MAX
@@ -83,6 +94,9 @@ class _Spec:
     update_rate: float
     compute_dtype: str
     cond_no_grad: bool
+    multiscale: bool = False
+    tap_steps: Tuple[int, ...] = ()
+    first_step: int = 0
 
     @property
     def thr(self) -> int:
@@ -99,25 +113,40 @@ def fused_rollout_train(
     update_rate: Optional[float] = None,
     compute_dtype: str = "float32",
     cond_no_grad: bool = False,
-) -> torch.Tensor:
+    tap_steps: Sequence[int] = (),
+    first_step: int = 0,
+):
     """``n_steps`` NCA steps, x [B, C, H, W] float32 → final state, with
     gradients to ``params`` (w1, b1, w2, b2), ``x`` and ``cond``
     ([B, c_cond, H, W] or None; no gradient when ``cond_no_grad``, the
     trainer's case). ``seed`` keys the masks as in
-    ``fused_step.fused_rollout_chw``, whose function the forward is."""
+    ``fused_step.fused_rollout_chw``, whose function the forward is (step i
+    of the call draws the mask of absolute step ``first_step + i``).
+
+    ``tap_steps`` (strictly increasing, in [1, n_steps)): return
+    ``(state, [tap states])`` instead, tap t being the state after t steps
+    ([B, C, H, W], a copy of its checkpoint); the gradient flows through the
+    taps too, in one reverse walk (``fused_rollout_train_flat`` with
+    ``tap_steps``, pallas_train.py:2579-2606)."""
     fs._check(params, x, cfg, cond, compute_dtype)
     if not fused_train_supported(cfg, n_steps):
         raise ValueError(
-            "the training pair takes circular padding, perception_scales (0,), "
-            f"n_steps >= 1, C <= {C_MAX}, c_cond <= {CC_MAX}, fc_dim <= {F_MAX}"
+            "the training pair takes circular padding, perception_scales (0,) or "
+            f"(0, 1), n_steps >= 1, C <= {C_MAX}, c_cond <= {CC_MAX}, fc_dim <= {F_MAX}"
         )
+    taps = tuple(int(t) for t in tap_steps)
+    if any(not 1 <= t < n_steps for t in taps) or list(taps) != sorted(set(taps)):
+        raise ValueError(f"tap_steps must be strictly increasing in [1, {n_steps}), "
+                         f"got {taps}")
     if x.device.type != "cpu":
         fs.check_card_inputs(x, (cond,), limits=train_kernel_limits(),
                              fc_dim=cfg.fc_dim)
     rate = cfg.update_rate if update_rate is None else update_rate
-    spec = _Spec(seed, n_steps, rate, compute_dtype, cond_no_grad)
-    return _TrainRollout.apply(params["w1"], params["b1"], params["w2"], params["b2"],
-                               x, cond, spec)
+    spec = _Spec(seed, n_steps, rate, compute_dtype, cond_no_grad,
+                 fs.is_multiscale(cfg), taps, first_step)
+    out = _TrainRollout.apply(params["w1"], params["b1"], params["w2"], params["b2"],
+                              x, cond, spec)
+    return (out[0], list(out[1:])) if taps else out
 
 
 class _TrainRollout(torch.autograd.Function):
@@ -131,16 +160,21 @@ class _TrainRollout(torch.autograd.Function):
         ctx.spec = spec
         ctx.w1_shape = w1.shape
         ctx.save_for_backward(*packed, ckpt, cond)
-        return y
+        if not spec.tap_steps:
+            return y
+        ctx.set_materialize_grads(False)
+        return (y, *(ckpt[t].clone() for t in spec.tap_steps))
 
     @staticmethod
-    def backward(ctx, gy):
+    def backward(ctx, gy, *gtaps):
         w1, b1, w2, b2, ckpt, cond = ctx.saved_tensors
         spec = ctx.spec
         need_dcond = cond is not None and ctx.needs_input_grad[5] and not spec.cond_no_grad
+        gy = torch.zeros_like(ckpt[0]) if gy is None else gy.contiguous()
+        taps = {t: g.contiguous() for t, g in zip(spec.tap_steps, gtaps) if g is not None}
         run = _backward_card if gy.device.type == "cuda" else _backward_reference
         dw1, db1, dw2, db2, dx0, dcond = run(
-            (w1, b1, w2, b2), ckpt, cond, gy.contiguous(), spec, need_dcond
+            (w1, b1, w2, b2), ckpt, cond, gy, spec, need_dcond, taps
         )
         p, f = ctx.w1_shape
         # the conditioning rows of W1 get no gradient from a call without cond
@@ -159,8 +193,8 @@ def _forward_card(packed, x, cond, spec: _Spec):
     for s in range(n):
         dst = ckpt[s + 1] if s + 1 < n else y
         fs.launch_step(ckpt[s], dst, cond, packed, "circular", spec.compute_dtype,
-                       spec.seed, s, spec.thr)
-        _count("nca_step")
+                       spec.seed, spec.first_step + s, spec.thr, spec.multiscale)
+        _count("nca_step_ms" if spec.multiscale else "nca_step")
     return y, ckpt
 
 
@@ -169,39 +203,43 @@ def _forward_reference(packed, x, cond, spec: _Spec):
     for s in range(spec.n_steps):
         states.append(x)
         x = fs.reference_step(x, cond, packed, "circular", spec.compute_dtype,
-                              spec.seed, s, spec.update_rate)
+                              spec.seed, spec.first_step + s, spec.update_rate,
+                              spec.multiscale)
     return x, torch.stack(states)
 
 
 # ----------------------------------------------------------------- backward
 
 
-def _backward_card(packed, ckpt, cond, gy, spec: _Spec, need_dcond: bool):
+def _backward_card(packed, ckpt, cond, gy, spec: _Spec, need_dcond: bool, taps=None):
     n, b, c, h, w = ckpt.shape
+    taps = taps or {}
     gx = gy.clone()
     gp = torch.empty((b, 4 * c, h, w), device=gy.device)
     dcond = torch.zeros_like(cond) if need_dcond else None
     slots = _zero_slots(b, c, h, w, packed)
     for s in reversed(range(n)):
         _launch_mlp(ckpt[s], cond, gx, gp, dcond, slots, packed, spec.compute_dtype,
-                    spec.seed, s, spec.thr)
-        _launch_adjoint(gp, gx)
+                    spec.seed, spec.first_step + s, spec.thr, spec.multiscale)
+        _launch_adjoint(gp, gx, taps.get(s), spec.multiscale)
     return (*_split_slots(slots, packed, c), gx, dcond)
 
 
-def _backward_reference(packed, ckpt, cond, gy, spec: _Spec, need_dcond: bool):
+def _backward_reference(packed, ckpt, cond, gy, spec: _Spec, need_dcond: bool,
+                        taps=None):
+    taps = taps or {}
     gx = gy
     dcond = torch.zeros_like(cond) if need_dcond else None
     sums = None
     for s in reversed(range(spec.n_steps)):
         gp, dc, *dparams = nca_bwd_mlp_reference(
-            packed, ckpt[s], cond, gx, spec.seed, s, spec.update_rate,
-            spec.compute_dtype, need_dcond,
+            packed, ckpt[s], cond, gx, spec.seed, spec.first_step + s, spec.update_rate,
+            spec.compute_dtype, need_dcond, spec.multiscale,
         )
         sums = dparams if sums is None else [a + d for a, d in zip(sums, dparams)]
         if need_dcond:
             dcond = dcond + dc
-        gx = nca_bwd_adjoint_reference(gp, gx)
+        gx = nca_bwd_adjoint_reference(gp, gx, taps.get(s), spec.multiscale)
     return (*sums, gx, dcond)
 
 
@@ -216,59 +254,70 @@ def fused_rollout_train_reference(
     update_rate: Optional[float] = None,
     compute_dtype: str = "float32",
     need_dcond: bool = False,
+    tap_steps: Sequence[int] = (),
+    gtaps: Sequence[torch.Tensor] = (),
 ):
     """The whole pair in plain PyTorch as explicit steps: the forward, then
     the reverse walk with ``nca_bwd_mlp_reference`` and
-    ``nca_bwd_adjoint_reference`` for cotangent ``gy`` of the final state.
-    Returns (state, {w1, b1, w2, b2: gradient}, dx0, dcond or None)."""
+    ``nca_bwd_adjoint_reference`` for cotangent ``gy`` of the final state
+    and ``gtaps[i]`` of the state after ``tap_steps[i]`` steps. Returns
+    (state, {w1, b1, w2, b2: gradient}, dx0, dcond or None), and with taps
+    (state, [tap states], grads, dx0, dcond)."""
     fs._check(params, x, cfg, cond, compute_dtype)
     rate = cfg.update_rate if update_rate is None else update_rate
-    spec = _Spec(seed, n_steps, rate, compute_dtype, not need_dcond)
+    spec = _Spec(seed, n_steps, rate, compute_dtype, not need_dcond,
+                 fs.is_multiscale(cfg), tuple(tap_steps))
     cc = cond.shape[1] if cond is not None else 0
     packed = fs.pack_weights(params, x.shape[1], cc, compute_dtype)
     y, ckpt = _forward_reference(packed, x, cond, spec)
-    dw1, db1, dw2, db2, dx0, dcond = _backward_reference(packed, ckpt, cond, gy,
-                                                         spec, need_dcond)
+    dw1, db1, dw2, db2, dx0, dcond = _backward_reference(
+        packed, ckpt, cond, gy, spec, need_dcond, dict(zip(spec.tap_steps, gtaps)))
     p, f = params["w1"].shape
     grads = {"w1": F.pad(dw1[:, :f], (0, 0, 0, p - dw1.shape[0])), "b1": db1[:f],
              "w2": dw2[:f], "b2": db2}
+    if spec.tap_steps:
+        return y, [ckpt[t] for t in spec.tap_steps], grads, dx0, dcond
     return y, grads, dx0, dcond
 
 
-# ------------------------------------------------- the two backward kernels
+# ------------------------------------------------------ the backward kernels
 
 
 def nca_bwd_mlp(packed, x, cond, gx, seed: int, step: int, update_rate: float,
-                compute_dtype: str = "float32", need_dcond: bool = False):
+                compute_dtype: str = "float32", need_dcond: bool = False,
+                multiscale: bool = False):
     """The first backward pass of one step (absolute step ``step``): x the
     step's input state and gx the cotangent of its output, [B, C, H, W];
     ``packed`` from ``fused_step.pack_weights``. Returns (gp [B, 4C, H, W],
     dcond [B, cc, H, W] or None, dW1 [4C + cc, F4], db1 [F4], dW2 [F4, C],
-    db2 [C]) — this step's contributions. One ``nca_bwd_mlp`` launch for CUDA
-    tensors; the plain version for CPU tensors."""
+    db2 [C]) — this step's contributions; with ``multiscale`` the percept is
+    scales (0, 1)'s average and gp its cotangent. One ``nca_bwd_mlp`` (or
+    ``nca_bwd_mlp_ms``) launch for CUDA tensors; the plain version for CPU
+    tensors."""
     if x.device.type == "cpu":
         return nca_bwd_mlp_reference(packed, x, cond, gx, seed, step, update_rate,
-                                     compute_dtype, need_dcond)
+                                     compute_dtype, need_dcond, multiscale)
     b, c, h, w = x.shape
     fs.check_card_inputs(x, (cond,), (gx,), packed)
+    _check_even(x, multiscale)
     gp = torch.empty((b, 4 * c, h, w), device=x.device)
     dcond = torch.zeros_like(cond) if need_dcond else None
     slots = _zero_slots(b, c, h, w, packed)
     _launch_mlp(x, cond, gx, gp, dcond, slots, packed, compute_dtype, seed, step,
-                fs.uniform_threshold(update_rate))
+                fs.uniform_threshold(update_rate), multiscale)
     return (gp, dcond, *_split_slots(slots, packed, c))
 
 
 def nca_bwd_mlp_reference(packed, x, cond, gx, seed: int, step: int,
                           update_rate: float, compute_dtype: str = "float32",
-                          need_dcond: bool = False):
+                          need_dcond: bool = False, multiscale: bool = False):
     """``nca_bwd_mlp``'s function in plain PyTorch (float32 products, TF32
     off; bf16 rounding of the percept, hid, gdx and gz1 as the kernel)."""
     torch.backends.cuda.matmul.allow_tf32 = False
     w1, b1, w2, _ = packed
     c = x.shape[1]
     rnd = fs.rounder(compute_dtype)
-    p = perceive(x, "circular")
+    p = fs.multiscale_percept(x, "circular") if multiscale else perceive(x, "circular")
     if cond is not None:
         p = torch.cat([p, cond], dim=1)
     p = rnd(p)
@@ -288,29 +337,69 @@ def nca_bwd_mlp_reference(packed, x, cond, gx, seed: int, step: int,
     )
 
 
-def nca_bwd_adjoint(gp: torch.Tensor, gx: torch.Tensor) -> torch.Tensor:
-    """The second backward pass of one step: gx + gp[:, :C] + the adjoint
-    Sobel-x, Sobel-y and Laplacian stencils of gp[:, C:4C] (flipped filters,
-    circular). One ``nca_bwd_adjoint`` launch, on a copy of gx, for CUDA
-    tensors; the plain version for CPU tensors."""
+def nca_bwd_adjoint(gp: torch.Tensor, gx: torch.Tensor,
+                    gtap: Optional[torch.Tensor] = None,
+                    multiscale: bool = False) -> torch.Tensor:
+    """The second backward pass of one step: gx + the state cotangent of the
+    percept cotangent gp — gp[:, :C] + the adjoint Sobel-x, Sobel-y and
+    Laplacian stencils of gp[:, C:4C] (flipped filters, circular), or with
+    ``multiscale`` the transpose of scales (0, 1)'s percept — plus ``gtap``
+    [B, C, H, W] when given (a frame tap's cotangent). One
+    ``nca_bwd_adjoint`` (or ``nca_bwd_adjoint_ms``) launch, on a copy of gx,
+    for CUDA tensors; the plain version for CPU tensors."""
     if gx.device.type == "cpu":
-        return nca_bwd_adjoint_reference(gp, gx)
-    fs.check_card_inputs(gx, (gp,))
+        return nca_bwd_adjoint_reference(gp, gx, gtap, multiscale)
+    fs.check_card_inputs(gx, (gp,), () if gtap is None else (gtap,))
+    _check_even(gx, multiscale)
     if gp.shape[1] != 4 * gx.shape[1]:
         raise ValueError(f"gp must have 4C = {4 * gx.shape[1]} channels, got {gp.shape[1]}")
     out = gx.clone()
-    _launch_adjoint(gp, out)
+    _launch_adjoint(gp, out, gtap, multiscale)
     return out
 
 
-def nca_bwd_adjoint_reference(gp: torch.Tensor, gx: torch.Tensor) -> torch.Tensor:
+def _stencil_adjoint(g: torch.Tensor, c: int) -> torch.Tensor:
+    """g[:, :C] + the flipped-stencil correlations of g's three stencil
+    blocks, circular, in the JAX term order (pallas_train.py:1274-1280)."""
+    sx, = stencil_3x3(g[:, c:2 * c], [SOBEL_X_F], "circular")
+    sy, = stencil_3x3(g[:, 2 * c:3 * c], [SOBEL_Y_F], "circular")
+    lap, = stencil_3x3(g[:, 3 * c:], [LAPLACIAN_F], "circular")
+    return g[:, :c] + sx + sy + lap
+
+
+def upsample2_adjoint(g: torch.Tensor, dim: int) -> torch.Tensor:
+    """Transpose of ``fused_step.upsample2`` along ``dim`` (2m → m): half
+    pixel i gathers its children 2i and 2i + 1 at 0.75 and the neighbours'
+    0.25 taps, 2i - 1 and 2i + 2 (at the clamped edges its own child 2i
+    for i = 0 and 2i + 1 for i = m - 1), summed as
+    (0.75 a + 0.75 b) + (0.25 l + 0.25 r) — nca_train.cu's upsample2_t."""
+    dim %= g.dim()
+    n = g.shape[dim]
+    a = g.narrow(dim, 0, n).unfold(dim, 1, 2).squeeze(-1)       # g[2i]
+    b = g.narrow(dim, 1, n - 1).unfold(dim, 1, 2).squeeze(-1)   # g[2i + 1]
+    left = torch.cat([a.narrow(dim, 0, 1), b.narrow(dim, 0, b.shape[dim] - 1)], dim)
+    right = torch.cat([a.narrow(dim, 1, a.shape[dim] - 1), b.narrow(dim, b.shape[dim] - 1, 1)],
+                      dim)
+    return (a * 0.75 + b * 0.75) + (left * 0.25 + right * 0.25)
+
+
+def nca_bwd_adjoint_reference(gp: torch.Tensor, gx: torch.Tensor,
+                              gtap: Optional[torch.Tensor] = None,
+                              multiscale: bool = False) -> torch.Tensor:
     """``nca_bwd_adjoint``'s function in plain PyTorch: shifted-slice sums in
-    the JAX term order (pallas_train.py:1274-1280)."""
+    the JAX term order; for scales (0, 1) the transpose of
+    ``fused_step.multiscale_percept`` as the kernel forms it,
+    gx + (gx0 + 0.25 g_h[parent]) * 0.5 with gx0 the scale-0 adjoint of gp
+    and g_h the half-resolution stencil adjoint of U^T gp (over W, then
+    H)."""
     c = gx.shape[1]
-    sx, = stencil_3x3(gp[:, c:2 * c], [SOBEL_X_F], "circular")
-    sy, = stencil_3x3(gp[:, 2 * c:3 * c], [SOBEL_Y_F], "circular")
-    lap, = stencil_3x3(gp[:, 3 * c:], [LAPLACIAN_F], "circular")
-    return gx + (gp[:, :c] + sx + sy + lap)
+    if multiscale:
+        g_h = _stencil_adjoint(upsample2_adjoint(upsample2_adjoint(gp, -1), -2), c)
+        up = g_h.repeat_interleave(2, dim=-2).repeat_interleave(2, dim=-1)
+        out = gx + (_stencil_adjoint(gp, c) + up * 0.25) * 0.5
+    else:
+        out = gx + _stencil_adjoint(gp, c)
+    return out if gtap is None else out + gtap
 
 
 # ------------------------------------------------------------ kernel plumbing
@@ -320,6 +409,12 @@ def _count(name: str) -> None:
     global LAUNCHES
     LAUNCHES += 1
     KERNEL_LAUNCHES[name] += 1
+
+
+def _check_even(x: torch.Tensor, multiscale: bool) -> None:
+    if multiscale and (x.shape[-2] % 2 or x.shape[-1] % 2):
+        raise ValueError(f"perception_scales (0, 1) needs even H and W, got "
+                         f"{tuple(x.shape[-2:])}")
 
 
 def n_blocks(b: int, h: int, w: int) -> int:
@@ -352,39 +447,42 @@ def _stream(device) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def _launch_mlp(x, cond, gx, gp, dcond, slots, packed, compute_dtype, seed, step, thr):
+def _launch_mlp(x, cond, gx, gp, dcond, slots, packed, compute_dtype, seed, step, thr,
+                multiscale=False):
     w1, b1, w2, _ = packed
     b, c, h, w = x.shape
     cc = cond.shape[1] if cond is not None else 0
+    name = "nca_bwd_mlp_ms" if multiscale else "nca_bwd_mlp"
     with torch.cuda.device(x.device):
         err = _lib().nca_bwd_mlp_launch(
             _ptr(x), _ptr(cond), _ptr(gx), _ptr(gp), _ptr(dcond), _ptr(slots),
             _ptr(w1), _ptr(b1), _ptr(w2), b, c, h, w, cc, w1.shape[1],
-            int(compute_dtype == "bfloat16"), seed & 0xFFFFFFFF, step, thr,
-            _stream(x.device),
+            int(compute_dtype == "bfloat16"), int(multiscale), seed & 0xFFFFFFFF, step,
+            thr, _stream(x.device),
         )
     if err != 0:
-        raise RuntimeError(f"nca_bwd_mlp launch failed: CUDA error {err}")
-    _count("nca_bwd_mlp")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    _count(name)
 
 
-def _launch_adjoint(gp, gx):
+def _launch_adjoint(gp, gx, gtap=None, multiscale=False):
     b, c, h, w = gx.shape
+    name = "nca_bwd_adjoint_ms" if multiscale else "nca_bwd_adjoint"
     with torch.cuda.device(gx.device):
-        err = _lib().nca_bwd_adjoint_launch(_ptr(gp), _ptr(gx), b, c, h, w,
-                                            _stream(gx.device))
+        err = _lib().nca_bwd_adjoint_launch(_ptr(gp), _ptr(gx), _ptr(gtap), b, c, h, w,
+                                            int(multiscale), _stream(gx.device))
     if err != 0:
-        raise RuntimeError(f"nca_bwd_adjoint launch failed: CUDA error {err}")
-    _count("nca_bwd_adjoint")
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    _count(name)
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("nca_train")
     if lib.nca_bwd_mlp_launch.argtypes is None:
         ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-        lib.nca_bwd_mlp_launch.argtypes = [ptr] * 9 + [i32] * 7 + [u32] * 3 + [ptr]
+        lib.nca_bwd_mlp_launch.argtypes = [ptr] * 9 + [i32] * 8 + [u32] * 3 + [ptr]
         lib.nca_bwd_mlp_launch.restype = ctypes.c_int
-        lib.nca_bwd_adjoint_launch.argtypes = [ptr] * 2 + [i32] * 4 + [ptr]
+        lib.nca_bwd_adjoint_launch.argtypes = [ptr] * 3 + [i32] * 5 + [ptr]
         lib.nca_bwd_adjoint_launch.restype = ctypes.c_int
         lib.nca_train_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
         lib.nca_train_limits.restype = ctypes.c_int

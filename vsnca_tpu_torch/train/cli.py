@@ -5,6 +5,15 @@ Usage (on the card; ``--device cpu`` runs the plain path):
     python -m vsnca_tpu_torch.train.cli --preset static_texture \
         [--style-image path | synthetic] [--max-iterations N] \
         [--img-size S] [--out out/run]
+    python -m vsnca_tpu_torch.train.cli --preset video_motion \
+        [--target-video clip.gif] [--max-iterations N] [--out out/vm]
+
+``video_motion`` fits a target video (a GIF, or a synthetic 16-frame
+drifting texture): MSOE from ``weights/msoe.npz`` or its seeded fallback,
+the target's VGG16 and MSOE features computed once, each iteration's
+step_n drawn by the trainer (at least 65, so that two frames are tapped)
+and the reference's tap schedule (a frame after steps 1, 65, ...), the
+target window's start drawn from this script's own RandomState(seed).
 
 Writes ``<out>/args.json`` and, at the end, ``<out>/checkpoint/state.pkl``
 in the JAX package's pickle layout (``vsnca_tpu/export/checkpoint.py``:
@@ -33,6 +42,8 @@ def setup_args(argv=None):
     p.add_argument("--preset", default="static_texture", choices=sorted(PRESETS))
     p.add_argument("--style-image", default="synthetic",
                    help="style image path, or 'synthetic'")
+    p.add_argument("--target-video", default=None,
+                   help="target dynamics video, a GIF (video_motion preset)")
     p.add_argument("--img-size", type=int, default=None)
     p.add_argument("--max-iterations", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
@@ -42,7 +53,7 @@ def setup_args(argv=None):
     p.add_argument("--log-every", type=int, default=10)
     p.add_argument("--device", default=None, help="cuda (the default) or cpu")
     p.add_argument("--no-precompute", action="store_true",
-                   help="recompute the target's VGG features every iteration")
+                   help="recompute the target's VGG16 (and MSOE) features every iteration")
     return p.parse_args(argv)
 
 
@@ -72,7 +83,9 @@ def main(argv=None):
 
     from vsnca_tpu_torch.data.preprocess import (
         preprocess_style_image,
+        preprocess_video,
         synthetic_style_image,
+        synthetic_video,
     )
     from vsnca_tpu_torch.device import resolve_device
     from vsnca_tpu_torch.losses.appearance import precompute_target_style_features
@@ -103,9 +116,24 @@ def main(argv=None):
         style = preprocess_style_image(args.style_image, hw, train_cfg.batch_size)
     style = torch.from_numpy(style * 2.0 - 1.0).permute(0, 3, 1, 2).contiguous().to(device)
 
+    target_video = None
+    if args.target_video:
+        target_video = preprocess_video(args.target_video, hw)
+    elif args.preset == "video_motion":
+        target_video = synthetic_video(hw, 16)
+    if target_video is not None:
+        target_video = torch.from_numpy(target_video).permute(0, 3, 1, 2).contiguous().to(device)
+
     vgg, vgg_pretrained = load_vgg16(device=device)
     print(f"VGG16 weights: {'pretrained' if vgg_pretrained else 'RANDOM FALLBACK'}")
-    trainer = DyNCATrainer(nca_cfg, loss_cfg, train_cfg, vgg_params=vgg, device=device)
+    msoe = None
+    if loss_cfg.video_motion_weight:
+        from vsnca_tpu_torch.models.msoe import load_msoe
+
+        msoe, msoe_pretrained = load_msoe(device=device)
+        print(f"MSOE weights: {'pretrained' if msoe_pretrained else 'RANDOM FALLBACK'}")
+    trainer = DyNCATrainer(nca_cfg, loss_cfg, train_cfg, vgg_params=vgg, msoe_params=msoe,
+                           device=device)
     print(f"DyNCA param count: {sum(v.numel() for v in trainer.params.values())}; "
           f"device {device}")
 
@@ -116,10 +144,40 @@ def main(argv=None):
             vgg, style, loss_cfg.appearance_loss_type, hw
         )
 
+    motion_feats = None
+    if loss_cfg.video_motion_weight and not args.no_precompute:
+        from vsnca_tpu_torch.losses.video_motion import precompute_target_motion_features
+
+        motion_feats = precompute_target_motion_features(msoe, target_video,
+                                                         loss_cfg.motion_img_size)
+        if motion_feats is None:
+            print("skipping the motion-feature precompute: the video is past the memory "
+                  "budget; the target window's features are recomputed every iteration")
+
+    rng = np.random.RandomState(args.seed)
     t0 = time.time()
     for i in range(train_cfg.max_iterations):
+        iter_kw = {}
+        if loss_cfg.video_motion_weight:
+            from vsnca_tpu_torch.models.dynca import tap_schedule
+
+            # the reference's schedule (fit_video_motion.py:229-235): frames
+            # after steps 1, 65, ..., a frameless tail to step_n
+            step_n = max(trainer.sample_step_n(), 65)
+            chunks, tail = tap_schedule(step_n, 64)
+            nf = len(chunks)
+            iter_kw = dict(step_n=step_n, tap_chunks=chunks, tail_steps=tail)
+            start = rng.randint(0, max(target_video.shape[0] - nf, 1))
+            inputs.pop("target_motion_features", None)
+            inputs.pop("target_motion_frames", None)
+            if motion_feats is not None:
+                inputs["target_motion_features"] = motion_feats[start:start + nf - 1]
+            else:
+                window = target_video[start:start + nf]
+                inputs["target_motion_frames"] = window[:, None].expand(
+                    (nf, train_cfg.batch_size) + tuple(window.shape[1:]))
         sync = (i % args.log_every == 0) or (i == train_cfg.max_iterations - 1)
-        log = trainer.train_iteration(inputs, sync=sync)
+        log = trainer.train_iteration(inputs, sync=sync, **iter_kw)
         if sync and i % args.log_every == 0:
             rate = (i + 1) / (time.time() - t0)
             terms = " ".join(f"{k}={v:.4f}" for k, v in log.logs.items())

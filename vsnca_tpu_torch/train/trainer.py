@@ -1,6 +1,6 @@
 """DyNCA training harness — the port's copy of ``vsnca_tpu/train/trainer.py``
-for the branch ``static_texture`` takes: no frame taps, no motion inputs,
-one device.
+for the branches ``static_texture`` and ``video_motion`` take, on one
+device.
 
 ``make_train_step`` builds the step: conditioning, the BPTT rollout (the
 fused kernel pair of ``ops/fused_train.py`` on a card where it applies, see
@@ -9,10 +9,12 @@ and the Adam update. ``DyNCATrainer`` owns what the reference loop owns:
 pool sampling and the rollout length from one ``np.random.RandomState(seed)``
 in the JAX trainer's order (so both packages draw the same batch indices and
 step counts from the same seed), seed injection every K iterations, the NaN
-abort, the pool write-back and the history. Tapped (video-motion)
-schedules, motion losses, the extra-channel content append and device
-meshes are not ported yet (ROADMAP.md queue A); their losses raise in
-``make_loss_fn``.
+abort, the pool write-back and the history. The tapped (video-motion)
+schedule runs as the JAX trainer's does (trainer.py:161-288): one call of
+the training pair with in-kernel taps where the pair applies, else one
+rollout a chunk; appearance scores every tapped frame. The extra-channel content
+append, the vector-field pre-roll and device meshes are not ported yet
+(ROADMAP.md queue A); their losses raise in ``make_loss_fn``.
 """
 
 from __future__ import annotations
@@ -32,28 +34,54 @@ from vsnca_tpu_torch.models.dynca import (
     dynca_rollout,
     dynca_seed,
     make_conditioning,
+    rollout_taps,
+    to_rgb,
 )
 from vsnca_tpu_torch.pool.sample_pool import DevicePool, inject_seed_into_batch
 from vsnca_tpu_torch.train.optim import NormalizedAdam, make_optimizer
 
 
+def _tap_plan(n_motion_frames: int, tap_every: int, tap_chunks, tail_steps):
+    """(frame chunks, tail) of a tapped iteration, or None: ``tap_chunks``
+    and ``tail_steps`` (``models.dynca.tap_schedule``), else the legacy
+    ``n_motion_frames`` equal chunks of ``tap_every`` steps."""
+    if tap_chunks:
+        return tuple(int(c) for c in tap_chunks), int(tail_steps)
+    if n_motion_frames > 0:
+        return (int(tap_every),) * n_motion_frames, 0
+    return None
+
+
 def make_train_step(nca_cfg: NCAConfig, loss_state: LossState,
                     remat: str = "per_step", rollout_path: str = "auto"):
     """The train step ``step(params, optimizer, states, seed, inputs, *,
-    step_n) -> (params, optimizer, new_states, loss, logs)``. ``params`` are
-    leaf tensors that require grad and ``optimizer`` a ``NormalizedAdam``
-    over them; both are updated in place. ``seed`` keys the rollout's
-    masks. ``inputs`` (NCHW tensors): ``target_style`` [B, 3, H, W] in
-    [-1, 1]; ``target_style_features`` (optional, from
-    ``losses.appearance.precompute_target_style_features``); ``aux_gs``
-    [B, 1, H, W] grayscale content for edge conditioning.
+    step_n, n_motion_frames=0, tap_every=0, tap_chunks=(), tail_steps=0,
+    mark=None) -> (params, optimizer, new_states, loss, logs)``. ``params``
+    are leaf tensors that require grad and ``optimizer`` a
+    ``NormalizedAdam`` over them; both are updated in place. ``seed`` keys
+    the rollout's masks and the loss's draws. ``inputs`` (NCHW tensors):
+    ``target_style`` [B, 3, H, W] in [-1, 1]; ``target_style_features``
+    (optional, from ``losses.appearance.precompute_target_style_features``);
+    ``aux_gs`` [B, 1, H, W] grayscale content for edge conditioning;
+    ``target_motion_frames`` [T, B, 3, H, W], the target video's window,
+    or ``target_motion_features`` [T - 1, 320, h, w], its pairs' MSOE
+    features (``losses.video_motion.precompute_target_motion_features``).
 
-    ``rollout_path`` is ``models.dynca.rollout_route``'s: "auto" runs the
-    fused kernel pair for a CUDA state where it applies and the eager steps
-    on the CPU, "fused" always the pair (its plain version for a CPU
-    state), "xla" the eager steps. The conditioning (a positional constant
-    or an edge map of the content) takes no gradient. The whole step runs
-    in full float32 (TF32 off for products and convolutions).
+    Tapped iterations (video motion): ``tap_chunks``/``tail_steps`` roll
+    one frame a chunk and then a frameless tail (``step_n`` is then their
+    sum); the legacy ``(n_motion_frames, tap_every)`` form rolls equal
+    chunks. ``models.dynca.rollout_taps`` runs either: where
+    ``rollout_route`` picks the training pair, the whole schedule is ONE
+    call with in-kernel taps; otherwise one rollout a chunk (the JAX
+    trainer's chunked fallback and its two-level tap scan, which compute
+    the same values).
+
+    ``rollout_path`` is ``rollout_route``'s: "auto" runs the fused kernel
+    pair for a CUDA state where it applies and the eager steps on the CPU,
+    "fused" always the pair (its plain version for a CPU state), "xla" the
+    eager steps. The conditioning (a positional constant or an edge map of
+    the content) takes no gradient. The whole step runs in full float32
+    (TF32 off for products and convolutions).
 
     ``mark``, when given, is called with the name of each part of the step
     as it begins — "rollout forward", "loss forward", "loss backward",
@@ -68,26 +96,44 @@ def make_train_step(nca_cfg: NCAConfig, loss_state: LossState,
 
     def train_step(params, optimizer: NormalizedAdam, states, seed: int,
                    inputs: Dict[str, torch.Tensor], *, step_n: int,
-                   mark: Optional[Callable[[str], None]] = None):
+                   n_motion_frames: int = 0, tap_every: int = 0, tap_chunks=(),
+                   tail_steps: int = 0, mark: Optional[Callable[[str], None]] = None):
         mark = mark or (lambda name: None)
         cond = make_conditioning(nca_cfg, tuple(states.shape[-2:]),
                                  cond_img=inputs.get("aux_gs"), batch=states.shape[0],
                                  device=states.device)
         optimizer.zero_grad()
         mark("rollout forward")
-        state_after, rgb_after = dynca_rollout(params, states, seed, nca_cfg, step_n, cond,
-                                               remat=remat, rollout_path=rollout_path)
+        plan = _tap_plan(n_motion_frames, tap_every, tap_chunks, tail_steps)
+        input_dict = {"step_n": step_n}
+        if plan is None:
+            state_after, rgb_after = dynca_rollout(params, states, seed, nca_cfg, step_n,
+                                                   cond, remat=remat,
+                                                   rollout_path=rollout_path)
+            input_dict["generated_image_list"] = [rgb_after]
+        else:
+            chunks, tail = plan
+            state_after, taps = rollout_taps(params, states, seed, nca_cfg, chunks, tail,
+                                             cond, remat, rollout_path)
+            frames = [to_rgb(t, nca_cfg.c_out) for t in taps]
+            n_frames = len(frames)
+            # appearance scores every tapped frame (fit_video_motion.py:243-256)
+            input_dict["generated_image_list"] = frames
+            input_dict["generated_image_list_motion"] = frames
+            if "target_motion_frames" in inputs:
+                input_dict["target_motion_image_list"] = [
+                    inputs["target_motion_frames"][i] for i in range(n_frames)]
+            if "target_motion_features" in inputs:
+                input_dict["target_motion_feature_list"] = [
+                    inputs["target_motion_features"][i] for i in range(n_frames - 1)]
         mark("loss forward")
-        input_dict = {
-            "nca_state": state_after,
-            "generated_image_list": [rgb_after],
-            "step_n": step_n,
-        }
+        input_dict["nca_state"] = state_after
         if "target_style" in inputs:
-            input_dict["target_image_list"] = [inputs["target_style"]]
+            input_dict["target_image_list"] = (
+                [inputs["target_style"]] * len(input_dict["generated_image_list"]))
         if "target_style_features" in inputs:
             input_dict["target_style_features"] = inputs["target_style_features"]
-        loss, logs = loss_fn(input_dict)
+        loss, logs = loss_fn(input_dict, torch.Generator().manual_seed(seed + 1))
         mark("loss backward")
         state_after.register_hook(lambda g: mark("rollout backward"))
         loss.backward()
@@ -111,15 +157,16 @@ class DyNCATrainer:
     """Host-side training loop mirroring the reference harness."""
 
     def __init__(self, nca_cfg: NCAConfig, loss_cfg: LossConfig,
-                 train_cfg: TrainConfig, vgg_params=None, seed: Optional[int] = None,
-                 device=None):
+                 train_cfg: TrainConfig, vgg_params=None, msoe_params=None,
+                 seed: Optional[int] = None, device=None):
         """Parameters and pool seeds come from ``torch.Generator(seed)``
         (drawn on the CPU); batch indices and rollout lengths from
         ``np.random.RandomState(seed)``, as in the JAX trainer."""
         self.device = resolve_device(device)
         self.nca_cfg = nca_cfg
         self.train_cfg = train_cfg
-        self.loss_state = LossState(cfg=loss_cfg, vgg_params=vgg_params)
+        self.loss_state = LossState(cfg=loss_cfg, vgg_params=vgg_params,
+                                    msoe_params=msoe_params)
         s = train_cfg.seed if seed is None else seed
         self.rng = np.random.RandomState(s)
         self.generator = torch.Generator().manual_seed(s)
@@ -138,6 +185,12 @@ class DyNCATrainer:
         self.iteration = 0
         self.history: list = []
 
+    def rebuild_loss(self, new_cfg: LossConfig) -> None:
+        """Swap the loss weights (the video-motion calibration)."""
+        self.loss_state = dataclasses.replace(self.loss_state, cfg=new_cfg)
+        self._train_step = make_train_step(self.nca_cfg, self.loss_state,
+                                           self.train_cfg.remat, self.train_cfg.rollout_path)
+
     def sample_step_n(self) -> int:
         """Random rollout length snapped to the nearest bucket."""
         lo, hi = self.train_cfg.step_range
@@ -146,11 +199,17 @@ class DyNCATrainer:
         return int(buckets[np.argmin(np.abs(buckets - raw))])
 
     def train_iteration(self, inputs: Dict[str, torch.Tensor],
-                        step_n: Optional[int] = None, sync: bool = True,
+                        step_n: Optional[int] = None, n_motion_frames: int = 0,
+                        tap_every: int = 0, tap_chunks=(), tail_steps: int = 0,
+                        sync: bool = True,
                         mark: Optional[Callable[[str], None]] = None) -> TrainLog:
-        """One training iteration. ``sync=False`` skips the host read of the
-        loss (the NaN guard then fires on the next synced iteration);
-        ``mark`` goes to the train step (see ``make_train_step``)."""
+        """One training iteration. ``tap_chunks``/``tail_steps`` (see
+        ``models.dynca.tap_schedule``) run the reference's tapped rollout,
+        one frame a chunk plus a frameless tail; the legacy
+        ``(n_motion_frames, tap_every)`` form rolls equal chunks.
+        ``sync=False`` skips the host read of the loss (the NaN guard then
+        fires on the next synced iteration); ``mark`` goes to the train step
+        (see ``make_train_step``)."""
         tc = self.train_cfg
         i = self.iteration
         idx = self.pool.sample_indices(self.rng, tc.batch_size)
@@ -163,7 +222,9 @@ class DyNCATrainer:
             states = inject_seed_into_batch(states, self._seed_template)
         seed = int(torch.randint(0, 1 << 30, (), generator=self.generator))
         self.params, self.optimizer, new_states, loss, logs = self._train_step(
-            self.params, self.optimizer, states, seed, inputs, step_n=step_n, mark=mark
+            self.params, self.optimizer, states, seed, inputs, step_n=step_n,
+            n_motion_frames=n_motion_frames, tap_every=tap_every,
+            tap_chunks=tuple(tap_chunks), tail_steps=tail_steps, mark=mark,
         )
         self.pool.scatter(idx, new_states)
 
