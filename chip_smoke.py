@@ -27,7 +27,13 @@ exit and no result line:
    nca_bwd_adjoint_ms backward) at 40x72 and at 256^2 b3 x 16 steps, the
    tapped pair at scales (0,) and (0, 1), each multiscale backward kernel
    alone at 256^2 b3; one video_motion train step on the card against the
-   CPU at 32^2;
+   CPU at 32^2; the TPU-layout forms: nca_step_mat (algo 'mat') and the
+   bf16-state nca_step (algo 'padded', state_dtype 'bfloat16') at 40x72 b2 x 4
+   steps and 256^2 b1 x 24 steps under the three paddings, conditioning none /
+   pos_emb / edges, rates 1 and 0.5, f32 and bf16 compute; the streaming entry
+   at 1024^2 b1 x 4 steps; the segment-checkpointed CHW pair at the
+   static_texture cell (128^2 b4 x 128 steps, K = 16) against K = 1 and
+   against its plain segment walk;
 3. the serving path: ``StylizeServer`` with the edge-conditioned model at
    full width (c12/fc96, random weights from a seed) answers session, frame,
    damage, reset, stream and stats requests at 256^2 with 24 steps a frame;
@@ -52,7 +58,12 @@ exit and no result line:
    it in a subprocess; ``VideoMotionProtocol`` runs warmup 2, calibrates,
    re-initializes and runs 1 main iteration; ``VideoStylizer`` with the
    multiscale cell stylizes 12 frames at 256^2, 24 nca_step_ms launches a
-   frame;
+   frame. The TPU-layout entries: bench.py's cell through
+   ``ROLLOUT_KERNELS[select_rollout_kernel(...)]``, the edge_conditioned
+   cell through ``fused_rollout_chw`` with algo 'mat' and with a bf16 state
+   (24 steps each), ``fused_rollout_stream_chw`` at 1024^2, and the
+   static_texture cell through ``fused_rollout_train_nhwc`` (K = 16) with a
+   backward, each kernel's launches counted exactly;
 4. times with CUDA events (median of repeats after warm-up): kernel and plain
    ms/step at 256^2 and 512^2, stylizer frames/s, the cell-update rate of
    ``bench.py``'s primary metric; on the host clock the server's frames/s and
@@ -71,7 +82,13 @@ exit and no result line:
    parts and its two loss forwards (VGG16 + OT, MSOE + MotionOT) alone,
    video_motion iterations/s, peak memory and a profiler window over one
    iteration, the multiscale stylizer's frames/s and a profiler window over
-   its frames.
+   its frames; nca_step_mat and the bf16-state nca_step per launch at 256^2
+   b1 bf16 beside nca_step, their bounds and plain versions, every registry
+   entry per step at 256^2 and 1024^2, the segment trade-off (forward +
+   backward time and added peak memory at K = 1 and 16, for static_texture
+   and the video_motion pair), and the benchmark harness
+   (``benchmark_serving`` with 8 streams at 256^2, ``benchmark_train_step``
+   for static_texture) once each.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Needs one card; exits non-zero without
@@ -80,6 +97,7 @@ one. Imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 import statistics
@@ -1417,6 +1435,374 @@ def time_vm_losses(torch, vgg, msoe, loss_cfg, frames, style_feats, motion_feats
     return app, mot
 
 
+# ------------------------------------------- the TPU-layout forms (rows 1, 2, 5, 6)
+
+FORMS = {"nca_step_mat": dict(algo="mat"),
+         "nca_step_bf16_state": dict(algo="padded", state_dtype="bfloat16")}
+# the bf16 state, relative to the largest element of the plain version's: both
+# round the new state to bf16 on store, so one float32 ulp of difference in the
+# MLP's sums can flip a stored value by one bf16 ulp (2^-8 relative)
+BF16_STATE_TOL = 1e-2
+SEG_STEPS = 128  # static_texture's longest rollout
+VM_STEPS = 144  # video_motion's longest rollout
+
+
+def form_bound_ms(form: str, c: int, cc: int, f: int, hw: int, compute_dtype: str):
+    """Least time of one launch of a step form on an H100: the state read and
+    written once and the conditioning read once (float32, or bf16 for the
+    bf16-state form) plus the weights, over the memory rate, against the
+    MLP's FLOPs over the peak for the operand type. The folded step's first
+    layer is (9C + cc) x F: 2 ((9C + cc) F + F C) FLOP a pixel."""
+    p = (9 * c if form == "nca_step_mat" else 4 * c) + cc
+    sb = 2 if form == "nca_step_bf16_state" else 4
+    n_bytes = (2 * c + cc) * hw * sb + (p * f + f + f * c + c) * 4
+    flops = 2 * hw * (p * f + f * c)
+    peak = H100_BF16_FLOPS if compute_dtype == "bfloat16" else H100_F32_FLOPS
+    t_bytes, t_ops = n_bytes / H100_BYTES_PER_S, flops / peak
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def phase_compare_forms(torch, fs, NCAConfig, dynca_init):
+    """nca_step_mat (algo 'mat') and the bf16-state nca_step (algo 'padded',
+    state_dtype 'bfloat16') against their plain versions on the card, at
+    40x72 b2 x 4 steps and 256^2 b1 x 24 steps: three paddings, conditioning
+    none / pos_emb / edges, rates 1 and 0.5, f32 and bf16 compute. One line
+    per form, shape and padding (the worst of its 12 cases). Returns the
+    largest absolute difference of each form."""
+    dev = "cuda"
+    worst = {form: 0.0 for form in FORMS}
+    for form, opts in FORMS.items():
+        for shape, n_steps in (((2, 12, 40, 72), 4), ((1, 12, 256, 256), STEPS)):
+            b, _, h, w = shape
+            for pad in ("circular", "replicate", "zeros"):
+                line_abs, line_rel, exact = 0.0, 0.0, 0
+                for cond_kind in (None, "pos_emb", "edges"):
+                    cfg = NCAConfig(c_in=12, fc_dim=96, padding_mode=pad,
+                                    conditioning=cond_kind)
+                    params = dynca_init(torch.Generator().manual_seed(0), cfg, device=dev)
+                    g = torch.Generator().manual_seed(1)
+                    x = (torch.rand(shape, generator=g) - 0.5).to(dev)
+                    cond = None
+                    if cond_kind:
+                        cond = (torch.rand((b, cfg.c_cond, h, w), generator=g) - 0.5).to(dev)
+                    for rate in (1.0, 0.5):
+                        for cdt in ("float32", "bfloat16"):
+                            before = fs.KERNEL_LAUNCHES[form]
+                            got = fs.fused_rollout_chw(params, x, 7, cfg, n_steps, cond, rate,
+                                                       cdt, **opts)
+                            launched = fs.KERNEL_LAUNCHES[form] - before
+                            want = fs.fused_rollout_chw_reference(params, x, 7, cfg, n_steps,
+                                                                  cond, rate, cdt, **opts)
+                            torch.cuda.synchronize()
+                            err = float((got.float() - want.float()).abs().max())
+                            rel = scaled_err(got.float(), want.float())
+                            moved = float((want.float() - x).abs().max())
+                            tol_ok = (rel <= BF16_STATE_TOL if form == "nca_step_bf16_state"
+                                      else err <= TOL[cdt])
+                            ok = (tol_ok and launched == n_steps and moved > 0.0
+                                  and got.dtype == want.dtype
+                                  and bool(torch.isfinite(got.float()).all()))
+                            if not ok:
+                                raise SystemExit(
+                                    f"{form} disagrees with its plain version: {shape} {pad} "
+                                    f"{cond_kind} rate {rate} {cdt}: max abs {err:.3e}, "
+                                    f"{rel:.2e} of max|plain|, {launched} launches")
+                            line_abs, line_rel = max(line_abs, err), max(line_rel, rel)
+                            exact += err == 0.0
+                worst[form] = max(worst[form], line_abs)
+                tol = (f"{BF16_STATE_TOL:.0e} of max|plain|" if form == "nca_step_bf16_state"
+                       else f"{TOL['float32']:.0e} f32 / {TOL['bfloat16']:.0e} bf16")
+                print(f"  {form} {h}x{w} b{b} x {n_steps} {pad}: 12 cases (cond none/pos_emb/"
+                      f"edges, rates 1/0.5, f32/bf16), max|kernel-plain| {line_abs:.3e} "
+                      f"({line_rel:.2e} of max|plain|; {exact} of 12 bit-identical), "
+                      f"tol {tol} ok")
+    return worst
+
+
+def phase_compare_stream(torch, fs, cfg, params):
+    """The streaming entry (circular, edges, bf16) at 1024^2 b1 x 4 steps
+    against its plain version: nca_step, 4 launches."""
+    g = torch.Generator().manual_seed(5)
+    x = (torch.rand((1, 12, 1024, 1024), generator=g) - 0.5).cuda()
+    cond = (torch.rand((1, 3, 1024, 1024), generator=g) - 0.5).cuda()
+    before = fs.KERNEL_LAUNCHES["nca_step"]
+    got = fs.fused_rollout_stream_chw(params, x, 7, cfg, 4, cond, compute_dtype="bfloat16")
+    launched = fs.KERNEL_LAUNCHES["nca_step"] - before
+    want = fs.fused_rollout_chw_reference(params, x, 7, cfg, 4, cond, compute_dtype="bfloat16")
+    torch.cuda.synchronize()
+    err = float((got - want).abs().max())
+    ok = err <= TOL["bfloat16"] and launched == 4 and bool(torch.isfinite(got).all())
+    print(f"  fused_rollout_stream_chw 1024^2 b1 x 4 circular edges bf16: max|kernel-plain| "
+          f"{err:.3e} tol {TOL['bfloat16']:.0e}, nca_step launches {launched} "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the streaming entry disagrees with its plain version")
+    return err
+
+
+def segment_inputs(torch, presets, dynca_init, make_conditioning):
+    """The static_texture cell at full width: c12/fc96/pos_emb, 128^2, batch
+    4, rate 0.5, random weights (seed 0), a random state and cotangent."""
+    cfg = presets.static_texture()[0]
+    params = dynca_init(torch.Generator().manual_seed(0), cfg, device="cuda")
+    g = torch.Generator().manual_seed(4)
+    x = (torch.rand((4, 12, 128, 128), generator=g) - 0.5).cuda()
+    gy = torch.randn((4, 12, 128, 128), generator=g).cuda()
+    cond = make_conditioning(cfg, (128, 128), batch=4, device="cuda")
+    return cfg, params, x, gy, cond
+
+
+def segment_run(ft, cfg, params, x, cond, gy, k, n_steps=SEG_STEPS):
+    """The CHW pair forward and backward at segment ``k``: [state, dx0,
+    dcond, dw1, db1, dw2, db2]."""
+    p = {n: v.clone().requires_grad_() for n, v in params.items()}
+    xr, cr = x.clone().requires_grad_(), cond.clone().requires_grad_()
+    y = ft.fused_rollout_train_chw(p, xr, cr, 7, cfg, n_steps, k)
+    (y * gy).sum().backward()
+    return [y.detach(), xr.grad, cr.grad] + [p[n].grad for n in ("w1", "b1", "w2", "b2")]
+
+
+def phase_compare_segment(torch, ft, presets, dynca_init, make_conditioning):
+    """The segment-checkpointed CHW pair (rows 5, 6) at static_texture's full
+    width, 128 steps, K = pick_segment = 16, against K = 1 (every state kept)
+    and against its plain segment walk. Returns (K, largest difference from K
+    = 1, largest absolute difference from the plain version)."""
+    cfg, params, x, gy, cond = segment_inputs(torch, presets, dynca_init, make_conditioning)
+    k = ft.pick_segment(cfg, 128, 128, SEG_STEPS)
+    if k != 16:
+        raise SystemExit(f"pick_segment gave {k} for {SEG_STEPS} steps, not 16")
+    names = ["state", "dx0", "dcond", "dw1", "db1", "dw2", "db2"]
+    one = segment_run(ft, cfg, params, x, cond, gy, 1)
+    before = dict(ft.KERNEL_LAUNCHES)
+    seg = segment_run(ft, cfg, params, x, cond, gy, k)
+    torch.cuda.synchronize()
+    launched = {n: ft.KERNEL_LAUNCHES[n] - before[n]
+                for n in ("nca_step", "nca_bwd_mlp", "nca_bwd_adjoint")}
+    want_launches = {"nca_step": 2 * SEG_STEPS - SEG_STEPS // k, "nca_bwd_mlp": SEG_STEPS,
+                     "nca_bwd_adjoint": SEG_STEPS}
+    diffs = {n: float((a - b).abs().max()) for n, a, b in zip(names, seg, one)}
+    identical = all(d == 0.0 for d in diffs.values())
+    rel = max(scaled_err(a, b) for a, b in zip(seg, one))
+    y, grads, dx0, dcond = ft.fused_rollout_train_reference(
+        params, x, 7, cfg, SEG_STEPS, cond, gy, need_dcond=True, segment=k)
+    plain = [y, dx0, dcond] + [grads[n] for n in ("w1", "b1", "w2", "b2")]
+    torch.cuda.synchronize()
+    plain_rel = {n: scaled_err(a, b) for n, a, b in zip(names, seg, plain)}
+    plain_abs = max(float((a - b).abs().max()) for a, b in zip(seg, plain))
+    ok = (rel <= TRAIN_TOL["float32"] and launched == want_launches
+          and max(plain_rel.values()) <= TRAIN_TOL["float32"]
+          and all(bool(torch.isfinite(a).all()) and float(a.abs().max()) > 0 for a in seg))
+    print(f"  CHW pair 128^2 b4 x {SEG_STEPS} pos_emb rate 0.5 f32, K = {k} vs K = 1: "
+          + ("bit-identical (state, dx0, dcond, weight gradients)" if identical else
+             "max|diff| " + ", ".join(f"{n} {d:.3e}" for n, d in diffs.items()))
+          + f"; launches {launched} (want {want_launches}); K = {k} vs its plain segment "
+          f"walk, of max|plain|: " + ", ".join(f"{n} {v:.2e}" for n, v in plain_rel.items())
+          + f" (tol {TRAIN_TOL['float32']:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the segment-checkpointed pair disagrees")
+    return k, max(diffs.values()), plain_abs
+
+
+def phase_tpu_layout_path(torch, fs, ft, presets, dynca_init, make_conditioning, cfg, params):
+    """This slice's path, through the entries a user calls: bench.py's cell
+    through ``ROLLOUT_KERNELS[select_rollout_kernel(...)]`` (96 steps, 256^2,
+    bf16), the edge_conditioned cell at 256^2 x 24 steps through
+    ``fused_rollout_chw`` with algo 'mat' and with algo 'padded' and a bf16
+    state, the streaming entries (``fused_rollout_stream_chw`` and
+    ``ROLLOUT_KERNELS['stream_flat']``) at 1024^2 x 4 steps each, and the
+    static_texture cell through the NHWC CHW pair (``fused_rollout_train_nhwc``, 128 steps,
+    K = 16) with a backward. The counts are set to 0 just before and read
+    just after. Returns the launches by kernel."""
+    g = torch.Generator().manual_seed(6)
+    bench_cfg = dataclasses.replace(cfg, conditioning=None)
+    bench_params = dynca_init(torch.Generator().manual_seed(0), bench_cfg, device="cuda")
+    xb = (torch.rand((1, 12, 256, 256), generator=g) - 0.5).cuda()
+    x = (torch.rand((1, 12, 256, 256), generator=g) - 0.5).cuda()
+    cond = (torch.rand((1, 3, 256, 256), generator=g) - 0.5).cuda()
+    x4 = (torch.rand((1, 12, 1024, 1024), generator=g) - 0.5).cuda()
+    c4 = (torch.rand((1, 3, 1024, 1024), generator=g) - 0.5).cuda()
+    st_cfg, st_params, xs, _, st_cond = segment_inputs(torch, presets, dynca_init,
+                                                       make_conditioning)
+    p = {n: v.clone().requires_grad_() for n, v in st_params.items()}
+    torch.cuda.synchronize()
+
+    reset_counts(fs, ft)
+    kernel = fs.select_rollout_kernel(bench_cfg, 256, 256)
+    outs = {
+        f"bench cell via ROLLOUT_KERNELS[{kernel!r}]": fs.ROLLOUT_KERNELS[kernel](
+            bench_params, xb, 0, bench_cfg, 96, compute_dtype="bfloat16"),
+        "algo mat": fs.fused_rollout_chw(params, x, 1, cfg, STEPS, cond,
+                                         compute_dtype="bfloat16", algo="mat"),
+        "algo padded, bf16 state": fs.fused_rollout_chw(
+            params, x, 1, cfg, STEPS, cond, compute_dtype="bfloat16",
+            state_dtype="bfloat16", algo="padded"),
+        "stream 1024^2": fs.fused_rollout_stream_chw(params, x4, 1, cfg, 4, c4,
+                                                     compute_dtype="bfloat16"),
+        "ROLLOUT_KERNELS['stream_flat'] 1024^2": fs.ROLLOUT_KERNELS["stream_flat"](
+            params, x4, 1, cfg, 4, c4, compute_dtype="bfloat16"),
+    }
+    state, rgb = ft.fused_rollout_train_nhwc(p, xs.permute(0, 2, 3, 1), 3, st_cfg, SEG_STEPS,
+                                             st_cond.permute(0, 2, 3, 1))
+    (rgb.square().mean() + 0.1 * state.square().mean()).backward()
+    torch.cuda.synchronize()
+    fs_counts, ft_counts = dict(fs.KERNEL_LAUNCHES), dict(ft.KERNEL_LAUNCHES)
+
+    k = ft.pick_segment(st_cfg, 128, 128, SEG_STEPS)
+    train_steps = 2 * SEG_STEPS - SEG_STEPS // k  # the forward and the recompute
+    want_fs = {"nca_step": 96 + 8 + train_steps, "nca_step_ms": 0, "nca_step_mat": STEPS,
+               "nca_step_bf16_state": STEPS}
+    want_ft = {"nca_step": train_steps, "nca_bwd_mlp": SEG_STEPS,
+               "nca_bwd_adjoint": SEG_STEPS}
+    checks = {
+        f"select_rollout_kernel(bench cell, 256, 256) == 'flat' ({kernel!r})": kernel == "flat",
+        f"fused_step launches {fs_counts} == {want_fs}": fs_counts == want_fs,
+        f"fused_train launches == {want_ft}":
+            all(ft_counts[n] == v for n, v in want_ft.items()),
+        "outputs finite, of their shapes": all(
+            bool(torch.isfinite(o.float()).all()) for o in outs.values())
+            and outs["stream 1024^2"].shape == (1, 12, 1024, 1024)
+            and tuple(rgb.shape) == (4, 128, 128, 3),
+        "bf16 state returned as bf16": outs["algo padded, bf16 state"].dtype == torch.bfloat16,
+        "pair gradients finite and non-zero": all(
+            bool(torch.isfinite(v.grad).all()) and float(v.grad.abs().max()) > 0
+            for v in p.values()),
+    }
+    for name, o in outs.items():
+        print(f"  {name}: {tuple(o.shape)} {str(o.dtype)[6:]}, max|state| "
+              f"{float(o.float().abs().max()):.3f}")
+    print(f"  fused_rollout_train_nhwc static_texture 128^2 b4 x {SEG_STEPS}, K = {k}: "
+          f"state {tuple(state.shape)}, rgb {tuple(rgb.shape)}; fused_train launches "
+          f"{ft_counts}")
+    for name, v in checks.items():
+        print(f"  {name}: {'ok' if v else 'FAIL'}")
+    if not all(checks.values()):
+        raise SystemExit("the TPU-layout entries' path failed")
+    return {**fs_counts, "nca_bwd_mlp": ft_counts["nca_bwd_mlp"],
+            "nca_bwd_adjoint": ft_counts["nca_bwd_adjoint"]}
+
+
+def time_forms(torch, fs, cfg, params):
+    """nca_step_mat and the bf16-state nca_step per launch at 256^2 b1 (the
+    edge_conditioned width, bf16 compute, rate 0.5) beside nca_step in the
+    same call, each beside its bound and its plain version; the streaming
+    entry per step at 1024^2; every registry entry (and 'mat', 'padded')
+    per step at 256^2 and 1024^2. Returns {name: (ms, plain ms, bound ms,
+    bound by)} and {(entry, size): ms per step}."""
+    g = torch.Generator().manual_seed(7)
+    out, per_step = {}, {}
+    thr = fs.uniform_threshold(0.5)
+    for n in (256, 1024):
+        x = (torch.rand((1, 12, n, n), generator=g) - 0.5).cuda()
+        cond = (torch.rand((1, 3, n, n), generator=g) - 0.5).cuda()
+        if n == 256:
+            args = {
+                "nca_step": (x, cond, fs.pack_weights(params, 12, 3, "bfloat16"), False),
+                "nca_step_mat": (x, cond, fs.pack_weights(params, 12, 3, "bfloat16", True),
+                                 True),
+                "nca_step_bf16_state": (x.bfloat16(), cond.bfloat16(),
+                                        fs.pack_weights(params, 12, 3, "bfloat16"), False),
+            }
+            for name, (xi, ci, packed, mat) in args.items():
+                dst = torch.empty_like(xi)
+                k_ms = cuda_ms(lambda: fs.launch_step(xi, dst, ci, packed, "circular",
+                                                      "bfloat16", 5, 17, thr, False, mat), 20)
+                p_ms = cuda_ms(lambda: fs.reference_step(xi, ci, packed, "circular",
+                                                         "bfloat16", 5, 17, 0.5, False, mat),
+                               3)
+                bound, by = (step_bound_ms(12, 3, 96, n * n, "bfloat16") if name == "nca_step"
+                             else form_bound_ms(name, 12, 3, 96, n * n, "bfloat16"))
+                out[name] = (k_ms, p_ms, bound, by)
+                print(f"  {name} 256^2 b1 edges bf16: kernel {k_ms:.4f} ms/launch, plain "
+                      f"{p_ms:.4f} ms, bound {bound:.5f} ms ({by}); {k_ms / bound:.1f}x the "
+                      f"bound")
+        entries = {name: (fn, {}) for name, fn in fs.ROLLOUT_KERNELS.items()}
+        entries["stream"] = (fs.fused_rollout_stream_chw, {})
+        entries["roll, algo mat"] = (fs.fused_rollout_chw, dict(algo="mat"))
+        entries["padded, bf16 state"] = (fs.fused_rollout_chw,
+                                         dict(algo="padded", state_dtype="bfloat16"))
+        for name, (fn, opts) in entries.items():
+            ms = cuda_ms(lambda: fn(params, x, 1, cfg, 8, cond, compute_dtype="bfloat16",
+                                    **opts), 2, rounds=3) / 8
+            per_step[(name, n)] = ms
+        print(f"  ms/step at {n}^2 b1 edges bf16, by entry (8-step calls): "
+              + ", ".join(f"{k} {v:.4f}" for (k, m), v in per_step.items() if m == n))
+        if n == 1024:
+            plain = cuda_ms(lambda: fs.fused_rollout_chw_reference(
+                params, x, 1, cfg, 4, cond, compute_dtype="bfloat16"), 1, rounds=3) / 4
+            bound, by = step_bound_ms(12, 3, 96, n * n, "bfloat16")
+            k_ms = per_step[("stream", n)]
+            out["stream_1024"] = (k_ms, plain, bound, by)
+            print(f"  fused_rollout_stream_chw 1024^2 edges bf16: {k_ms:.4f} ms/step, plain "
+                  f"{plain:.4f}, bound {bound:.5f} ({by}); {k_ms / bound:.1f}x the bound")
+    return out, per_step
+
+
+def time_segments(torch, ft, presets, dynca_init, make_conditioning, vm_params):
+    """The segment trade-off: the CHW pair's forward + backward and the peak
+    device memory it adds (``max_memory_allocated`` over what was held before
+    it) at K = 16 against K = 1, for static_texture (128^2 b4 x 128) and for
+    the video_motion pair (scales (0, 1), 256^2 b3 x 144, through
+    ``fused_rollout_train`` with ``segment``). Returns {(cell, K): (ms, GB)}."""
+    out = {}
+    cfg, params, x, gy, cond = segment_inputs(torch, presets, dynca_init, make_conditioning)
+    vm_cfg = presets.video_motion()[0]
+    g = torch.Generator().manual_seed(8)
+    vx = (torch.rand((3, 16, VM_SIZE, VM_SIZE), generator=g) - 0.5).cuda()
+    vgy = torch.randn((3, 16, VM_SIZE, VM_SIZE), generator=g).cuda()
+    vcond = make_conditioning(vm_cfg, (VM_SIZE, VM_SIZE), batch=3, device="cuda")
+
+    def vm_run(k):
+        p = {n: v.detach().clone().requires_grad_() for n, v in vm_params.items()}
+        y = ft.fused_rollout_train(p, vx, 7, vm_cfg, VM_STEPS, vcond, cond_no_grad=True,
+                                   segment=k)
+        (y * vgy).sum().backward()
+
+    runs = {("static_texture 128^2 b4 x 128", k): (
+        lambda k=k: segment_run(ft, cfg, params, x, cond, gy, k)) for k in (1, 16)}
+    runs.update({("video_motion 256^2 b3 x 144", k): (lambda k=k: vm_run(k)) for k in (1, 16)})
+    for key, fn in runs.items():
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(fn, 1, rounds=3)
+        gb = (torch.cuda.max_memory_allocated() - held) / 1e9
+        out[key] = (ms, gb)
+    for cell in ("static_texture 128^2 b4 x 128", "video_motion 256^2 b3 x 144"):
+        (t1, m1), (t16, m16) = out[(cell, 1)], out[(cell, 16)]
+        print(f"  segment trade-off, {cell} pair forward + backward, f32: K = 1 {t1:.3f} ms, "
+              f"{m1:.3f} GB added at peak; K = 16 {t16:.3f} ms ({t16 - t1:+.3f}), {m16:.3f} GB "
+              f"({m16 - m1:+.3f})")
+    ckpt_gb = VM_STEPS * 3 * 16 * VM_SIZE * VM_SIZE * 4 / 1e9
+    print(f"  the every-step checkpoint of video_motion 256^2 b3 x {VM_STEPS} (computed from "
+          f"its shape): {ckpt_gb:.3f} GB")
+    if not out[("static_texture 128^2 b4 x 128", 16)][1] < \
+            out[("static_texture 128^2 b4 x 128", 1)][1]:
+        raise SystemExit("K = 16 did not lower the pair's peak memory")
+    return out
+
+
+def phase_benchmark(torch, fs, ft, benchmark):
+    """The benchmark harness (infer/benchmark.py) on the card, once each:
+    ``benchmark_serving`` (8 streams at 256^2, edge_conditioned, 24 steps a
+    frame) and ``benchmark_train_step('static_texture')``; each must launch
+    the kernels."""
+    reset_counts(fs, ft)
+    serving = benchmark.benchmark_serving(size=256, n_streams=8)
+    torch.cuda.synchronize()
+    serve_launches = fs.LAUNCHES
+    reset_counts(fs, ft)
+    train = benchmark.benchmark_train_step("static_texture")
+    torch.cuda.synchronize()
+    train_launches = dict(ft.KERNEL_LAUNCHES)
+    print(f"  benchmark_serving: {serving}; nca_step launches {serve_launches}")
+    print(f"  benchmark_train_step: {train}; fused_train launches {train_launches}")
+    ok = serve_launches == 13 * 24 and train_launches["nca_bwd_mlp"] > 0 and all(
+        np.isfinite(v) for v in (serving["aggregate_fps"], train["train_iters_per_sec"]))
+    if not ok:
+        raise SystemExit("the benchmark harness did not run its kernels")
+    return serving, train
+
+
 def main() -> int:
     import torch
 
@@ -1432,6 +1818,7 @@ def main() -> int:
     from vsnca_tpu_torch.convert import load_params_pickle
     from vsnca_tpu_torch.data.dataset import ConditioningDataset
     from vsnca_tpu_torch.data.preprocess import synthetic_style_image, synthetic_video
+    from vsnca_tpu_torch.infer import benchmark
     from vsnca_tpu_torch.infer import server as server_mod
     from vsnca_tpu_torch.infer.grower import InteractiveGrower
     from vsnca_tpu_torch.infer.stylize import VideoStylizer
@@ -1466,6 +1853,7 @@ def main() -> int:
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
+    t_start = time.perf_counter()
     card = smi("name,power.limit")
     print(f"[1] torch {torch.__version__}, CUDA {torch.version.cuda}; card "
           "(nvidia-smi name, power.limit):")
@@ -1496,6 +1884,14 @@ def main() -> int:
     phase_vm_step_parity(torch, make_train_step, LossState, presets, dynca_init,
                          vgg16_random_init, msoe_random_init, make_optimizer, tap_schedule,
                          precompute_target_motion_features)
+    print("[2] TPU-layout forms (rows 1, 2, 5, 6) vs their plain versions on the card: "
+          "nca_step_mat, the bf16-state nca_step, the streaming entry, the CHW pair")
+    forms_err = phase_compare_forms(torch, fs, NCAConfig, dynca_init)
+    edge_cfg = edge_conditioned()
+    edge_params = dynca_init(torch.Generator().manual_seed(0), edge_cfg, device="cuda")
+    stream_err = phase_compare_stream(torch, fs, edge_cfg, edge_params)
+    seg_k, seg_diff, seg_err = phase_compare_segment(torch, ft, presets, dynca_init,
+                                                     make_conditioning)
 
     print("[3] serving path: edge_conditioned c12/fc96, 256^2, 24 steps/frame")
     cfg = edge_conditioned()
@@ -1535,6 +1931,11 @@ def main() -> int:
     print("[3] multiscale stylizer: VideoStylizer, video_motion cell c16/fc128, 256^2, random "
           "weights (seed 0)")
     ms_styl_launches, ms_styl = phase_ms_stylizer(torch, fs, presets, VideoStylizer, dynca_init)
+    print("[3] TPU-layout entries: bench.py's cell through the registry, the edge_conditioned "
+          "cell with algo 'mat' and with a bf16 state, the streaming entry at 1024^2, the "
+          "static_texture cell through the NHWC CHW pair (K = 16)")
+    layout_launches = phase_tpu_layout_path(torch, fs, ft, presets, dynca_init,
+                                            make_conditioning, edge_cfg, edge_params)
 
     print("[4] times (CUDA events, median of 5 rounds after warm-up)")
     timing = {}
@@ -1571,11 +1972,12 @@ def main() -> int:
     bench_params = dynca_init(torch.Generator().manual_seed(0), bench_cfg, device="cuda")
     xb = (torch.rand((1, 12, 256, 256), generator=torch.Generator().manual_seed(1))
           - 0.5).cuda()
-    call_ms = cuda_ms(lambda: fs.fused_rollout_chw(bench_params, xb, 0, bench_cfg, 96,
-                                                   compute_dtype="bfloat16"), 2)
+    bench_kernel = fs.select_rollout_kernel(bench_cfg, 256, 256)
+    call_ms = cuda_ms(lambda: fs.ROLLOUT_KERNELS[bench_kernel](
+        bench_params, xb, 0, bench_cfg, 96, compute_dtype="bfloat16"), 2)
     cups = 256 * 256 * 96 / (call_ms / 1e3)
-    print(f"  nca_cell_updates_per_sec_256px (c12/fc96 circular, 96 steps, bf16): "
-          f"{cups:.4e} ({call_ms:.4f} ms per 96-step call)")
+    print(f"  nca_cell_updates_per_sec_256px (c12/fc96 circular, 96 steps, bf16, through "
+          f"ROLLOUT_KERNELS[{bench_kernel!r}]): {cups:.4e} ({call_ms:.4f} ms per 96-step call)")
     print(f"  server 256^2 edges, one client, JPEG round trip: {serve['fps']:.1f} frames/s; "
           f"latency p50 {serve['latency_ms_p50']:.3f} ms, p90 {serve['latency_ms_p90']:.3f} ms "
           f"({serve['requests']} requests); of a request (host clock, median of 10): "
@@ -1718,6 +2120,14 @@ def main() -> int:
     profile_frames(torch, next_ms_frame, unit="multiscale frame")
     print(f"  card during timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
+    # the TPU-layout forms, the registry's entries, the segment trade-off and
+    # the benchmark harness
+    form_times, entry_ms = time_forms(torch, fs, edge_cfg, edge_params)
+    seg_times = time_segments(torch, ft, presets, dynca_init, make_conditioning,
+                              vm_trainer.params)
+    bench_serving, bench_train = phase_benchmark(torch, fs, ft, benchmark)
+    print(f"  card during timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+
     metrics = {
         "card": card,
         "kernel_ms_per_step_256": timing[256]["kernel_ms_per_step"],
@@ -1758,11 +2168,29 @@ def main() -> int:
         "ms_stylizer_ms_per_frame_256": ms_frame_ms,
         "ms_stylizer_fps_256": 1e3 / ms_frame_ms,
         "ms_stylizer_launches": ms_styl_launches,
+        **{f"{name}_ms_256_b1_bf16": t[0] for name, t in form_times.items()
+           if name != "stream_1024"},
+        "stream_ms_per_step_1024": form_times["stream_1024"][0],
+        **{f"entry_{k.replace(', ', '_').replace(' ', '_')}_ms_per_step_{n}": v
+           for (k, n), v in entry_ms.items()},
+        **{f"segment_{cell.split()[0]}_k{k}_{what}": v
+           for (cell, k), t in seg_times.items() for what, v in zip(("ms", "gb"), t)},
+        "benchmark_serving_aggregate_fps_8x256": bench_serving["aggregate_fps"],
+        "benchmark_train_static_texture_iters_per_s": bench_train["train_iters_per_sec"],
+        "layout_path_launches": layout_launches,
+        "forms_max_abs_err": forms_err,
+        "stream_max_abs_err_1024": stream_err,
+        "segment_k": seg_k,
+        "segment_max_abs_diff_k_vs_1": seg_diff,
+        "segment_max_abs_err_vs_plain": seg_err,
     }
     print("metrics " + json.dumps(metrics))
+    print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
     bwd_rows = ("vsnca_tpu/ops/pallas_train.py:2235 (_make_bwd_kernel_flat :1139, "
                 "_make_bwd_kernel_flat_scatter :1657); vsnca_tpu/ops/pallas_train.py:2358 "
-                "(_make_bwd_kernel_flat_tiled :1301, scales (0,) without taps)")
+                "(_make_bwd_kernel_flat_tiled :1301, scales (0,) without taps); "
+                "vsnca_tpu/ops/pallas_train.py:843 (_bwd_call, _make_bwd_kernel :485, under "
+                "the segment walk of ops/fused_train.py)")
     fwd_rows = ("vsnca_tpu/ops/pallas_cnca.py:250 (_make_cnca_kernel :47); "
                 "vsnca_tpu/ops/pallas_cnca.py:610 (_make_cnca_fwd_train_kernel :350)")
     bwd_cnca = "vsnca_tpu/ops/pallas_cnca.py:675 (_make_cnca_bwd_train_kernel :434)"
@@ -1776,9 +2204,14 @@ def main() -> int:
         "source": "vsnca_tpu_torch/csrc/nca_step.cu",
         "replaces": "vsnca_tpu/ops/pallas_step.py:1600 (_make_kernel_flat :1411); "
                     "vsnca_tpu/ops/pallas_step.py:1885 (_make_kernel_stream_flat :1621); "
-                    "vsnca_tpu/ops/pallas_train.py:2079 (_make_fwd_kernel_flat :942)",
+                    "vsnca_tpu/ops/pallas_train.py:2079 (_make_fwd_kernel_flat :942); "
+                    "vsnca_tpu/ops/pallas_step.py:731 (fused_rollout_chw algo 'roll', "
+                    "_make_kernel_roll :175); vsnca_tpu/ops/pallas_step.py:1066 "
+                    "(fused_rollout_stream_chw, _make_kernel_stream :845); "
+                    "vsnca_tpu/ops/pallas_train.py:759 (_fwd_call, _make_fwd_kernel :390) and "
+                    "the recompute of vsnca_tpu/ops/pallas_train.py:843 (_make_bwd_kernel :485)",
         "launches": launches,
-        "max_abs_err": max_err,
+        "max_abs_err": max(max_err, stream_err),
         "ms": timing[256]["kernel_ms_per_step"],
         "plain_ms": timing[256]["plain_ms_per_step"],
         "bound_ms": timing[256]["bound_ms_per_step"],
@@ -1829,6 +2262,23 @@ def main() -> int:
          ms_train_err["nca_bwd_mlp_ms"]),
         ("nca_bwd_adjoint_ms", "vsnca_tpu_torch/csrc/nca_train.cu", ms_bwd_rows,
          ms_train_err["nca_bwd_adjoint_ms"]),
+    )] + [{
+        "name": name,
+        "route": "cuda",
+        "source": "vsnca_tpu_torch/csrc/nca_step.cu",
+        "replaces": rows,
+        "launches": layout_launches[name],
+        "max_abs_err": forms_err[name],
+        "ms": form_times[name][0],
+        "plain_ms": form_times[name][1],
+        "bound_ms": form_times[name][2],
+        "bound_by": form_times[name][3],
+        "library_ms": None,
+    } for name, rows in (
+        ("nca_step_mat", "vsnca_tpu/ops/pallas_step.py:731 (fused_rollout_chw algo 'mat', "
+         "_make_kernel_roll(mat_stencil=True) :175 with stencil_folded_w1 :148)"),
+        ("nca_step_bf16_state", "vsnca_tpu/ops/pallas_step.py:731 (fused_rollout_chw algo "
+         "'padded' and state_dtype 'bfloat16', _make_kernel :498)"),
     )]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

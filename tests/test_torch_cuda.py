@@ -458,3 +458,139 @@ def test_multiscale_stylizer_on_card_matches_cpu(cuda):
     for f in frames:
         torch.testing.assert_close(on.step_frame(f).cpu(), off.step_frame(f), **TOL["float32"])
     assert fs.KERNEL_LAUNCHES["nca_step_ms"] == before + 16
+
+
+# ---------------------------------------------------------------------------
+# The TPU-layout rollout forms: the folded-stencil step (nca_step_mat), the
+# bf16-state step, the streaming entry, the registry, and the
+# segment-checkpointed CHW training pair.
+
+# The bf16 state: both round the new state to bf16 on store, so one float32
+# ulp of summation-order difference in the MLP can flip a stored value by one
+# bf16 ulp (2^-8 relative) and the next steps carry it.
+BF16_STATE_TOL = dict(rtol=1e-2, atol=1e-2)
+
+
+def _rollout_case(cuda, pad_mode, conditioning, c_in=12, fc_dim=96, shape=(2, 19, 37)):
+    cfg = NCAConfig(c_in=c_in, fc_dim=fc_dim, padding_mode=pad_mode,
+                    conditioning=conditioning)
+    params = dynca.dynca_init(torch.Generator().manual_seed(0), cfg, device=cuda)
+    g = torch.Generator().manual_seed(1)
+    b, h, w = shape
+    x = (torch.rand((b, c_in, h, w), generator=g) - 0.5).to(cuda)
+    cond = None
+    if conditioning:
+        cond = (torch.rand((b, cfg.c_cond, h, w), generator=g) - 0.5).to(cuda)
+    return cfg, params, x, cond
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("conditioning", [None, "edges", "pos_emb"])
+@pytest.mark.parametrize("pad_mode", ["circular", "replicate", "zeros"])
+def test_mat_kernel_matches_plain(cuda, pad_mode, conditioning, compute_dtype):
+    cfg, params, x, cond = _rollout_case(cuda, pad_mode, conditioning)
+    before = fs.KERNEL_LAUNCHES["nca_step_mat"]
+    got = fs.fused_rollout_chw(params, x, 3, cfg, 5, cond, 0.5, compute_dtype, algo="mat")
+    assert fs.KERNEL_LAUNCHES["nca_step_mat"] == before + 5
+    want = fs.fused_rollout_chw_reference(params, x, 3, cfg, 5, cond, 0.5, compute_dtype,
+                                          algo="mat")
+    torch.testing.assert_close(got, want, **TOL[compute_dtype])
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_mat_kernel_at_its_widest(cuda, compute_dtype):
+    """c16/fc128 with edges: W_eff is 147 x 128 floats (73.5 KB of shared
+    memory, past the 48 KB default)."""
+    cfg, params, x, cond = _rollout_case(cuda, "circular", "edges", 16, 128, (1, 40, 24))
+    got = fs.fused_rollout_chw(params, x, 4, cfg, 3, cond, 0.5, compute_dtype, algo="mat")
+    want = fs.fused_rollout_chw_reference(params, x, 4, cfg, 3, cond, 0.5, compute_dtype,
+                                          algo="mat")
+    torch.testing.assert_close(got, want, **TOL[compute_dtype])
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("conditioning", [None, "edges", "pos_emb"])
+@pytest.mark.parametrize("pad_mode", ["circular", "replicate", "zeros"])
+def test_bf16_state_kernel_matches_plain(cuda, pad_mode, conditioning, compute_dtype):
+    cfg, params, x, cond = _rollout_case(cuda, pad_mode, conditioning)
+    before = fs.KERNEL_LAUNCHES["nca_step_bf16_state"]
+    got = fs.fused_rollout_chw(params, x, 3, cfg, 5, cond, 0.5, compute_dtype,
+                               state_dtype="bfloat16", algo="padded")
+    assert fs.KERNEL_LAUNCHES["nca_step_bf16_state"] == before + 5
+    assert got.dtype == torch.bfloat16
+    want = fs.fused_rollout_chw_reference(params, x, 3, cfg, 5, cond, 0.5, compute_dtype,
+                                          state_dtype="bfloat16", algo="padded")
+    torch.testing.assert_close(got.float(), want.float(), **BF16_STATE_TOL)
+
+
+def test_stream_and_registry_entries_launch_nca_step(cuda):
+    """The streaming entry past the TPU's resident cap (and an odd width),
+    and every registry entry the policy picks, launch nca_step (or
+    nca_step_ms) and equal the plain version; fused_rollout (NHWC) too."""
+    cfg, params, x, cond = _rollout_case(cuda, "circular", "edges", shape=(1, 520, 300))
+    before = fs.KERNEL_LAUNCHES["nca_step"]
+    got = fs.fused_rollout_stream_chw(params, x, 2, cfg, 3, cond, compute_dtype="bfloat16")
+    assert fs.KERNEL_LAUNCHES["nca_step"] == before + 3
+    want = fs.fused_rollout_chw_reference(params, x, 2, cfg, 3, cond,
+                                          compute_dtype="bfloat16")
+    torch.testing.assert_close(got, want, **TOL["bfloat16"])
+    assert fs.select_rollout_kernel(cfg, 520, 300) == "flat"
+    for name in ("flat", "roll", "stream_flat"):
+        out = fs.ROLLOUT_KERNELS[name](params, x, 2, cfg, 3, cond, compute_dtype="bfloat16")
+        torch.testing.assert_close(out, want, **TOL["bfloat16"])
+    ms = NCAConfig(c_in=12, fc_dim=96, padding_mode="circular", perception_scales=(0, 1))
+    pm = dynca.dynca_init(torch.Generator().manual_seed(0), ms, device=cuda)
+    xs = x[:, :, :64, :48].contiguous()
+    before = fs.KERNEL_LAUNCHES["nca_step_ms"]
+    state, rgb = fs.fused_rollout(pm, xs.permute(0, 2, 3, 1), 5, ms, 2)
+    assert fs.KERNEL_LAUNCHES["nca_step_ms"] == before + 2
+    want = fs.fused_rollout_chw_reference(pm, xs, 5, ms, 2).permute(0, 2, 3, 1)
+    torch.testing.assert_close(state, want, **TOL["float32"])
+    torch.testing.assert_close(rgb, want[..., :3] * 2, **TOL["float32"])
+
+
+def _segment_run(ft, cfg, params, x, cond, gy, k, n_steps=16):
+    p = {n: v.clone().requires_grad_() for n, v in params.items()}
+    xr, cr = x.clone().requires_grad_(), cond.clone().requires_grad_()
+    y = ft.fused_rollout_train_chw(p, xr, cr, 9, cfg, n_steps, k)
+    (y * gy).sum().backward()
+    return [y.detach(), xr.grad, cr.grad] + [p[n].grad for n in sorted(p)]
+
+
+def test_segment_pair_matches_every_step_checkpoint_and_plain(cuda):
+    """The CHW pair at K = 4 and 16 against K = 1 on the card: bit-identical
+    (the same kernels, masks and sums); against the plain segment walk within
+    the pair's tolerances; launches n forward + (n - n/K) recompute + 2n
+    backward."""
+    from vsnca_tpu_torch.ops import fused_train as ft
+
+    cfg, params, x, gy, cond = _train_case(cuda, "pos_emb", (2, 12, 24, 40))
+    cfg = dataclasses.replace(cfg, update_rate=0.5)
+    want = _segment_run(ft, cfg, params, x, cond, gy, 1)
+    for k in (4, 16):
+        before = dict(ft.KERNEL_LAUNCHES)
+        got = _segment_run(ft, cfg, params, x, cond, gy, k)
+        assert ft.KERNEL_LAUNCHES["nca_step"] - before["nca_step"] == 16 + 16 - 16 // k
+        assert ft.KERNEL_LAUNCHES["nca_bwd_mlp"] - before["nca_bwd_mlp"] == 16
+        for a, b in zip(got, want):
+            torch.testing.assert_close(a, b, rtol=0, atol=0)
+    y, grads, dx0, dcond = ft.fused_rollout_train_reference(
+        params, x, 9, cfg, 16, cond, gy, need_dcond=True, segment=4)
+    _close(want[0], y, TOL["float32"]["atol"])
+    _close(want[1], dx0, TRAIN_TOL["float32"])
+    _close(want[2], dcond, TRAIN_TOL["float32"])
+    for got_g, n in zip(want[3:], sorted(params)):
+        _close(got_g, grads[n], TRAIN_TOL["float32"])
+
+
+def test_segment_pair_nhwc_wrapper_on_card(cuda):
+    from vsnca_tpu_torch.ops import fused_train as ft
+
+    cfg, params, x, gy, cond = _train_case(cuda, "pos_emb", (1, 12, 32, 32))
+    p = {n: v.clone().requires_grad_() for n, v in params.items()}
+    state, rgb = ft.fused_rollout_train_nhwc(p, x.permute(0, 2, 3, 1), 3, cfg, 24,
+                                             cond.permute(0, 2, 3, 1))
+    rgb.square().sum().backward()
+    want = fs.fused_rollout_chw_reference(params, x, 3, cfg, 24, cond)
+    _close(state.detach(), want.permute(0, 2, 3, 1), TOL["float32"]["atol"])
+    assert all(torch.isfinite(v.grad).all() and v.grad.abs().max() > 0 for v in p.values())

@@ -1,8 +1,9 @@
 // Pieces shared by the DyNCA kernels (nca_step.cu, nca_train.cu): the tile
-// geometry, the size limits, the update-mask hash, bf16 rounding, the
-// padding rule, the perception stencils and the multiscale (scales (0, 1))
-// percept. Every kernel that includes this draws the same masks, rounds the
-// same way and forms the same percept bit for bit.
+// geometry, the size limits, the update-mask hash, bf16 rounding and the
+// state's storage types, the padding rule, the perception stencils and the
+// multiscale (scales (0, 1)) percept. Every kernel that includes this draws
+// the same masks, rounds the same way and forms the same percept bit for
+// bit.
 
 #pragma once
 
@@ -44,6 +45,24 @@ __device__ __forceinline__ float bf16_round(float v) {
   return __bfloat162float(__float2bfloat16(v));
 }
 
+// The state's storage types: float32, or bfloat16 (the bf16-state form of
+// nca_step), read into float32 registers and rounded (to nearest even) on
+// store.
+__device__ __forceinline__ float to_float(float v) { return v; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+template <typename T>
+__device__ __forceinline__ T from_float(float v);
+template <>
+__device__ __forceinline__ float from_float<float>(float v) {
+  return v;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float v) {
+  return __float2bfloat16(v);
+}
+
 // Index of a halo row/column under the padding mode; -1 means "zero".
 __device__ __forceinline__ int pad_index(int i, int n, int mode) {
   if (i >= 0 && i < n) return i;
@@ -52,46 +71,61 @@ __device__ __forceinline__ int pad_index(int i, int n, int mode) {
   return -1;                                // zeros
 }
 
+// One stencil operation's result: float32, or with RND rounded to bf16, as
+// JAX computes a stencil on a bf16 state (every product and every partial
+// sum a bf16 value; pallas_step.py::_make_kernel's padded bf16 scratch).
+template <bool RND>
+__device__ __forceinline__ float st_round(float v) {
+  return RND ? bf16_round(v) : v;
+}
+
 // The JAX stencil's term order (perception.py::stencil_3x3), with products
-// and sums kept unfused so the float32 percept rounds as the reference's.
-// t points at the top-left tap of a 3x3 window in a row-major tile whose
-// rows are LD floats apart.
-template <int LD = NCA_HALO>
+// and sums kept unfused so the float32 percept rounds as the reference's
+// (with RND, each product and sum rounded to bf16). t points at the
+// top-left tap of a 3x3 window in a row-major tile whose rows are LD floats
+// apart.
+template <int LD = NCA_HALO, bool RND = false>
 __device__ __forceinline__ void stencils(const float* t, float& sx, float& sy,
                                          float& lap) {
   const float v00 = t[0], v01 = t[1], v02 = t[2];
   const float v10 = t[LD], v11 = t[LD + 1], v12 = t[LD + 2];
   const float v20 = t[2 * LD], v21 = t[2 * LD + 1], v22 = t[2 * LD + 2];
+#define NCA_MUL(a, b) st_round<RND>(__fmul_rn(a, b))
+#define NCA_ADD(a, b) st_round<RND>(__fadd_rn(a, b))
   // SOBEL_X = [[-1,0,1],[-2,0,2],[-1,0,1]]
-  float a = __fmul_rn(v00, -1.f);
-  a = __fadd_rn(a, v02);
-  a = __fadd_rn(a, __fmul_rn(v10, -2.f));
-  a = __fadd_rn(a, __fmul_rn(v12, 2.f));
-  a = __fadd_rn(a, __fmul_rn(v20, -1.f));
-  sx = __fadd_rn(a, v22);
+  float a = NCA_MUL(v00, -1.f);
+  a = NCA_ADD(a, v02);
+  a = NCA_ADD(a, NCA_MUL(v10, -2.f));
+  a = NCA_ADD(a, NCA_MUL(v12, 2.f));
+  a = NCA_ADD(a, NCA_MUL(v20, -1.f));
+  sx = NCA_ADD(a, v22);
   // SOBEL_Y = [[-1,-2,-1],[0,0,0],[1,2,1]]
-  a = __fmul_rn(v00, -1.f);
-  a = __fadd_rn(a, __fmul_rn(v01, -2.f));
-  a = __fadd_rn(a, __fmul_rn(v02, -1.f));
-  a = __fadd_rn(a, v20);
-  a = __fadd_rn(a, __fmul_rn(v21, 2.f));
-  sy = __fadd_rn(a, v22);
+  a = NCA_MUL(v00, -1.f);
+  a = NCA_ADD(a, NCA_MUL(v01, -2.f));
+  a = NCA_ADD(a, NCA_MUL(v02, -1.f));
+  a = NCA_ADD(a, v20);
+  a = NCA_ADD(a, NCA_MUL(v21, 2.f));
+  sy = NCA_ADD(a, v22);
   // LAPLACIAN = [[1,2,1],[2,-12,2],[1,2,1]]
   a = v00;
-  a = __fadd_rn(a, __fmul_rn(v01, 2.f));
-  a = __fadd_rn(a, v02);
-  a = __fadd_rn(a, __fmul_rn(v10, 2.f));
-  a = __fadd_rn(a, __fmul_rn(v11, -12.f));
-  a = __fadd_rn(a, __fmul_rn(v12, 2.f));
-  a = __fadd_rn(a, v20);
-  a = __fadd_rn(a, __fmul_rn(v21, 2.f));
-  lap = __fadd_rn(a, v22);
+  a = NCA_ADD(a, NCA_MUL(v01, 2.f));
+  a = NCA_ADD(a, v02);
+  a = NCA_ADD(a, NCA_MUL(v10, 2.f));
+  a = NCA_ADD(a, NCA_MUL(v11, -12.f));
+  a = NCA_ADD(a, NCA_MUL(v12, 2.f));
+  a = NCA_ADD(a, v20);
+  a = NCA_ADD(a, NCA_MUL(v21, 2.f));
+  lap = NCA_ADD(a, v22);
+#undef NCA_MUL
+#undef NCA_ADD
 }
 
 // The C x 18 x 18 state tile of the block whose top-left halo pixel is
-// (y0, x0), halo resolved by the padding mode. All threads of the block
-// call it; the caller synchronises.
-__device__ __forceinline__ void stage_tile(float* tile, const float* xb, int C,
+// (y0, x0), halo resolved by the padding mode, in float32 whatever the
+// state's storage type T. All threads of the block call it; the caller
+// synchronises.
+template <typename T>
+__device__ __forceinline__ void stage_tile(float* tile, const T* xb, int C,
                                            int H, int W, int y0, int x0,
                                            int pad_mode, int tid, int nthr) {
   const int HW = H * W;
@@ -100,7 +134,8 @@ __device__ __forceinline__ void stage_tile(float* tile, const float* xb, int C,
     const int r = (i / NCA_HALO) % NCA_HALO, q = i % NCA_HALO;
     const int gy = pad_index(y0 + r, H, pad_mode);
     const int gx = pad_index(x0 + q, W, pad_mode);
-    tile[i] = (gy < 0 || gx < 0) ? 0.f : xb[(size_t)c * HW + gy * W + gx];
+    tile[i] = (gy < 0 || gx < 0) ? 0.f
+                                 : to_float(xb[(size_t)c * HW + gy * W + gx]);
   }
 }
 

@@ -2,10 +2,12 @@
 
 Counterpart of ``vsnca_tpu/infer/stylize.py``: the NCA state persists across
 frames while each frame's grayscale / edge content steers it; per frame the
-cell runs ``step_n`` (default 24) steps through the rollout kernel
-(``ops.fused_step.fused_rollout_chw``: ``nca_step``, or ``nca_step_ms`` for
-a perception_scales (0, 1) model at even sizes) and the RGB readout is clipped to
-[-1, 1] → [0, 1]. The state is NCHW ``[1, C, H, W]``, as on the TPU fused
+cell runs ``step_n`` (default 24) steps through the rollout kernel that
+``ops.fused_step.select_rollout_kernel`` picks from ``ROLLOUT_KERNELS``, as
+the JAX stylizer does (stylize.py:60-63): 'flat' (``nca_step``) for a
+perception_scales (0,) model, 'roll' (``nca_step_ms``) for (0, 1) at even
+sizes, and eager steps where no kernel applies. The RGB readout is clipped
+to [-1, 1] → [0, 1]. The state is NCHW ``[1, C, H, W]``, as on the TPU fused
 path; ``state_nhwc`` gives the JAX stylizer's layout.
 """
 
@@ -18,8 +20,8 @@ import torch
 
 from vsnca_tpu_torch.config import NCAConfig
 from vsnca_tpu_torch.device import resolve_device
-from vsnca_tpu_torch.models.dynca import dynca_seed, make_conditioning
-from vsnca_tpu_torch.ops.fused_step import fused_rollout_chw
+from vsnca_tpu_torch.models.dynca import dynca_rollout, dynca_seed, make_conditioning
+from vsnca_tpu_torch.ops.fused_step import ROLLOUT_KERNELS, select_rollout_kernel
 from vsnca_tpu_torch.ops.resize import resize_bilinear
 
 
@@ -54,6 +56,7 @@ class VideoStylizer:
         self.compute_dtype = compute_dtype
         self._extra_channel = nca_cfg.n_seed_channels < nca_cfg.c_in
         self._frame_idx = 0
+        self._kernel = select_rollout_kernel(nca_cfg, *self.size)
         self.reset()
 
     def reset(self):
@@ -86,10 +89,14 @@ class VideoStylizer:
         if self._extra_channel:
             h = torch.cat([h, gray], dim=1)
         self._frame_idx += 1
-        out = fused_rollout_chw(
-            self.params, h, self._frame_idx, self.cfg, self.step_n,
-            cond=cond, compute_dtype=self.compute_dtype,
-        )
+        if self._kernel is None:
+            out, _ = dynca_rollout(self.params, h, self._frame_idx, self.cfg, self.step_n,
+                                   cond, rollout_path="xla")
+        else:
+            out = ROLLOUT_KERNELS[self._kernel](
+                self.params, h, self._frame_idx, self.cfg, self.step_n, cond,
+                compute_dtype=self.compute_dtype,
+            )
         if self._extra_channel:
             out = out[:, : self.cfg.n_seed_channels].contiguous()
         self.state = out

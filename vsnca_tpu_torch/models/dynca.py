@@ -155,6 +155,14 @@ def rollout_route(cfg: NCAConfig, n_steps: int, device_type: str, needs_grad: bo
       rather than run plain steps on the card. Every other config (other
       paddings under a gradient, other scales) runs eager, as the JAX
       trainer's scan does: the TPU's multiscale pair is circular only.
+
+    The pair runs at segment 1 (every state kept). The JAX trainer reaches
+    its segment-checkpointed CHW pair (trainer.py:292-305) only where the
+    flat pair's VMEM plan fails; on the card the flat pair takes every
+    config the CHW pair takes, so no route leads there. Whether the trainer
+    should trade one recomputed forward for memory (``segment`` of
+    ``fused_rollout_train``; PERF.md gives the trade-off) is a memory
+    policy not taken here.
     """
     if rollout_path not in ROLLOUT_PATHS:
         raise ValueError(f"rollout_path must be one of {ROLLOUT_PATHS}")

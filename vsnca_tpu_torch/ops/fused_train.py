@@ -25,6 +25,30 @@ Counterpart of ``vsnca_tpu/ops/pallas_train.py::fused_rollout_train_flat``
   forward; the backward adds each tap's cotangent inside the adjoint launch
   of step t, where gx has just become the cotangent of that state.
 
+The segment-checkpointed CHW pair (``pallas_train.py::fused_rollout_train_chw``
+:878, ``_fwd_call`` :759 → ``_make_fwd_kernel`` :390 and ``_bwd_call`` :843 →
+``_make_bwd_kernel`` :485) is the same pair with a segment K > 1: the
+forward keeps only the states at steps 0, K, 2K, … in an
+[n/K, B, C, H, W] checkpoint, and the backward walks the segments in reverse,
+recomputes each segment's K states into a K-slot scratch with ``nca_step``
+launches that draw the same absolute-step masks, then runs ``nca_bwd_mlp`` +
+``nca_bwd_adjoint`` down the segment: memory for n/K + K states instead of
+n, for one more forward's launches. The TPU backend recomputes inside its
+kernel; the port recomputes by launches, so rows 5 and 6 need no kernel
+source of their own. The kernels and the order of every sum are those of
+K = 1, so every K gives bit-identical results. The JAX names map so:
+
+=============================================  =================================
+``pallas_train.py``                            here
+=============================================  =================================
+``fused_rollout_train_chw`` :878               ``fused_rollout_train_chw``
+``pick_segment`` :686                          ``pick_segment``
+``fused_train_supported`` :703 (CHW pair)      ``fused_train_chw_supported``
+``fused_rollout_train`` :2617 (NHWC, CHW)      ``fused_rollout_train_nhwc``
+``fused_train_flat_supported`` :2014           ``fused_train_supported``
+``fused_rollout_train_flat`` :2535             ``fused_rollout_train``
+=============================================  =================================
+
 Scope (``fused_train_supported``): circular padding and perception_scales
 (0,) or (0, 1), as the TPU pair; its ``W % 128`` rule and VMEM plans are TPU
 layout and do not apply (scales (0, 1) need even H and W, as the TPU pair
@@ -57,9 +81,8 @@ KERNEL_LAUNCHES: Dict[str, int] = {
     "nca_step_ms": 0, "nca_bwd_mlp_ms": 0, "nca_bwd_adjoint_ms": 0,
 }
 
-# NCA_C_MAX, NCA_CC_MAX, NCA_F_MAX of csrc/nca_common.cuh (the card tests
-# check them against the built library): enough for every preset.
-C_MAX, CC_MAX, F_MAX = 16, 4, 128
+C_MAX, CC_MAX, F_MAX = fs.C_MAX, fs.CC_MAX, fs.F_MAX
+SEGMENTS = (16, 8, 4, 2)  # pick_segment's candidates, largest first
 TILE = 16  # NCA_TILE: the kernels' blocks are TILE x TILE pixels
 
 
@@ -81,10 +104,28 @@ def fused_train_supported(cfg: NCAConfig, n_steps: int) -> bool:
         cfg.padding_mode == "circular"
         and tuple(cfg.perception_scales) in fs.SCALES
         and n_steps >= 1
-        and cfg.c_in <= C_MAX
-        and cfg.c_cond <= CC_MAX
-        and cfg.fc_dim <= F_MAX
+        and fs.kernel_cfg_ok(cfg)
     )
+
+
+def pick_segment(cfg: NCAConfig, h: int, w: int, n_steps: int) -> Optional[int]:
+    """The checkpoint interval of the CHW pair — the port's rule for
+    ``pick_segment`` (pallas_train.py:686): the largest K in (16, 8, 4, 2)
+    that divides ``n_steps``, else None. The TPU's
+    ``bwd_vmem_bytes_estimate`` (:665) budget and row-tile rule are VMEM
+    and do not apply: the port's scratch of K states lives in device
+    memory."""
+    return next((k for k in SEGMENTS if n_steps % k == 0), None)
+
+
+def fused_train_chw_supported(cfg: NCAConfig, h: int, w: int, n_steps: int) -> bool:
+    """True when the segment-checkpointed CHW pair applies — the port's rule
+    for ``fused_train_supported`` (pallas_train.py:703): circular padding,
+    perception_scales (0,), a segment K from ``pick_segment``, within the
+    kernels' limits. Dropped as TPU layout: ``W % 128`` and ``H % 8``."""
+    return (tuple(cfg.perception_scales) == (0,)
+            and fused_train_supported(cfg, n_steps)
+            and pick_segment(cfg, h, w, n_steps) is not None)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,6 +138,7 @@ class _Spec:
     multiscale: bool = False
     tap_steps: Tuple[int, ...] = ()
     first_step: int = 0
+    segment: int = 1
 
     @property
     def thr(self) -> int:
@@ -115,6 +157,7 @@ def fused_rollout_train(
     cond_no_grad: bool = False,
     tap_steps: Sequence[int] = (),
     first_step: int = 0,
+    segment: int = 1,
 ):
     """``n_steps`` NCA steps, x [B, C, H, W] float32 → final state, with
     gradients to ``params`` (w1, b1, w2, b2), ``x`` and ``cond``
@@ -127,7 +170,12 @@ def fused_rollout_train(
     ``(state, [tap states])`` instead, tap t being the state after t steps
     ([B, C, H, W], a copy of its checkpoint); the gradient flows through the
     taps too, in one reverse walk (``fused_rollout_train_flat`` with
-    ``tap_steps``, pallas_train.py:2579-2606)."""
+    ``tap_steps``, pallas_train.py:2579-2606).
+
+    ``segment`` K (dividing ``n_steps``) checkpoints every K-th state and
+    recomputes each segment in the backward (the CHW pair's schedule, see
+    the module docstring); K = 1 keeps every state. Any K gives the same
+    results bit for bit, at scales (0,) and (0, 1), with or without taps."""
     fs._check(params, x, cfg, cond, compute_dtype)
     if not fused_train_supported(cfg, n_steps):
         raise ValueError(
@@ -138,12 +186,16 @@ def fused_rollout_train(
     if any(not 1 <= t < n_steps for t in taps) or list(taps) != sorted(set(taps)):
         raise ValueError(f"tap_steps must be strictly increasing in [1, {n_steps}), "
                          f"got {taps}")
+    if segment < 1 or n_steps % segment:
+        raise ValueError(f"segment must divide n_steps = {n_steps}, got {segment}")
+    if x.dtype != torch.float32:
+        raise ValueError(f"the training pair takes a float32 state, got {x.dtype}")
     if x.device.type != "cpu":
         fs.check_card_inputs(x, (cond,), limits=train_kernel_limits(),
                              fc_dim=cfg.fc_dim)
     rate = cfg.update_rate if update_rate is None else update_rate
     spec = _Spec(seed, n_steps, rate, compute_dtype, cond_no_grad,
-                 fs.is_multiscale(cfg), taps, first_step)
+                 fs.is_multiscale(cfg), taps, first_step, segment)
     out = _TrainRollout.apply(params["w1"], params["b1"], params["w2"], params["b2"],
                               x, cond, spec)
     return (out[0], list(out[1:])) if taps else out
@@ -156,14 +208,14 @@ class _TrainRollout(torch.autograd.Function):
         packed = fs.pack_weights({"w1": w1, "b1": b1, "w2": w2, "b2": b2},
                                  x.shape[1], cc, spec.compute_dtype)
         run = _forward_card if x.device.type == "cuda" else _forward_reference
-        y, ckpt = run(packed, x, cond, spec)
+        y, ckpt, taps = run(packed, x, cond, spec)
         ctx.spec = spec
         ctx.w1_shape = w1.shape
         ctx.save_for_backward(*packed, ckpt, cond)
         if not spec.tap_steps:
             return y
         ctx.set_materialize_grads(False)
-        return (y, *(ckpt[t].clone() for t in spec.tap_steps))
+        return (y, *taps)
 
     @staticmethod
     def backward(ctx, gy, *gtaps):
@@ -186,16 +238,27 @@ class _TrainRollout(torch.autograd.Function):
 
 
 def _forward_card(packed, x, cond, spec: _Spec):
-    n = spec.n_steps
-    ckpt = torch.empty((n,) + tuple(x.shape), device=x.device)
+    """Returns (final state, checkpoint [n/K, B, C, H, W] of the states at
+    steps 0, K, 2K, …, [tap states]). Step s writes its output straight
+    into the checkpoint slot when s + 1 is a multiple of K, else into one of
+    two scratch buffers."""
+    n, k = spec.n_steps, spec.segment
+    ckpt = torch.empty((n // k,) + tuple(x.shape), device=x.device)
     ckpt[0].copy_(x)
     y = torch.empty_like(x)
+    bufs = [torch.empty_like(x) for _ in range(min(k - 1, 2))]
+    taps = []
+    src = ckpt[0]
     for s in range(n):
-        dst = ckpt[s + 1] if s + 1 < n else y
-        fs.launch_step(ckpt[s], dst, cond, packed, "circular", spec.compute_dtype,
+        nxt = s + 1
+        dst = y if nxt == n else ckpt[nxt // k] if nxt % k == 0 else bufs[s % 2]
+        fs.launch_step(src, dst, cond, packed, "circular", spec.compute_dtype,
                        spec.seed, spec.first_step + s, spec.thr, spec.multiscale)
         _count("nca_step_ms" if spec.multiscale else "nca_step")
-    return y, ckpt
+        if nxt in spec.tap_steps:
+            taps.append(dst.clone())
+        src = dst
+    return y, ckpt, taps
 
 
 def _forward_reference(packed, x, cond, spec: _Spec):
@@ -205,23 +268,55 @@ def _forward_reference(packed, x, cond, spec: _Spec):
         x = fs.reference_step(x, cond, packed, "circular", spec.compute_dtype,
                               spec.seed, spec.first_step + s, spec.update_rate,
                               spec.multiscale)
-    return x, torch.stack(states)
+    states.append(x)
+    taps = [states[t] for t in spec.tap_steps]
+    return x, torch.stack(states[:-1:spec.segment]), taps
 
 
 # ----------------------------------------------------------------- backward
 
 
+def _segment_states(ckpt, seg: int, cond, packed, spec: _Spec, scratch, step):
+    """The K input states of segment ``seg``: its checkpoint, then K - 1
+    recomputed by ``step(src, dst, cond, packed, …, absolute step)`` (a
+    kernel launch or the plain step) drawing the forward's masks."""
+    states = [ckpt[seg]]
+    for j in range(spec.segment - 1):
+        s = seg * spec.segment + j
+        nxt = step(states[-1], scratch[j] if scratch is not None else None, cond, packed, spec,
+                   spec.first_step + s)
+        states.append(nxt)
+    return states
+
+
+def _recompute_card(src, dst, cond, packed, spec: _Spec, step: int):
+    fs.launch_step(src, dst, cond, packed, "circular", spec.compute_dtype, spec.seed,
+                   step, spec.thr, spec.multiscale)
+    _count("nca_step_ms" if spec.multiscale else "nca_step")
+    return dst
+
+
+def _recompute_reference(src, dst, cond, packed, spec: _Spec, step: int):
+    return fs.reference_step(src, cond, packed, "circular", spec.compute_dtype, spec.seed,
+                             step, spec.update_rate, spec.multiscale)
+
+
 def _backward_card(packed, ckpt, cond, gy, spec: _Spec, need_dcond: bool, taps=None):
-    n, b, c, h, w = ckpt.shape
+    _, b, c, h, w = ckpt.shape
     taps = taps or {}
     gx = gy.clone()
     gp = torch.empty((b, 4 * c, h, w), device=gy.device)
     dcond = torch.zeros_like(cond) if need_dcond else None
     slots = _zero_slots(b, c, h, w, packed)
-    for s in reversed(range(n)):
-        _launch_mlp(ckpt[s], cond, gx, gp, dcond, slots, packed, spec.compute_dtype,
-                    spec.seed, spec.first_step + s, spec.thr, spec.multiscale)
-        _launch_adjoint(gp, gx, taps.get(s), spec.multiscale)
+    k = spec.segment
+    scratch = torch.empty((k - 1, b, c, h, w), device=gy.device) if k > 1 else None
+    for seg in reversed(range(ckpt.shape[0])):
+        states = _segment_states(ckpt, seg, cond, packed, spec, scratch, _recompute_card)
+        for j in reversed(range(k)):
+            s = seg * k + j
+            _launch_mlp(states[j], cond, gx, gp, dcond, slots, packed, spec.compute_dtype,
+                        spec.seed, spec.first_step + s, spec.thr, spec.multiscale)
+            _launch_adjoint(gp, gx, taps.get(s), spec.multiscale)
     return (*_split_slots(slots, packed, c), gx, dcond)
 
 
@@ -231,15 +326,19 @@ def _backward_reference(packed, ckpt, cond, gy, spec: _Spec, need_dcond: bool,
     gx = gy
     dcond = torch.zeros_like(cond) if need_dcond else None
     sums = None
-    for s in reversed(range(spec.n_steps)):
-        gp, dc, *dparams = nca_bwd_mlp_reference(
-            packed, ckpt[s], cond, gx, spec.seed, spec.first_step + s, spec.update_rate,
-            spec.compute_dtype, need_dcond, spec.multiscale,
-        )
-        sums = dparams if sums is None else [a + d for a, d in zip(sums, dparams)]
-        if need_dcond:
-            dcond = dcond + dc
-        gx = nca_bwd_adjoint_reference(gp, gx, taps.get(s), spec.multiscale)
+    k = spec.segment
+    for seg in reversed(range(ckpt.shape[0])):
+        states = _segment_states(ckpt, seg, cond, packed, spec, None, _recompute_reference)
+        for j in reversed(range(k)):
+            s = seg * k + j
+            gp, dc, *dparams = nca_bwd_mlp_reference(
+                packed, states[j], cond, gx, spec.seed, spec.first_step + s,
+                spec.update_rate, spec.compute_dtype, need_dcond, spec.multiscale,
+            )
+            sums = dparams if sums is None else [a + d for a, d in zip(sums, dparams)]
+            if need_dcond:
+                dcond = dcond + dc
+            gx = nca_bwd_adjoint_reference(gp, gx, taps.get(s), spec.multiscale)
     return (*sums, gx, dcond)
 
 
@@ -256,28 +355,70 @@ def fused_rollout_train_reference(
     need_dcond: bool = False,
     tap_steps: Sequence[int] = (),
     gtaps: Sequence[torch.Tensor] = (),
+    segment: int = 1,
 ):
-    """The whole pair in plain PyTorch as explicit steps: the forward, then
-    the reverse walk with ``nca_bwd_mlp_reference`` and
-    ``nca_bwd_adjoint_reference`` for cotangent ``gy`` of the final state
-    and ``gtaps[i]`` of the state after ``tap_steps[i]`` steps. Returns
-    (state, {w1, b1, w2, b2: gradient}, dx0, dcond or None), and with taps
-    (state, [tap states], grads, dx0, dcond)."""
+    """The whole pair in plain PyTorch as explicit steps: the forward
+    (keeping every ``segment``-th state), then the reverse walk over the
+    segments, each recomputed from its checkpoint, with
+    ``nca_bwd_mlp_reference`` and ``nca_bwd_adjoint_reference`` for
+    cotangent ``gy`` of the final state and ``gtaps[i]`` of the state after
+    ``tap_steps[i]`` steps. Returns (state, {w1, b1, w2, b2: gradient}, dx0,
+    dcond or None), and with taps (state, [tap states], grads, dx0,
+    dcond)."""
     fs._check(params, x, cfg, cond, compute_dtype)
+    if segment < 1 or n_steps % segment:
+        raise ValueError(f"segment must divide n_steps = {n_steps}, got {segment}")
     rate = cfg.update_rate if update_rate is None else update_rate
     spec = _Spec(seed, n_steps, rate, compute_dtype, not need_dcond,
-                 fs.is_multiscale(cfg), tuple(tap_steps))
+                 fs.is_multiscale(cfg), tuple(tap_steps), segment=segment)
     cc = cond.shape[1] if cond is not None else 0
     packed = fs.pack_weights(params, x.shape[1], cc, compute_dtype)
-    y, ckpt = _forward_reference(packed, x, cond, spec)
+    y, ckpt, tap_states = _forward_reference(packed, x, cond, spec)
     dw1, db1, dw2, db2, dx0, dcond = _backward_reference(
         packed, ckpt, cond, gy, spec, need_dcond, dict(zip(spec.tap_steps, gtaps)))
     p, f = params["w1"].shape
     grads = {"w1": F.pad(dw1[:, :f], (0, 0, 0, p - dw1.shape[0])), "b1": db1[:f],
              "w2": dw2[:f], "b2": db2}
     if spec.tap_steps:
-        return y, [ckpt[t] for t in spec.tap_steps], grads, dx0, dcond
+        return y, tap_states, grads, dx0, dcond
     return y, grads, dx0, dcond
+
+
+def fused_rollout_train_chw(params: dict, x: torch.Tensor, cond: Optional[torch.Tensor],
+                            seed: int, cfg: NCAConfig, n_steps: int, segment: int,
+                            compute_dtype: str = "float32") -> torch.Tensor:
+    """The segment-checkpointed CHW pair (pallas_train.py:878): ``n_steps``
+    steps of x [B, C, H, W] float32 at ``cfg.update_rate``, checkpointed
+    every ``segment`` steps, the final state returned with gradients to
+    ``params``, ``x`` and ``cond`` (always to cond when it requires one, as
+    the JAX pair returns dcond whenever cond is given). Scope
+    ``fused_train_chw_supported``: circular, perception_scales (0,); the
+    same code takes (0, 1) and taps through ``fused_rollout_train``."""
+    if tuple(cfg.perception_scales) != (0,):
+        raise ValueError("the CHW pair takes perception_scales (0,); "
+                         "fused_rollout_train takes (0, 1)")
+    return fused_rollout_train(params, x, seed, cfg, n_steps, cond,
+                               compute_dtype=compute_dtype, segment=segment)
+
+
+def fused_rollout_train_nhwc(params: dict, x_nhwc: torch.Tensor, seed: int,
+                             cfg: NCAConfig, n_steps: int,
+                             cond_nhwc: Optional[torch.Tensor] = None,
+                             compute_dtype: str = "float32"):
+    """NHWC wrapper of the CHW pair (``fused_rollout_train``,
+    pallas_train.py:2617): returns (state, rgb) NHWC like ``dynca_rollout``,
+    differentiable, with the segment ``pick_segment`` gives; raises
+    ValueError where ``fused_train_chw_supported`` does not hold."""
+    b, h, w, _ = x_nhwc.shape
+    if not fused_train_chw_supported(cfg, h, w, n_steps):
+        raise ValueError("the CHW training pair does not apply to this config "
+                         "(fused_train_chw_supported)")
+    x = x_nhwc.permute(0, 3, 1, 2).contiguous()
+    cond = None if cond_nhwc is None else cond_nhwc.permute(0, 3, 1, 2).contiguous()
+    out = fused_rollout_train_chw(params, x, cond, seed, cfg, n_steps,
+                                  pick_segment(cfg, h, w, n_steps), compute_dtype)
+    state = out.permute(0, 2, 3, 1)
+    return state, state[..., : cfg.c_out] * 2.0
 
 
 # ------------------------------------------------------ the backward kernels
