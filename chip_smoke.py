@@ -86,9 +86,14 @@ exit and no result line:
    b1 bf16 beside nca_step, their bounds and plain versions, every registry
    entry per step at 256^2 and 1024^2, the segment trade-off (forward +
    backward time and added peak memory at K = 1 and 16, for static_texture
-   and the video_motion pair), and the benchmark harness
+   and the video_motion pair), the benchmark harness
    (``benchmark_serving`` with 8 streams at 256^2, ``benchmark_train_step``
-   for static_texture) once each.
+   for static_texture) once each; the tensor-core backward kernels
+   (nca_bwd_mlp at 128^2 b4 f32, nca_bwd_mlp_ms at 256^2 b3 f32 and b1 bf16,
+   cnca_bwd_mlp at 64^2 b8 and b1 f32) beside their float32 and tensor-core
+   bounds, with ptxas' registers and spills and two launches checked for the
+   same bits; VGG16's loss forward and backward with the equality-mask pool
+   and with F.max_pool2d, in turns.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Needs one card; exits non-zero without
@@ -1803,6 +1808,162 @@ def phase_benchmark(torch, fs, ft, benchmark):
     return serving, train
 
 
+# ------------------------------- the tensor-core backward kernels (section D)
+
+H100_TF32_FLOPS = 495e12  # dense tensor-core peak
+
+
+def tc_bound_ms(kernel: str, c: int, k2: int, f: int, hw: int, compute_dtype="float32"):
+    """Least time of one launch of a tensor-core backward kernel on an H100
+    for the design's arithmetic: the FLOPs it keeps on the CUDA cores over
+    the float32 peak plus its tensor-core FLOPs over the TF32 peak, three
+    times over for split TF32 (float32 compute), or over the bf16 peak,
+    against its bytes (counted as ``train_bound_ms`` and ``cnca_bound_ms``
+    count them) over the memory rate. nca_bwd_mlp(_ms) (k2 = cc) keeps z1 = W1^T p
+    (2 P*F a pixel, and the multiscale percept's MS_PERCEPT_FLOP a pixel and
+    channel) and puts W2 gdx, W1 gz1, dW1 and dW2 (2 (2 P*F + 2 F*C)) on the
+    tensor cores; cnca_bwd_mlp (k2 = D) keeps the recompute (the MLP and the
+    percept) and the depthwise weight gradient (2 x 2*27*C) and puts the
+    three transposed and three weight-gradient products (2 x the MLP) on
+    them."""
+    if kernel.startswith("nca_bwd_mlp"):
+        p = 4 * c + k2
+        n_bytes = (c + k2 + c + 4 * c) * hw * 4 + (p * f + f + f * c + c) * 4
+        cuda = 2 * hw * p * f + (MS_PERCEPT_FLOP * c * hw if kernel.endswith("_ms") else 0)
+        tc = 2 * hw * (2 * p * f + 2 * f * c)
+    else:
+        d, p = k2, 3 * c
+        mlp = 2 * (p * d + d * d + d * c)
+        n_bytes = (8 * c * hw * 4 + hw
+                   + 2 * (27 * c + p * d + d + d * d + d + d * c) * 4)
+        cuda = hw * (mlp + 4 * 27 * c)
+        tc = hw * 2 * mlp
+    t_tc = tc / H100_BF16_FLOPS if compute_dtype == "bfloat16" else 3 * tc / H100_TF32_FLOPS
+    t_ops = cuda / H100_F32_FLOPS + t_tc
+    t_bytes = n_bytes / H100_BYTES_PER_S
+    return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+def time_tc_kernels(torch, fs, ft, fc, cn, ConditionedNCAConfig, _build):
+    """The redesigned backward kernels at the shapes of PERF.md's table:
+    nca_bwd_mlp at 128^2 b4 f32 (c12/fc96, pos_emb), nca_bwd_mlp_ms at
+    256^2 b3 f32 and b1 bf16 (c16/fc128, pos_emb), cnca_bwd_mlp at 64^2 b8
+    and b1 f32 (C 20 / D 64): ms per launch beside the float32 bound and the
+    tensor-core bound, two launches on the same inputs checked for the same
+    bits, and ptxas' registers and spills of each instantiation. Returns
+    {(name, label): (ms, f32 bound, tensor-core bound)}."""
+    from vsnca_tpu_torch.models.dynca import dynca_init
+    from vsnca_tpu_torch.config import NCAConfig
+
+    out = {}
+    want = False  # inside ptxas' report of a bwd_mlp instantiation
+    for line in (_build.build_log("nca_train") + _build.build_log("nca_cnca")).splitlines():
+        if "Function properties" in line:
+            want = "bwd_mlp" in line
+            if want:
+                print(f"    ptxas: {line.split('for', 1)[1].strip()}")
+        elif want and ("registers" in line or "spill" in line):
+            print(f"    ptxas:   {line.strip()}")
+    thr = fs.uniform_threshold(0.5)
+    for name, c, f, ms, b, n, cdt in (("nca_bwd_mlp", 12, 96, False, 4, 128, "float32"),
+                                      ("nca_bwd_mlp_ms", 16, 128, True, 3, 256, "float32"),
+                                      ("nca_bwd_mlp_ms", 16, 128, True, 1, 256, "bfloat16")):
+        cfg = NCAConfig(c_in=c, fc_dim=f, padding_mode="circular", conditioning="pos_emb",
+                        perception_scales=(0, 1) if ms else (0,))
+        params = dynca_init(torch.Generator().manual_seed(0), cfg, device="cuda")
+        g = torch.Generator().manual_seed(3)
+        x = (torch.rand((b, c, n, n), generator=g) - 0.5).cuda()
+        gx = torch.randn((b, c, n, n), generator=g).cuda()
+        cond = (torch.rand((b, 2, n, n), generator=g) - 0.5).cuda()
+        packed = fs.pack_weights(params, c, 2, cdt)
+        gp = torch.empty((b, 4 * c, n, n), device="cuda")
+        runs = [ft._zero_slots(b, c, n, n, packed) for _ in range(2)]
+        for slots in runs:
+            ft._launch_mlp(x, cond, gx, gp, None, slots, packed, cdt, 5, 17, thr, ms)
+        gp2 = gp.clone()
+        ft._launch_mlp(x, cond, gx, gp2, None, torch.zeros_like(runs[0]), packed, cdt, 5,
+                       17, thr, ms)
+        torch.cuda.synchronize()
+        same = torch.equal(runs[0], runs[1]) and torch.equal(gp, gp2)
+        slots = runs[0]
+        k_ms = cuda_ms(lambda: ft._launch_mlp(x, cond, gx, gp, None, slots, packed, cdt, 5, 17,
+                                              thr, ms), 20)
+        hw = b * n * n
+        f32b = (ms_bound_ms(name, c, 2, f, hw)[0] if ms
+                else train_bound_ms(name, c, 2, f, hw)[0])
+        tcb = tc_bound_ms(name, c, 2, f, hw, cdt)[0]
+        label = f"{n}^2 b{b} {cdt}"
+        out[(name, label)] = (k_ms, f32b, tcb)
+        print(f"  {name} {label}: kernel {k_ms:.4f} ms/launch; float32 bound {f32b:.5f} ms "
+              f"({k_ms / f32b:.1f}x), tensor-core bound {tcb:.5f} ms ({k_ms / tcb:.1f}x); "
+              f"two launches bit-identical: {same}")
+        if not same:
+            raise SystemExit(f"{name}: two launches on the same inputs differ")
+    for b in (8, 1):
+        cfg = ConditionedNCAConfig(image_size=64, cell_fire_rate=0.5)
+        params = cn.conditioned_nca_init(torch.Generator().manual_seed(0), cfg, device="cuda")
+        g = torch.Generator().manual_seed(1)
+        x = (0.3 * torch.randn((b, 20, 64, 64), generator=g)).cuda()
+        goal = (0.3 * torch.randn((b, 20, 64, 64), generator=g)).cuda()
+        gy = torch.randn((b, 20, 64, 64), generator=g).cuda()
+        packed = fc.pack_weights(params, cfg, "float32")
+        _, life = fc.cnca_step_reference(x, goal, packed, cfg, "float32", 3, 5, 0.5)
+        gp = torch.empty((b, 60, 64, 64), device="cuda")
+        outs = []
+        for _ in range(2):
+            gg, slots = gy.clone(), fc._zero_slots(b, 64, 64, packed)
+            fc._launch_bwd_mlp(x, goal, life, gg, gp, slots, packed, cfg, "float32", 3, 5,
+                               thr)
+            outs.append((gg, gp.clone(), slots))
+        torch.cuda.synchronize()
+        same = all(torch.equal(a, c_) for a, c_ in zip(*outs))
+        gg = gy.clone()
+        k_ms = cuda_ms(lambda: fc._launch_bwd_mlp(x, goal, life, gg, gp, slots, packed, cfg,
+                                                  "float32", 3, 5, thr), 20)
+        hw = b * 64 * 64
+        f32b = cnca_bound_ms("cnca_bwd_mlp", 20, 64, hw)[0]
+        tcb = tc_bound_ms("cnca_bwd_mlp", 20, 64, 64, hw)[0]
+        label = f"64^2 b{b} float32"
+        out[("cnca_bwd_mlp", label)] = (k_ms, f32b, tcb)
+        print(f"  cnca_bwd_mlp {label}: kernel {k_ms:.4f} ms/launch; float32 bound {f32b:.5f} "
+              f"ms ({k_ms / f32b:.1f}x), tensor-core bound {tcb:.5f} ms ({k_ms / tcb:.1f}x); "
+              f"two launches bit-identical: {same}")
+        if not same:
+            raise SystemExit("cnca_bwd_mlp: two launches on the same inputs differ")
+    return out
+
+
+def time_vgg_pool(torch, vgg_mod, F):
+    """VGG16's loss forward and backward (the five style taps and the
+    content tap, the sum of squares of each, d/d image) with the
+    equality-mask 2x2 pool (ops.conv.max_pool_2d) and, in turns, with
+    F.max_pool2d (the pool before the repair), at static_texture's (128^2,
+    batch 4) and video_motion's (256^2, 9 frames) shapes. Returns
+    {label: (eq ms, F.max_pool2d ms)}."""
+    params = vgg_mod.vgg16_random_init(torch.Generator().manual_seed(16), device="cuda")
+    layers = vgg_mod.STYLE_LAYERS + (vgg_mod.CONTENT_LAYER,)
+    pools = {"eq": vgg_mod.max_pool_2d, "torch": lambda x, w, s: F.max_pool2d(x, w, s)}
+    out = {}
+    for label, shape in (("128^2 b4", (4, 3, 128, 128)), ("256^2 b9", (9, 3, 256, 256))):
+        img = torch.rand(shape, generator=torch.Generator().manual_seed(4)).cuda()
+
+        def run():
+            x = img.clone().requires_grad_()
+            loss = sum(f.square().sum() for f in vgg_mod.vgg16_features(params, x, layers))
+            loss.backward()
+
+        times = {}
+        for which in ("torch", "eq", "eq", "torch"):
+            vgg_mod.max_pool_2d = pools[which]
+            times.setdefault(which, []).append(cuda_ms(run, 3, rounds=3))
+        vgg_mod.max_pool_2d = pools["eq"]
+        out[label] = (statistics.median(times["eq"]), statistics.median(times["torch"]))
+        print(f"  VGG16 loss forward + backward {label}: equality-mask pool "
+              f"{out[label][0]:.3f} ms, F.max_pool2d {out[label][1]:.3f} ms "
+              f"(turns torch, eq, eq, torch)")
+    return out
+
+
 def main() -> int:
     import torch
 
@@ -1840,6 +2001,7 @@ def main() -> int:
         to_rgb,
     )
     from vsnca_tpu_torch.models.msoe import load_msoe, msoe_random_init
+    from vsnca_tpu_torch.models import vgg as vgg_mod
     from vsnca_tpu_torch.models.vgg import load_vgg16, vgg16_random_init
     from vsnca_tpu_torch.ops import _build
     from vsnca_tpu_torch.ops import fused_cnca as fc
@@ -2128,6 +2290,12 @@ def main() -> int:
     bench_serving, bench_train = phase_benchmark(torch, fs, ft, benchmark)
     print(f"  card during timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
+    # the tensor-core backward kernels at the table's shapes, and the VGG
+    # loss with the equality-mask pool against F.max_pool2d
+    tc_times = time_tc_kernels(torch, fs, ft, fc, cn, ConditionedNCAConfig, _build)
+    vgg_pool_ms = time_vgg_pool(torch, vgg_mod, torch.nn.functional)
+    print(f"  card during timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+
     metrics = {
         "card": card,
         "kernel_ms_per_step_256": timing[256]["kernel_ms_per_step"],
@@ -2183,6 +2351,11 @@ def main() -> int:
         "segment_k": seg_k,
         "segment_max_abs_diff_k_vs_1": seg_diff,
         "segment_max_abs_err_vs_plain": seg_err,
+        **{f"tc_{name}_{label.replace('^', '').replace(' ', '_')}_{what}": v
+           for (name, label), t in tc_times.items()
+           for what, v in zip(("ms", "f32_bound_ms", "tc_bound_ms"), t)},
+        **{f"vgg_loss_fwd_bwd_{label.replace('^', '').replace(' ', '_')}_{which}_ms": v
+           for label, t in vgg_pool_ms.items() for which, v in zip(("eq_pool", "torch_pool"), t)},
     }
     print("metrics " + json.dumps(metrics))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
@@ -2229,6 +2402,8 @@ def main() -> int:
         "bound_ms": b,
         "bound_by": by,
         "library_ms": None,
+        **({"tc_bound_ms": tc_times[(name, "128^2 b4 float32")][2]}
+           if name == "nca_bwd_mlp" else {}),
     } for name, (k, p, b, by) in tk.items()] + [{
         "name": name,
         "route": "cuda",
@@ -2241,6 +2416,8 @@ def main() -> int:
         "bound_ms": cnca_times[(name, 8)][2],
         "bound_by": cnca_times[(name, 8)][3],
         "library_ms": None,
+        **({"tc_bound_ms": tc_times[(name, "64^2 b8 float32")][2]}
+           if name == "cnca_bwd_mlp" else {}),
     } for name in fc.KERNEL_LAUNCHES] + [{
         "name": name,
         "route": "cuda",
@@ -2253,6 +2430,8 @@ def main() -> int:
         "bound_ms": ms_times[name][2],
         "bound_by": ms_times[name][3],
         "library_ms": None,
+        **({"tc_bound_ms": tc_times[(name, "256^2 b3 float32")][2]}
+           if name == "nca_bwd_mlp_ms" else {}),
     } for name, src, rows, err in (
         ("nca_step_ms", "vsnca_tpu_torch/csrc/nca_step.cu",
          "vsnca_tpu/ops/pallas_step.py:731 (fused_rollout_chw, _make_kernel_roll_ms :308); "

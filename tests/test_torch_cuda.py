@@ -594,3 +594,66 @@ def test_segment_pair_nhwc_wrapper_on_card(cuda):
     want = fs.fused_rollout_chw_reference(params, x, 3, cfg, 24, cond)
     _close(state.detach(), want.permute(0, 2, 3, 1), TOL["float32"]["atol"])
     assert all(torch.isfinite(v.grad).all() and v.grad.abs().max() > 0 for v in p.values())
+
+
+# ----------------------------------------- the tensor-core backward kernels
+
+
+def _same_bits(a, b) -> bool:
+    return all(torch.equal(x, y) for x, y in zip(a, b) if x is not None)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("multiscale", [False, True])
+@pytest.mark.parametrize("c_in,c_cond,fc_dim", [(1, 0, 4), (5, 1, 30), (12, 3, 96),
+                                                (16, 4, 128), (16, 2, 128)])
+def test_backward_mlp_kernel_widths_are_exact_and_repeatable(cuda, c_in, c_cond, fc_dim,
+                                                             multiscale, compute_dtype):
+    """nca_bwd_mlp (and its MS form) at the width limits (C 1..16, cc 0..4,
+    F 4..128) on a ragged 40 x 72 grid at rate 0.5: within the backward
+    tolerance of the plain version, and two launches on the same inputs give
+    the same bits."""
+    from vsnca_tpu_torch.ops import fused_train as ft
+
+    g = torch.Generator().manual_seed(c_in * 131 + fc_dim)
+    p = 4 * c_in + c_cond
+    params = {"w1": 0.3 * torch.randn((p, fc_dim), generator=g),
+              "b1": 0.1 * torch.randn(fc_dim, generator=g),
+              "w2": 0.2 * torch.randn((fc_dim, c_in), generator=g),
+              "b2": torch.zeros(c_in)}
+    shape = (2, c_in, 40, 72)
+    x = (torch.rand(shape, generator=g) - 0.5).to(cuda)
+    gx = torch.randn(shape, generator=g).to(cuda)
+    cond = ((torch.rand((2, c_cond, 40, 72), generator=g) - 0.5).to(cuda)
+            if c_cond else None)
+    packed = fs.pack_weights({k: v.to(cuda) for k, v in params.items()}, c_in, c_cond,
+                             compute_dtype)
+    args = (packed, x, cond, gx, 3, 5, 0.5, compute_dtype, cond is not None, multiscale)
+    got = ft.nca_bwd_mlp(*args)
+    again = ft.nca_bwd_mlp(*args)
+    want = ft.nca_bwd_mlp_reference(*args)
+    for a, b in zip(got, want):
+        if b is not None:
+            _close(a, b, TRAIN_TOL[compute_dtype])
+    assert _same_bits(got, again)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hidden,d", [(1, 4), (16, 64), (20, 64), (7, 36)])
+def test_cnca_backward_mlp_widths_are_exact_and_repeatable(cuda, hidden, d, compute_dtype):
+    """cnca_bwd_mlp at the width limits (C 5..24, D 4..64) on a ragged
+    40 x 72 grid: within the backward tolerance of the plain version, and two
+    launches on the same inputs give the same bits."""
+    from vsnca_tpu_torch.ops import fused_cnca as fc
+
+    cfg, params, x, goal = _cnca_case(cuda, 0.5, True, shape=(2, 40, 72), hidden=hidden, d=d)
+    packed = fc.pack_weights(params, cfg, compute_dtype)
+    _, life = fc.cnca_step_reference(x, goal, packed, cfg, compute_dtype, 3, 5, 0.5)
+    gy = torch.randn(x.shape, generator=torch.Generator().manual_seed(7)).to(cuda)
+    args = (packed, x, goal, life, gy, cfg, compute_dtype, 3, 5, 0.5)
+    g_xn, gp, sums = fc.cnca_bwd_mlp(*args)
+    g2, gp2, sums2 = fc.cnca_bwd_mlp(*args)
+    w_xn, w_gp, w_sums = fc.cnca_bwd_mlp_reference(*args)
+    for a, b in zip((g_xn, gp, *sums), (w_xn, w_gp, *w_sums)):
+        _close(a, b, TRAIN_TOL[compute_dtype])
+    assert _same_bits((g_xn, gp, *sums), (g2, gp2, *sums2))

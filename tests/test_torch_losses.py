@@ -4,9 +4,9 @@ on the same numpy arrays (VGG weights carried across with
 
 Tolerances: VGG features rtol 1e-4 / atol 1e-5 of the largest activation of
 each tap (float32 convolutions summed in another order); their gradients
-w.r.t. the image 1e-4 of the largest element — max-pool ties split evenly in
-the JAX VJP and go to one element in torch, but after a ReLU the tied
-values are zeros whose cotangent is zero; the golden torch-mirror fixture
+w.r.t. the image 1e-4 of the largest element (both packages split a
+max-pool tie's gradient evenly; tests/test_torch_vgg_pool.py holds the
+ties themselves); the golden torch-mirror fixture
 rtol 1e-3 / atol 1e-4 (as tests/test_golden_fixtures.py); Gram and overflow
 losses rtol 1e-5; one Adam step and a schedule across its boundaries
 atol 1e-7 (updates of 1e-3). The JAX side runs under ``jax.jit`` (one

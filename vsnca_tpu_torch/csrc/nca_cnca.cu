@@ -39,23 +39,37 @@
 // ~3 * C * 4 bytes (state in, goal, xn out): 80 FLOP a byte, float32
 // arithmetic (67 TFLOP/s) bounds it. cnca_bwd_mlp recomputes the forward and
 // does the three transposed products and the three weight-gradient
-// products: about 3x the update's FLOPs. cnca_gate and cnca_bwd_adjoint are
-// bound by their bytes.
+// products: about 3x the update's FLOPs, of which the recompute (the relu
+// and clamp gates must be the forward's bits) is a third. cnca_gate and
+// cnca_bwd_adjoint are bound by their bytes.
 //
-// What the design does about it (simple first; tensor cores, TMA and a
-// persistent kernel are later work): cnca_update runs one thread a pixel in
+// What the design does about it: cnca_update runs one thread a pixel in
 // 16 x 16 blocks, with the weights, the alpha tile (20 x 20), the pre mask
 // and the xg tile (C x 18 x 18) in shared memory; the percept (3C values),
 // the second layer's sums (D) and dx (C) in registers; weights read as
-// float4 along the output dimension and broadcast to the warp. cnca_bwd_mlp
-// keeps a 16 x 8 block's percept, h1, h2 and g_dx as per-pixel columns in
-// shared memory (stride 129 floats: 32 different rows at one pixel hit 32
-// banks), overwrites them in place with g_h2, g_h1 and g_p as the walk goes
-// down the layers, and forms each weight gradient as a block-wide product
-// over its 128 pixels: each thread owns a few outputs and walks the pixels,
-// adding into the block's own slot of a [n_blocks, S] buffer. The same block
-// owns the same pixels every step, so the sum is deterministic without
-// atomics; the wrapper sums the slots once per call.
+// float4 along the output dimension and broadcast to the warp (a tensor-core
+// form of the update is later work). cnca_bwd_mlp keeps the recompute on the
+// CUDA cores in cnca_update's order — a 16 x 8 block of 256 threads, with
+// the weights and the x and goal tiles staged by cp.async, the percept
+// two threads a pixel, h1, h2 and dx a thread 8 units (4 channels) x 4
+// pixels, written as per-pixel columns in shared memory (stride 132 floats,
+// so every fragment read is free of bank conflicts) — and runs every
+// backward product on the tensor cores as warp-level mma.sync (nca_mma.cuh;
+// float32 compute in split TF32, bf16 compute in bf16, float32
+// accumulators): each warp takes 16 pixels through g_h2 = (W3 g_dx)[h2 > 0],
+// g_h1 = (W2 g_h2)[h1 > 0] and g_p = W1 g_h1, each product's output
+// registers feeding the next as its A operand, and the block forms
+// dW3 = h2^T g_dx, dW2 = h1^T g_h2 (db2 as a ones row of h1) and
+// dW1 = p^T g_h1 (db1 as a ones row of p) over its 128 pixels, a warp
+// taking a run of 16 x 8 output tiles that share their A rows and adding
+// each once into the block's own slot of a [n_blocks, S] buffer. The
+// depthwise weight gradient (27 C outputs) stays on the CUDA cores, walking
+// the tile's rows and columns. About 187 KB of shared memory at C = 20,
+// D = 64 allows one block (8 warps, twice the first design's 4) an SM;
+// 64^2 b8 is 256 blocks. Measured on the H100 (PERF.md §6): 0.13 ms at
+// 64^2 b8 against 0.40 for the first design.
+// The same block owns the same pixels every step, so the sum is
+// deterministic without atomics; the wrapper sums the slots once per call.
 //
 // Rounding: the percept's 9 taps are summed as the plain version sums them
 // (products and sums unfused, in tap order), and xg as x + goal * pre.
@@ -69,6 +83,7 @@
 // so the plain version and the backward draw the same ones.
 
 #include "nca_common.cuh"
+#include "nca_mma.cuh"
 
 #define CNCA_C_MAX 24
 #define CNCA_D_MAX 64
@@ -81,8 +96,13 @@
 
 #define CB_TX 16                 // cnca_bwd_mlp: 16 wide, 8 tall
 #define CB_TY 8
-#define CB_THREADS (CB_TX * CB_TY)
-#define CB_LD (CB_THREADS + 1)   // stride of the per-pixel columns
+#define CB_PIX (CB_TX * CB_TY)
+#define CB_THREADS (2 * CB_PIX)  // two threads a pixel
+#define CB_LDM (CB_PIX + 4)      // stride of the per-pixel columns
+#define CB_KC 32                 // channels padded to two depth blocks of 16
+#define CB_LD3 (CB_KC + 4)       // stride of W3's rows in shared memory
+#define CB_NTD (CNCA_D_MAX / 8)  // 8-wide tiles of the hidden units
+#define CB_NTP ((CNCA_P_MAX + 8) / 8)  // 8-wide tiles of [p | 1]
 #define CB_HX (CB_TX + 2)
 #define CB_HY (CB_TY + 2)
 #define CB_AX (CB_TX + 4)
@@ -154,6 +174,33 @@ __device__ __forceinline__ void stage_xg(const float* xb, const float* gb,
     }
     xg[i] = v;
   }
+  __syncthreads();
+}
+
+// stage_xg by asynchronous copies: x into xg and goal into tmp (both
+// [C, hy, hx], zero outside the grid), then xg = x + goal * pre in shared
+// memory, as stage_xg rounds it. Ends with the block synchronised (and every
+// asynchronous copy the block issued before it complete).
+__device__ __forceinline__ void stage_xg_async(const float* xb, const float* gb,
+                                               const float* pre, float* xg, float* tmp,
+                                               int C, int hy, int hx, int y0, int x0, int H,
+                                               int W, int tid, int nthr) {
+  const int HW = H * W;
+  for (int i = tid; i < C * hy * hx; i += nthr) {
+    const int c = i / (hy * hx), rq = i % (hy * hx);
+    const int gy = y0 + rq / hx, gx = x0 + rq % hx;
+    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
+      const size_t o = (size_t)c * HW + gy * W + gx;
+      cp_async4(xg + i, xb + o);
+      cp_async4(tmp + i, gb + o);
+    } else {
+      xg[i] = tmp[i] = 0.f;
+    }
+  }
+  cp_async_wait_all();
+  __syncthreads();
+  for (int i = tid; i < C * hy * hx; i += nthr)
+    xg[i] = __fadd_rn(xg[i], __fmul_rn(tmp[i], pre[i % (hy * hx)]));
   __syncthreads();
 }
 
@@ -318,12 +365,18 @@ cnca_gate_kernel(const float* __restrict__ x, const float* __restrict__ xn,
 }
 
 // Shared memory of cnca_bwd_mlp, float32, in this order:
-//   w1s [P, D4]  w2s [D4, D4]  w3s [D4, C4]  b1s [D4]  b2s [D4]
+//   w1s [PN, LDW]  w2s [DP, LDW]  w3s [DP, 36]  b1s [DP]  b2s [DP]
 //   wcs [C*27, rounded up to 4]  at [12, 20]  pre [10, 18]  xg [C, 10, 18]
-//   pc [P, LD]  hc1 [D4, LD]  hc2 [D4, LD]  gd [C, LD]   (per-pixel columns)
-// pc holds the percept, then g_p; hc1 h1, then g_h1; hc2 h2, then g_h2.
+//   pc  [PN, LDM]    percept; row P all ones (db1); g_p at the end
+//   hc1 [DP+8, LDM]  h1 (unrounded), then g_h1; row DP all ones (db2)
+//   hc2 [DP, LDM]    h2 (unrounded), then g_h2
+//   gd  [32, LDM]    g_dx, zero past C
+// PN = P + 1 rounded up to 8, DP = D4 rounded up to 32, LDW = DP + 8
+// (= 8 mod 32: the paired float2 weight reads are free of bank conflicts),
+// LDM = 132 (= 4 mod 32: the fragment reads of the column arrays are);
+// weights zero past their sizes.
 template <bool BF16>
-__global__ void __launch_bounds__(CB_THREADS)
+__global__ void __launch_bounds__(CB_THREADS, 1)
 cnca_bwd_mlp_kernel(const float* __restrict__ x, const float* __restrict__ goal,
                     const unsigned char* __restrict__ life, float* __restrict__ g,
                     float* __restrict__ gp, float* __restrict__ slots,
@@ -334,29 +387,58 @@ cnca_bwd_mlp_kernel(const float* __restrict__ x, const float* __restrict__ goal,
                     float clampv, uint32_t seed, uint32_t step, uint32_t fthr) {
   extern __shared__ __align__(16) float smem[];
   const int P = 3 * C, C4 = (C + 3) & ~3;
+  const int PN = (P + 8) & ~7, ntp = PN / 8;
+  const int DP = (D4 + 31) & ~31, LDW = DP + 8, ntd = DP / 8;
   float* w1s = smem;
-  float* w2s = w1s + P * D4;
-  float* w3s = w2s + D4 * D4;
-  float* b1s = w3s + D4 * C4;
-  float* b2s = b1s + D4;
-  float* wcs = b2s + D4;
+  float* w2s = w1s + PN * LDW;
+  float* w3s = w2s + DP * LDW;
+  float* b1s = w3s + DP * CB_LD3;
+  float* b2s = b1s + DP;
+  float* wcs = b2s + DP;
   float* at = wcs + ((C * 27 + 3) & ~3);
   float* pre = at + CB_AY * CB_AX;
   float* xg = pre + CB_HY * CB_HX;
   float* pc = xg + C * CB_HY * CB_HX;
-  float* hc1 = pc + P * CB_LD;
-  float* hc2 = hc1 + D4 * CB_LD;
-  float* gd = hc2 + D4 * CB_LD;
+  float* hc1 = pc + PN * CB_LDM;
+  float* hc2 = hc1 + (DP + 8) * CB_LDM;
+  float* gd = hc2 + DP * CB_LDM;
 
-  const int tid = threadIdx.y * CB_TX + threadIdx.x;
+  const int tid = threadIdx.x;
+  const int pix = tid & (CB_PIX - 1), half = tid >> 7;
+  const int tx = pix & (CB_TX - 1), ty = pix >> 4;
+  const int warp = tid >> 5, lane = tid & 31, gq = lane >> 2, t = lane & 3;
   const int b = blockIdx.z;
   const int HW = H * W;
-  for (int i = tid; i < P * D4; i += CB_THREADS) w1s[i] = w1[i];
-  for (int i = tid; i < D4 * D4; i += CB_THREADS) w2s[i] = w2[i];
-  for (int i = tid; i < D4 * C4; i += CB_THREADS) w3s[i] = w3[i];
-  for (int i = tid; i < D4; i += CB_THREADS) {
-    b1s[i] = b1[i];
-    b2s[i] = b2[i];
+  // The weights by 4-byte asynchronous copies (zero padding by plain
+  // stores), waited for with the xg tile's.
+  for (int i = tid; i < PN * LDW; i += CB_THREADS) {
+    const int r = i / LDW, f = i - r * LDW;
+    if (r < P && f < D4)
+      cp_async4(w1s + i, w1 + r * D4 + f);
+    else
+      w1s[i] = 0.f;
+  }
+  for (int i = tid; i < DP * LDW; i += CB_THREADS) {
+    const int r = i / LDW, f = i - r * LDW;
+    if (r < D4 && f < D4)
+      cp_async4(w2s + i, w2 + r * D4 + f);
+    else
+      w2s[i] = 0.f;
+  }
+  for (int i = tid; i < DP * CB_LD3; i += CB_THREADS) {
+    const int e = i / CB_LD3, c = i - e * CB_LD3;
+    if (e < D4 && c < C4)
+      cp_async4(w3s + i, w3 + e * C4 + c);
+    else
+      w3s[i] = 0.f;
+  }
+  for (int i = tid; i < DP; i += CB_THREADS) {
+    if (i < D4) {
+      cp_async4(b1s + i, b1 + i);
+      cp_async4(b2s + i, b2 + i);
+    } else {
+      b1s[i] = b2s[i] = 0.f;
+    }
   }
   for (int i = tid; i < C * 27; i += CB_THREADS) wcs[i] = wcol[i];
 
@@ -364,191 +446,381 @@ cnca_bwd_mlp_kernel(const float* __restrict__ x, const float* __restrict__ goal,
   const float* xb = x + (size_t)b * C * HW;
   stage_pre(xb + (size_t)alive * HW, at, pre, CB_AY, CB_AX, y0 - 2, x0 - 2, H, W, athr,
             use_life, tid, CB_THREADS);
-  stage_xg(xb, goal + (size_t)b * C * HW, pre, xg, C, CB_HY, CB_HX, y0 - 1, x0 - 1, H, W,
-           tid, CB_THREADS);
+  // goal's tile passes through hc1/hc2, free until the recompute
+  stage_xg_async(xb, goal + (size_t)b * C * HW, pre, xg, hc1, C, CB_HY, CB_HX, y0 - 1,
+                 x0 - 1, H, W, tid, CB_THREADS);
 
-  const int px = x0 + threadIdx.x, py = y0 + threadIdx.y;
+  const int px = x0 + tx, py = y0 + ty;
   const bool valid = px < W && py < H;
-  const int pix = valid ? py * W + px : 0;
+  const int gpix = valid ? py * W + px : 0;
 
-  // Percept column (zeros past the grid's edge: such a pixel's g_dx is 0,
-  // so it adds nothing to any gradient).
-  for (int c = 0; c < C; ++c) {
+  // The forward's recompute, on the CUDA cores in cnca_update's order (so
+  // the relu gates and xn are its bits), the two threads of a pixel taking
+  // alternate channels, then halves of the hidden units. Percept column
+  // (zeros past the grid's edge: such a pixel's g_dx is 0, so it adds
+  // nothing to any gradient), the ones row and zero rows after it.
+  for (int c = half; c < C; c += 2) {
     float o[3] = {0.f, 0.f, 0.f};
     if (valid)
-      percept3(xg + (c * CB_HY + threadIdx.y) * CB_HX + threadIdx.x, CB_HX, wcs + c * 27, o);
+      percept3(xg + (c * CB_HY + ty) * CB_HX + tx, CB_HX, wcs + c * 27, o);
 #pragma unroll
-    for (int s = 0; s < 3; ++s) pc[(3 * c + s) * CB_LD + tid] = rnd_if(BF16, o[s]);
+    for (int s = 0; s < 3; ++s) pc[(3 * c + s) * CB_LDM + pix] = rnd_if(BF16, o[s]);
   }
-  // h1 and h2 (float32 after relu; rounded where they are operands), summed
-  // in the update kernel's order so that xn recomputes exactly.
-  for (int f = 0; f < D4; f += 4) {
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int k = 0; k < P; ++k) {
-      const float v = pc[k * CB_LD + tid];
-      const float4 w = *reinterpret_cast<const float4*>(w1s + k * D4 + f);
-      a.x = fmaf(w.x, v, a.x);
-      a.y = fmaf(w.y, v, a.y);
-      a.z = fmaf(w.z, v, a.z);
-      a.w = fmaf(w.w, v, a.w);
+  for (int r = P + half; r < PN; r += 2) pc[r * CB_LDM + pix] = (r == P && valid) ? 1.f : 0.f;
+  for (int r = DP + half; r < DP + 8; r += 2)
+    hc1[r * CB_LDM + pix] = (r == DP && valid) ? 1.f : 0.f;
+  __syncthreads();  // the percept
+  // h1, h2 and dx: a thread takes 8 hidden units (or 4 channels) for 4
+  // pixels, 32 apart, so each weight read (a broadcast float4: 512 bytes
+  // through the shared memory's 128 a clock) feeds 16 FMAs, not 4.
+  const int q0 = tid & 31, ug = tid >> 5;
+  {
+    const int u0 = 8 * ug;
+    float a[4][8] = {};
+    if (u0 < D4) {
+      for (int k = 0; k < P; ++k) {
+        const float4 wa = *reinterpret_cast<const float4*>(w1s + k * LDW + u0);
+        const float4 wb = *reinterpret_cast<const float4*>(w1s + k * LDW + u0 + 4);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float v = pc[k * CB_LDM + q0 + 32 * i];
+          a[i][0] = fmaf(wa.x, v, a[i][0]);
+          a[i][1] = fmaf(wa.y, v, a[i][1]);
+          a[i][2] = fmaf(wa.z, v, a[i][2]);
+          a[i][3] = fmaf(wa.w, v, a[i][3]);
+          a[i][4] = fmaf(wb.x, v, a[i][4]);
+          a[i][5] = fmaf(wb.y, v, a[i][5]);
+          a[i][6] = fmaf(wb.z, v, a[i][6]);
+          a[i][7] = fmaf(wb.w, v, a[i][7]);
+        }
+      }
     }
-    hc1[f * CB_LD + tid] = fmaxf(a.x + b1s[f], 0.f);
-    hc1[(f + 1) * CB_LD + tid] = fmaxf(a.y + b1s[f + 1], 0.f);
-    hc1[(f + 2) * CB_LD + tid] = fmaxf(a.z + b1s[f + 2], 0.f);
-    hc1[(f + 3) * CB_LD + tid] = fmaxf(a.w + b1s[f + 3], 0.f);
-  }
-  for (int e = 0; e < D4; e += 4) {
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-    for (int f = 0; f < D4; ++f) {
-      const float v = rnd_if(BF16, hc1[f * CB_LD + tid]);
-      const float4 w = *reinterpret_cast<const float4*>(w2s + f * D4 + e);
-      a.x = fmaf(w.x, v, a.x);
-      a.y = fmaf(w.y, v, a.y);
-      a.z = fmaf(w.z, v, a.z);
-      a.w = fmaf(w.w, v, a.w);
-    }
-    hc2[e * CB_LD + tid] = fmaxf(a.x + b2s[e], 0.f);
-    hc2[(e + 1) * CB_LD + tid] = fmaxf(a.y + b2s[e + 1], 0.f);
-    hc2[(e + 2) * CB_LD + tid] = fmaxf(a.z + b2s[e + 2], 0.f);
-    hc2[(e + 3) * CB_LD + tid] = fmaxf(a.w + b2s[e + 3], 0.f);
-  }
-  float dx[CNCA_C_MAX];
+    if (u0 < DP) {  // zero past D4: b1s is zero there
 #pragma unroll
-  for (int c = 0; c < CNCA_C_MAX; ++c) dx[c] = 0.f;
-  for (int e = 0; e < D4; ++e) {
-    const float v = rnd_if(BF16, hc2[e * CB_LD + tid]);
+      for (int i = 0; i < 4; ++i) {
 #pragma unroll
-    for (int c = 0; c < CNCA_C_MAX; c += 4) {
-      if (c < C4) {
-        const float4 w = *reinterpret_cast<const float4*>(w3s + e * C4 + c);
-        dx[c] = fmaf(w.x, v, dx[c]);
-        dx[c + 1] = fmaf(w.y, v, dx[c + 1]);
-        dx[c + 2] = fmaf(w.z, v, dx[c + 2]);
-        dx[c + 3] = fmaf(w.w, v, dx[c + 3]);
+        for (int j = 0; j < 8; ++j)
+          hc1[(u0 + j) * CB_LDM + q0 + 32 * i] = fmaxf(a[i][j] + b1s[u0 + j], 0.f);
       }
     }
   }
-
-  // The clamp, life and mask adjoints: g <- g_xn in place, g_dx column.
-  const bool on =
-      valid && (mask_bits(seed, (uint32_t)b, step, (uint32_t)pix) >> 8) >= fthr;
-  const float lf = (!use_life || (valid && life[(size_t)b * HW + pix])) ? 1.f : 0.f;
+  __syncthreads();  // h1
+  {
+    const int e0 = 8 * ug;
+    float a[4][8] = {};
+    if (e0 < D4) {
+      for (int f = 0; f < D4; ++f) {
+        const float4 wa = *reinterpret_cast<const float4*>(w2s + f * LDW + e0);
+        const float4 wb = *reinterpret_cast<const float4*>(w2s + f * LDW + e0 + 4);
 #pragma unroll
-  for (int c = 0; c < CNCA_C_MAX; ++c) {
-    if (c < C) {
-      float gdx = 0.f;
-      if (valid) {
-        const size_t o = ((size_t)b * C + c) * HW + pix;
-        const float xc = x[o];
-        const float xl = __fmul_rn(on ? __fadd_rn(xc, dx[c]) : xc, lf);
-        const float in_range = (xl >= -clampv && xl <= clampv) ? 1.f : 0.f;
-        const float gxn = __fmul_rn(__fmul_rn(g[o], in_range), lf);
-        g[o] = gxn;
-        gdx = on ? gxn : 0.f;
+        for (int i = 0; i < 4; ++i) {
+          const float v = rnd_if(BF16, hc1[f * CB_LDM + q0 + 32 * i]);
+          a[i][0] = fmaf(wa.x, v, a[i][0]);
+          a[i][1] = fmaf(wa.y, v, a[i][1]);
+          a[i][2] = fmaf(wa.z, v, a[i][2]);
+          a[i][3] = fmaf(wa.w, v, a[i][3]);
+          a[i][4] = fmaf(wb.x, v, a[i][4]);
+          a[i][5] = fmaf(wb.y, v, a[i][5]);
+          a[i][6] = fmaf(wb.z, v, a[i][6]);
+          a[i][7] = fmaf(wb.w, v, a[i][7]);
+        }
       }
-      gd[c * CB_LD + tid] = rnd_if(BF16, gdx);
+    }
+    if (e0 < DP) {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          hc2[(e0 + j) * CB_LDM + q0 + 32 * i] = fmaxf(a[i][j] + b2s[e0 + j], 0.f);
+      }
     }
   }
-  __syncthreads();
+  __syncthreads();  // h2
+  // dx for channels 4 ug .. 4 ug + 3, then the clamp, life and mask
+  // adjoints: g <- g_xn in place, g_dx column (zero past C).
+  {
+    const int c0 = 4 * ug;
+    float dx[4][4] = {};
+    if (c0 < C4) {
+      for (int e = 0; e < D4; ++e) {
+        const float4 w = *reinterpret_cast<const float4*>(w3s + e * CB_LD3 + c0);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) {
+          const float v = rnd_if(BF16, hc2[e * CB_LDM + q0 + 32 * i]);
+          dx[i][0] = fmaf(w.x, v, dx[i][0]);
+          dx[i][1] = fmaf(w.y, v, dx[i][1]);
+          dx[i][2] = fmaf(w.z, v, dx[i][2]);
+          dx[i][3] = fmaf(w.w, v, dx[i][3]);
+        }
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int q = q0 + 32 * i;
+      const int qx = x0 + (q & (CB_TX - 1)), qy = y0 + (q >> 4);
+      const bool qv = qx < W && qy < H;
+      const int qpix = qv ? qy * W + qx : 0;
+      const bool on =
+          qv && (mask_bits(seed, (uint32_t)b, step, (uint32_t)qpix) >> 8) >= fthr;
+      const float lf = (!use_life || (qv && life[(size_t)b * HW + qpix])) ? 1.f : 0.f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const int c = c0 + j;
+        float gdx = 0.f;
+        if (qv && c < C) {
+          const size_t o = ((size_t)b * C + c) * HW + qpix;
+          const float xc = x[o];
+          const float xl = __fmul_rn(on ? __fadd_rn(xc, dx[i][j]) : xc, lf);
+          const float in_range = (xl >= -clampv && xl <= clampv) ? 1.f : 0.f;
+          const float gxn = __fmul_rn(__fmul_rn(g[o], in_range), lf);
+          g[o] = gxn;
+          gdx = on ? gxn : 0.f;
+        }
+        gd[c * CB_LDM + q] = rnd_if(BF16, gdx);
+      }
+    }
+  }
+  __syncthreads();  // g_dx
 
+  // The backward products on the tensor cores. Each warp owns tile row
+  // `warp` (16 pixels) for g_h2 = (W3 g_dx)[h2 > 0], g_h1 = (W2 g_h2)[h1 > 0]
+  // and g_p = W1 g_h1 (M = pixels; each output's registers feed the next
+  // product); the weight gradients sum over the block's 128 pixels in 16 x 8
+  // output tiles, a warp taking a fixed run of the tiles that share a row
+  // block of A (loaded and converted once for the run), each tile added once
+  // into the block's slot.
+  const int row0 = CB_TX * warp;
+  const int nkc = (C + 15) / 16;  // depth blocks of 16 channels
+  float acc[CB_NTD][4];
+#pragma unroll
+  for (int n = 0; n < CB_NTD; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  for (int kb = 0; kb < nkc; ++kb) {
+    float ga[8];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      ga[2 * q] = gd[(16 * kb + t + 4 * q) * CB_LDM + row0 + gq];
+      ga[2 * q + 1] = gd[(16 * kb + t + 4 * q) * CB_LDM + row0 + gq + 8];
+    }
+    FragA<BF16> fa;
+    fa.strided(ga);
+#pragma unroll
+    for (int n = 0; n < CB_NTD; ++n) {
+      if (n < ntd) {
+        float bw[4];
+#pragma unroll
+        for (int q = 0; q < 4; ++q) bw[q] = w3s[(8 * n + gq) * CB_LD3 + 16 * kb + t + 4 * q];
+        mma_frag<BF16>(acc[n], fa, bw);
+      }
+    }
+  }
+  // gate by h2 > 0 (own pixels; hc2 still holds h2)
+#pragma unroll
+  for (int n = 0; n < CB_NTD; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int o = (8 * n + 2 * t + (e & 1)) * CB_LDM + row0 + gq + 8 * (e >> 1);
+      acc[n][e] = (n < ntd && hc2[o] > 0.f) ? rnd_if(BF16, acc[n][e]) : 0.f;
+    }
+  }
+  const int slot_floats = C * 27 + P * D4 + 2 * D4 + D4 * D4 + D4 * C;
   const int blk = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
-  float* sdwc = slots + (size_t)blk * (C * 27 + P * D4 + 2 * D4 + D4 * D4 + D4 * C);
+  float* sdwc = slots + (size_t)blk * slot_floats;
   float* sdw1 = sdwc + C * 27;  // [P, D4]
   float* sdb1 = sdw1 + P * D4;  // [D4]
   float* sdw2 = sdb1 + D4;      // [D4, D4]
   float* sdb2 = sdw2 + D4 * D4; // [D4]
   float* sdw3 = sdb2 + D4;      // [D4, C]
 
-  // dW3 [e, c] += sum over the block's pixels of h2[e] g_dx[c].
-  for (int o = tid; o < D4 * C; o += CB_THREADS) {
-    const float* hh = hc2 + (o / C) * CB_LD;
-    const float* gg = gd + (o % C) * CB_LD;
-    float s = 0.f;
-#pragma unroll 8
-    for (int t = 0; t < CB_THREADS; ++t) s = fmaf(rnd_if(BF16, hh[t]), gg[t], s);
-    sdw3[o] += s;
-  }
-  __syncthreads();
-  // g_h2 = (W3 g_dx) * [h2 > 0], in place of h2.
-  for (int e = 0; e < D4; ++e) {
-    float a = 0.f;
-    for (int c = 0; c < C; ++c) a = fmaf(w3s[e * C4 + c], gd[c * CB_LD + tid], a);
-    float* h = hc2 + e * CB_LD + tid;
-    *h = rnd_if(BF16, *h > 0.f ? a : 0.f);
-  }
-  __syncthreads();
-  // dW2 [f, e] += sum of h1[f] g_h2[e]; db2 [e] += sum of g_h2[e].
-  for (int o = tid; o < D4 * D4 + D4; o += CB_THREADS) {
-    float s = 0.f;
-    if (o < D4 * D4) {
-      const float* hh = hc1 + (o / D4) * CB_LD;
-      const float* gg = hc2 + (o % D4) * CB_LD;
-#pragma unroll 8
-      for (int t = 0; t < CB_THREADS; ++t) s = fmaf(rnd_if(BF16, hh[t]), gg[t], s);
-      sdw2[o] += s;
-    } else {
-      const float* gg = hc2 + (o - D4 * D4) * CB_LD;
-#pragma unroll 8
-      for (int t = 0; t < CB_THREADS; ++t) s += gg[t];
-      sdb2[o - D4 * D4] += s;
+  // dW3 [e, c] = h2^T g_dx: the tiles (e 16, c 8) of a row of e share A;
+  // warp w takes row w / 2, its first two tiles or the rest.
+  {
+    const int nct = (C + 7) / 8, mt = warp >> 1, nt0 = 2 * (warp & 1);
+    const int n = (warp & 1) ? nct - 2 : min(2, nct);
+    auto slot_at = [&](int j, int e) -> float* {
+      const int r = 16 * mt + gq + 8 * (e >> 1), c = 8 * (nt0 + j) + 2 * t + (e & 1);
+      return (j < n && r < D4 && c < C) ? sdw3 + r * C + c : nullptr;
+    };
+    float old[2][4] = {}, d[2][4] = {};
+    if (16 * mt < DP && n > 0) {
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float* p = slot_at(j, e);
+          if (p != nullptr) old[j][e] = *p;
+        }
+      }
+      mma_rows<BF16, 2, CB_PIX>(d, hc2 + 16 * mt * CB_LDM, gd + 8 * nt0 * CB_LDM, n, CB_LDM,
+                                0, gq, t);
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float* p = slot_at(j, e);
+          if (p != nullptr) *p = old[j][e] + d[j][e];
+        }
+      }
     }
   }
-  __syncthreads();
-  // g_h1 = (W2 g_h2) * [h1 > 0], in place of h1.
-  for (int f = 0; f < D4; ++f) {
-    float a = 0.f;
-    for (int e = 0; e < D4; e += 4) {
-      const float4 w = *reinterpret_cast<const float4*>(w2s + f * D4 + e);
-      a = fmaf(w.x, hc2[e * CB_LD + tid], a);
-      a = fmaf(w.y, hc2[(e + 1) * CB_LD + tid], a);
-      a = fmaf(w.z, hc2[(e + 2) * CB_LD + tid], a);
-      a = fmaf(w.w, hc2[(e + 3) * CB_LD + tid], a);
-    }
-    float* h = hc1 + f * CB_LD + tid;
-    *h = rnd_if(BF16, *h > 0.f ? a : 0.f);
+  __syncthreads();  // h2 is read for the last time
+  // g_h2 into hc2; g_h1 = (W2 g_h2) gated by h1 > 0 (hc1 still holds h1).
+  float acc1[CB_NTD][4];
+#pragma unroll
+  for (int n = 0; n < CB_NTD; ++n) {
+    acc1[n][0] = acc1[n][1] = acc1[n][2] = acc1[n][3] = 0.f;
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (n < ntd)
+        hc2[(8 * n + 2 * t + (e & 1)) * CB_LDM + row0 + gq + 8 * (e >> 1)] = acc[n][e];
   }
-  __syncthreads();
-  // dW1 [k, f] += sum of p[k] g_h1[f]; db1 [f] += sum of g_h1[f].
-  for (int o = tid; o < P * D4 + D4; o += CB_THREADS) {
-    float s = 0.f;
-    if (o < P * D4) {
-      const float* pp = pc + (o / D4) * CB_LD;
-      const float* gg = hc1 + (o % D4) * CB_LD;
-#pragma unroll 8
-      for (int t = 0; t < CB_THREADS; ++t) s = fmaf(pp[t], gg[t], s);
-      sdw1[o] += s;
-    } else {
-      const float* gg = hc1 + (o - P * D4) * CB_LD;
-#pragma unroll 8
-      for (int t = 0; t < CB_THREADS; ++t) s += gg[t];
-      sdb1[o - P * D4] += s;
+#pragma unroll
+  for (int jj = 0; jj < CB_NTD / 2; ++jj) {
+    if (2 * jj < ntd) {
+      FragA<BF16> fa;
+      fa.paired(acc[2 * jj], acc[2 * jj + 1]);
+#pragma unroll
+      for (int n = 0; n < CB_NTD; ++n) {
+        if (n < ntd) {
+          const float* wr = w2s + (8 * n + gq) * LDW + 16 * jj + 2 * t;
+          const float2 lo = *reinterpret_cast<const float2*>(wr);
+          const float2 hi = *reinterpret_cast<const float2*>(wr + 8);
+          const float bw[4] = {lo.x, lo.y, hi.x, hi.y};
+          mma_frag<BF16>(acc1[n], fa, bw);
+        }
+      }
     }
   }
-  __syncthreads();
-  // g_p = W1 g_h1 (float32), in place of the percept and to gp.
-  for (int k = 0; k < P; ++k) {
-    float a = 0.f;
-    for (int f = 0; f < D4; f += 4) {
-      const float4 w = *reinterpret_cast<const float4*>(w1s + k * D4 + f);
-      a = fmaf(w.x, hc1[f * CB_LD + tid], a);
-      a = fmaf(w.y, hc1[(f + 1) * CB_LD + tid], a);
-      a = fmaf(w.z, hc1[(f + 2) * CB_LD + tid], a);
-      a = fmaf(w.w, hc1[(f + 3) * CB_LD + tid], a);
+#pragma unroll
+  for (int n = 0; n < CB_NTD; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int o = (8 * n + 2 * t + (e & 1)) * CB_LDM + row0 + gq + 8 * (e >> 1);
+      acc1[n][e] = (n < ntd && hc1[o] > 0.f) ? rnd_if(BF16, acc1[n][e]) : 0.f;
     }
-    pc[k * CB_LD + tid] = a;
-    if (valid) gp[((size_t)b * P + k) * HW + pix] = a;
   }
-  __syncthreads();
-  // dwcol [c, s*9 + t] += sum of xg[c] at tap t times g_p[c*3 + s].
+  __syncthreads();  // g_h2 is in hc2
+  // dW2 [f, e] = h1^T g_h2 and db2 [e] (the ones row of hc1): tiles of
+  // (g_h2 e 16) x (h1 f 8 | ones); warp w takes row w / 2 of e, its first
+  // five tiles or the rest.
+  {
+    const int nft = ntd + 1, mt = warp >> 1, nt0 = 5 * (warp & 1);
+    const int n = (warp & 1) ? nft - 5 : min(5, nft);
+    auto slot_at = [&](int j, int e) -> float* {
+      const int r = 16 * mt + gq + 8 * (e >> 1), f = 8 * (nt0 + j) + 2 * t + (e & 1);
+      if (j >= n || r >= D4) return nullptr;
+      return f < D4 ? sdw2 + f * D4 + r : f == DP ? sdb2 + r : nullptr;
+    };
+    float old[5][4] = {}, d[5][4] = {};
+    if (16 * mt < DP && n > 0) {
+#pragma unroll
+      for (int j = 0; j < 5; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float* p = slot_at(j, e);
+          if (p != nullptr) old[j][e] = *p;
+        }
+      }
+      mma_rows<BF16, 5, CB_PIX>(d, hc2 + 16 * mt * CB_LDM, hc1 + 8 * nt0 * CB_LDM, n, CB_LDM,
+                                0, gq, t);
+#pragma unroll
+      for (int j = 0; j < 5; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float* p = slot_at(j, e);
+          if (p != nullptr) *p = old[j][e] + d[j][e];
+        }
+      }
+    }
+  }
+  __syncthreads();  // h1 is read for the last time
+  // g_h1 into hc1 (the ones row stays); g_p = W1 g_h1.
+  float gpa[CB_NTP][4];
+#pragma unroll
+  for (int n = 0; n < CB_NTP; ++n) gpa[n][0] = gpa[n][1] = gpa[n][2] = gpa[n][3] = 0.f;
+#pragma unroll
+  for (int n = 0; n < CB_NTD; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (n < ntd)
+        hc1[(8 * n + 2 * t + (e & 1)) * CB_LDM + row0 + gq + 8 * (e >> 1)] = acc1[n][e];
+  }
+#pragma unroll
+  for (int jj = 0; jj < CB_NTD / 2; ++jj) {
+    if (2 * jj < ntd) {
+      FragA<BF16> fa;
+      fa.paired(acc1[2 * jj], acc1[2 * jj + 1]);
+#pragma unroll
+      for (int n = 0; n < CB_NTP; ++n) {
+        if (n < ntp) {
+          const float* wr = w1s + (8 * n + gq) * LDW + 16 * jj + 2 * t;
+          const float2 lo = *reinterpret_cast<const float2*>(wr);
+          const float2 hi = *reinterpret_cast<const float2*>(wr + 8);
+          const float bw[4] = {lo.x, lo.y, hi.x, hi.y};
+          mma_frag<BF16>(gpa[n], fa, bw);
+        }
+      }
+    }
+  }
+  __syncthreads();  // g_h1 is in hc1
+  // dW1 [k, f] = p^T g_h1 and db1 [f] (the ones row of pc): tiles of
+  // (g_h1 f 16) x (p k 8 | ones); warp w takes row w / 2 of f, its first
+  // five tiles or the rest.
+  {
+    const int mt = warp >> 1, nt0 = 5 * (warp & 1);
+    const int n = (warp & 1) ? ntp - 5 : min(5, ntp);
+    auto slot_at = [&](int j, int e) -> float* {
+      const int f = 16 * mt + gq + 8 * (e >> 1), k = 8 * (nt0 + j) + 2 * t + (e & 1);
+      if (j >= n || f >= D4) return nullptr;
+      return k < P ? sdw1 + k * D4 + f : k == P ? sdb1 + f : nullptr;
+    };
+    float old[5][4] = {}, d[5][4] = {};
+    if (16 * mt < DP && n > 0) {
+#pragma unroll
+      for (int j = 0; j < 5; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float* p = slot_at(j, e);
+          if (p != nullptr) old[j][e] = *p;
+        }
+      }
+      mma_rows<BF16, 5, CB_PIX>(d, hc1 + 16 * mt * CB_LDM, pc + 8 * nt0 * CB_LDM, n, CB_LDM,
+                                0, gq, t);
+#pragma unroll
+      for (int j = 0; j < 5; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float* p = slot_at(j, e);
+          if (p != nullptr) *p = old[j][e] + d[j][e];
+        }
+      }
+    }
+  }
+  __syncthreads();  // the percept is read for the last time
+  // g_p into pc, then to gp by pixel.
+#pragma unroll
+  for (int n = 0; n < CB_NTP; ++n) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      if (n < ntp)
+        pc[(8 * n + 2 * t + (e & 1)) * CB_LDM + row0 + gq + 8 * (e >> 1)] = gpa[n][e];
+  }
+  __syncthreads();  // g_p staged in pc
+  if (valid)
+    for (int k = half; k < P; k += 2) gp[((size_t)b * P + k) * HW + gpix] = pc[k * CB_LDM + pix];
+  // dwcol [c, s*9 + di*3 + dj] += sum over the block's pixels of the xg tap
+  // (di, dj) times g_p[c*3 + s], walking the tile's rows and columns (no
+  // division a pixel).
   for (int o = tid; o < C * 27; o += CB_THREADS) {
-    const int c = o / 27, k = o % 27;
-    const int s = k / 9, di = (k % 9) / 3, dj = k % 3;
+    const int c = o / 27, k = o - 27 * c;
+    const int s = k / 9, di = (k - 9 * s) / 3, dj = k - 9 * s - 3 * di;
     const float* tap = xg + (c * CB_HY + di) * CB_HX + dj;
-    const float* gg = pc + (3 * c + s) * CB_LD;
-    float acc = 0.f;
-    for (int t = 0; t < CB_THREADS; ++t)
-      acc = fmaf(tap[(t / CB_TX) * CB_HX + t % CB_TX], gg[t], acc);
-    sdwc[o] += acc;
+    const float* gg = pc + (3 * c + s) * CB_LDM;
+    float sum = 0.f;
+    for (int r = 0; r < CB_TY; ++r) {
+#pragma unroll
+      for (int q = 0; q < CB_TX; ++q) sum = fmaf(tap[r * CB_HX + q], gg[r * CB_TX + q], sum);
+    }
+    sdwc[o] += sum;
   }
 }
 
@@ -680,13 +952,13 @@ int cnca_bwd_mlp_launch(const float* x, const float* goal, const unsigned char* 
                         int bf16, unsigned int seed, unsigned int step,
                         unsigned int fthr, void* stream) {
   if (bad_sizes(C, D4) || alive < 0 || alive >= C) return (int)cudaErrorInvalidValue;
-  const int P = 3 * C, C4 = (C + 3) & ~3;
+  const int P = 3 * C, PN = (P + 8) & ~7, DP = (D4 + 31) & ~31, LDW = DP + 8;
   const size_t smem =
-      sizeof(float) * ((size_t)P * D4 + D4 * D4 + D4 * C4 + 2 * D4 + ((C * 27 + 3) & ~3) +
-                       CB_AY * CB_AX + CB_HY * CB_HX + (size_t)C * CB_HY * CB_HX +
-                       (size_t)(P + 2 * D4 + C) * CB_LD);
+      sizeof(float) * ((size_t)PN * LDW + (size_t)DP * LDW + (size_t)DP * CB_LD3 + 2 * DP +
+                       ((C * 27 + 3) & ~3) + CB_AY * CB_AX + CB_HY * CB_HX +
+                       (size_t)C * CB_HY * CB_HX + (size_t)(PN + 2 * DP + 8 + CB_KC) * CB_LDM);
   const dim3 grid((W + CB_TX - 1) / CB_TX, (H + CB_TY - 1) / CB_TY, B);
-  const dim3 block(CB_TX, CB_TY);
+  const dim3 block(CB_THREADS);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     cudaFuncSetAttribute(cnca_bwd_mlp_kernel<true>,

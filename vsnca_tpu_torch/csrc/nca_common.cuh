@@ -139,6 +139,39 @@ __device__ __forceinline__ void stage_tile(float* tile, const T* xb, int C,
   }
 }
 
+// A 4-byte asynchronous copy from device to shared memory (cp.async): the
+// issuing thread does not wait for the value, so a block's staging loop puts
+// all its loads in flight at once. cp_async_wait_all waits for every copy
+// the thread issued; a __syncthreads after it publishes them to the block.
+__device__ __forceinline__ void cp_async4(float* dst, const float* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::);
+}
+
+// stage_tile for a float32 state by asynchronous copies (zeros outside the
+// grid are plain stores): the caller waits (cp_async_wait_all) and
+// synchronises before reading the tile.
+__device__ __forceinline__ void stage_tile_async(float* tile, const float* xb, int C,
+                                                 int H, int W, int y0, int x0,
+                                                 int pad_mode, int tid, int nthr) {
+  const int HW = H * W;
+  for (int i = tid; i < C * NCA_HALO * NCA_HALO; i += nthr) {
+    const int c = i / (NCA_HALO * NCA_HALO);
+    const int r = (i / NCA_HALO) % NCA_HALO, q = i % NCA_HALO;
+    const int gy = pad_index(y0 + r, H, pad_mode);
+    const int gx = pad_index(x0 + q, W, pad_mode);
+    if (gy < 0 || gx < 0)
+      tile[i] = 0.f;
+    else
+      cp_async4(tile + i, xb + (size_t)c * HW + gy * W + gx);
+  }
+}
+
 // perception_scales (0, 1), first part: the block's half-resolution
 // percept hp [4C][10][10] (blocks raw, sobel_x, sobel_y, laplacian; entry
 // (r, q) is half pixel (by*8 - 1 + r, bx*8 - 1 + q)) from a 12 x 12 tile

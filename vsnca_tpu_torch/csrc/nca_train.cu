@@ -48,24 +48,43 @@
 // What bounds it on an H100: per pixel and step nca_bwd_mlp does the
 // forward's first layer again (z1 = W1^T p, P*F FMAs; the second layer is
 // not recomputed) plus W2 gdx (F*C), W1 gz1 (P*F) and the weight-gradient
-// outer products (P*F + F*C): 2*(3*P*F + 2*F*C) FLOP, 33.4 kFLOP at
-// c12/fc96/pos_emb, against ~32 C*4 + cc*4 bytes of state, cond, gx and gp.
-// Arithmetic bounds it: float32 FMAs on the CUDA cores (67 TFLOP/s).
+// products summed over pixels (P*F + F*C): 2*(3*P*F + 2*F*C) FLOP, 33.4
+// kFLOP at c12/fc96/pos_emb, 55.8 k at c16/fc128/pos_emb, against ~32 C*4 +
+// cc*4 bytes of state, cond, gx and gp: arithmetic bounds it. The first
+// design ran all of it as float32 FMAs on the CUDA cores, and its
+// weight-gradient products at shared-memory speed (two loads an FMA).
 //
-// What the design does about it (simple first; the wgmma/TMA redesign is
-// ROADMAP B7): one thread per pixel in 16x16 blocks like nca_step. The
-// percept, gdx and, chunk by chunk of 16 hidden units, hid and gz1 live in
-// shared memory as per-pixel columns (stride 257 floats, so a warp reading
-// 32 different rows at one pixel hits 32 banks). Each thread keeps its gp
-// (up to 68 values) in registers. The weight gradients are then small
-// products over the block's 256 pixels in shared memory — 256 threads each
-// own a few (row, unit) outputs and walk the pixels — instead of a
-// 96 x 50 outer product per thread or atomics.
+// What the design does about it: everything after the relu gate runs on
+// the tensor cores as warp-level mma.sync (nca_mma.cuh; float32 compute in
+// split TF32, bf16 compute in bf16, float32 accumulators), and only the
+// recompute of z1 stays on the CUDA cores, in nca_step's order through the
+// shared device functions, so the gates are the forward's bits (P*F of the
+// 3*P*F + 2*F*C FMAs a pixel). A block is a 16 x 16 tile of 256 pixels and
+// 512 threads (16 warps: twice the first design's, as many as two 256-thread
+// blocks; its ~220 KB of shared memory at c16/fc128/cc2 allows one block an
+// SM). Two threads a pixel build the percept and the gdx columns in shared
+// memory (stride 260 floats, so every fragment read is free of bank
+// conflicts); the weights and the state tile arrive by cp.async. Then, a
+// chunk of 32 hidden units at a time: the block recomputes z1 and writes
+// hid, a thread 4 units x 4 pixels; each warp forms W2 gdx for its 16
+// pixels x 32 units (M = pixels, K = channels), gates it into gz1 in
+// registers and feeds those registers straight into gp += W1 gz1 (M =
+// pixels, K = units, N = percept rows; gp accumulates in registers over the
+// chunks); then the block's dW1^T = gz1^T [p | 1] and dW2^T = hid^T gdx
+// (depth = the 256 pixels) go to the warps as groups of 16 x 8 output tiles
+// that share their A rows, each group summed by two warps over half the
+// pixels and added once into the block's slot (db1 is the ones row of the
+// percept; db2 a warp reduction). No atomics: every block owns the same
+// pixels and slot every step and sums in a fixed order, so two launches
+// give the same bits. Measured on the H100 (PERF.md §6): 0.47 ms at 256^2
+// b3 c16/fc128 against 1.90 for the first design; a clock64 profile of a
+// block puts a quarter of its time in the z1 recompute, a third in the
+// weight-gradient products and a sixth each in W2 gdx + W1 gz1 and the
+// percept.
 // The multiscale adjoint adds per pixel and channel 4 x 22 x 10 / 256 U_W^T
 // gathers of 4 reads (from L1/L2) and the half-resolution stencils: bytes
 // and latency, not FLOPs; its 9.3 KB of static shared memory leaves room for
-// many blocks an SM. nca_bwd_mlp's MS form needs ~182 KB of shared memory
-// at c16/fc128/cc2 (one block an SM).
+// many blocks an SM.
 //
 // bf16 mode rounds where the TPU kernel casts to its compute dtype
 // (:1232-1238): the percept (with the conditioning rows), hid, gdx and gz1;
@@ -73,10 +92,15 @@
 // the adjoint stay float32.
 
 #include "nca_common.cuh"
+#include "nca_mma.cuh"
 
-#define NT_THREADS (NCA_TILE * NCA_TILE)
-#define NT_FC 16                // hidden units per chunk
-#define NT_LD (NT_THREADS + 1)  // stride of the per-pixel columns
+#define NT_THREADS (NCA_TILE * NCA_TILE)  // pixels of a block
+#define NB_THREADS (2 * NT_THREADS)       // nca_bwd_mlp: two threads a pixel
+#define NB_FC 32                          // hidden units a chunk
+#define NB_LDM (NT_THREADS + 4)           // stride of the per-pixel columns
+#define NB_LDW2 20                        // stride of W2's rows in shared memory
+#define NB_NTP ((4 * NCA_C_MAX + NCA_CC_MAX + 8) / 8)  // 8-wide tiles of [p | 1]
+#define NB_RED (8 * 3 * 4 * 32)  // floats of the weight-gradient exchange
 
 // The adjoint stencils: the flipped filters in the JAX term order
 // (_stencil_from over SOBEL_X_F, SOBEL_Y_F, LAPLACIAN_F).
@@ -116,20 +140,25 @@ __device__ __forceinline__ float stencil_adjoint(float raw, const float* tx,
       __fadd_rn(__fadd_rn(raw, sobel_x_adj<LD>(tx)), sobel_y_adj<LD>(ty)), lap);
 }
 
-// Shared memory, float32, in this order (the float4-read parts first, each
-// a multiple of 4 floats long):
-//   w1s [P, F4]   W1, input-major, rows in the percept's block order
-//   w2t [C, F4]   W2 transposed
-//   b1s [F4]
-//   ps  [P, LD]   percept, one column per pixel of the block
-//   gds [C, LD]   gdx
-//   hs  [FC, LD]  hid of the current chunk of hidden units
-//   gzs [FC, LD]  gz1 of the current chunk
+// Shared memory of nca_bwd_mlp, float32, in this order:
+//   w1s [PN, LDW]  W1, rows in the percept's block order, zero past P and F4
+//   w2s [FP, 20]   W2 (unit-major), zero past F4 and C
+//   b1s [FP]
+//   ps  [PN, LDM]  percept columns, one per pixel; row P all ones (db1 rides
+//                  in dW1's product), rows past it zero; gp at the end
+//   gds [16, LDM]  gdx columns, zero past C
+//   hs  [FC, LDM]  hid of the current chunk of hidden units (unrounded)
+//   gzs [FC, LDM]  gz1 of the current chunk
+//   red [8, 3, 4, 32]  the second pixel half's sums of the weight-gradient
+//                  tiles
 // The C x 18 x 18 state tile (and with MS the half-state tile and the half
-// percept, nca_common.cuh::half_percept) lives in hs/gzs and past them until
-// the percept is built.
+// percept, nca_common.cuh::half_percept) lives in hs/gzs until the percept
+// is built. PN = P + 1 rounded up to 8, FP = F4 rounded up to FC,
+// LDW = FP + 8 (= 8 mod 32: the paired float2 reads of W1 for gp are free of
+// bank conflicts), LDM = 260 (= 4 mod 32: every fragment read of a column
+// array, depth = pixels or channels, is free of bank conflicts).
 template <bool BF16, bool MS>
-__global__ void __launch_bounds__(NT_THREADS)
+__global__ void __launch_bounds__(NB_THREADS, 1)
 nca_bwd_mlp_kernel(const float* __restrict__ x, const float* __restrict__ cond,
                    const float* __restrict__ gx, float* __restrict__ gp,
                    float* __restrict__ dcond, float* __restrict__ slots,
@@ -138,60 +167,87 @@ nca_bwd_mlp_kernel(const float* __restrict__ x, const float* __restrict__ cond,
                    int F4, uint32_t seed, uint32_t step, uint32_t thr) {
   extern __shared__ __align__(16) float smem[];
   const int P = 4 * C + cc;
+  const int PN = (P + 8) & ~7, ntp = PN / 8;
+  const int FP = (F4 + NB_FC - 1) / NB_FC * NB_FC, LDW = FP + 8;
   float* w1s = smem;
-  float* w2t = w1s + P * F4;
-  float* b1s = w2t + C * F4;
-  float* ps = b1s + F4;
-  float* gds = ps + P * NT_LD;
-  float* hs = gds + C * NT_LD;
-  float* gzs = hs + NT_FC * NT_LD;
+  float* w2s = w1s + PN * LDW;
+  float* b1s = w2s + FP * NB_LDW2;
+  float* ps = b1s + FP;
+  float* gds = ps + PN * NB_LDM;
+  float* hs = gds + NCA_C_MAX * NB_LDM;
+  float* gzs = hs + NB_FC * NB_LDM;
+  float* red = gzs + NB_FC * NB_LDM;
   float* tile = hs;
   float* htile = tile + C * NCA_HALO * NCA_HALO;
   float* hp = htile + C * NCA_HHALO * NCA_HHALO;
 
-  const int tid = threadIdx.y * NCA_TILE + threadIdx.x;
+  const int tid = threadIdx.x;
+  const int pix = tid & (NT_THREADS - 1), half = tid >> 8;
+  const int tx = pix & (NCA_TILE - 1), ty = pix >> 4;
+  const int warp = tid >> 5, lane = tid & 31, g = lane >> 2, t = lane & 3;
   const int b = blockIdx.z;
   const int HW = H * W;
 
-  for (int i = tid; i < P * F4; i += NT_THREADS) w1s[i] = w1[i];
-  for (int i = tid; i < C * F4; i += NT_THREADS) {
-    const int c = i / F4, f = i % F4;
-    w2t[i] = w2[f * C + c];
+  // The weights by cp.async (W1's rows 16 bytes at a time: F4 and LDW are
+  // multiples of 4; W2 and b1 4 bytes at a time), the zero padding by plain
+  // stores; all distinct addresses. Waited for with the state tile's copies.
+  const int q4 = F4 / 4;
+  for (int i = tid; i < P * q4; i += NB_THREADS) {
+    const int r = i / q4, q = i - r * q4;
+    const unsigned dst =
+        (unsigned)__cvta_generic_to_shared(w1s + r * LDW + 4 * q);
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(dst),
+                 "l"(w1 + (size_t)r * F4 + 4 * q));
   }
-  for (int i = tid; i < F4; i += NT_THREADS) b1s[i] = b1[i];
+  for (int i = tid; i < PN * LDW; i += NB_THREADS) {
+    const int r = i / LDW, f = i - r * LDW;
+    if (r >= P || f >= F4) w1s[i] = 0.f;
+  }
+  for (int i = tid; i < FP * NB_LDW2; i += NB_THREADS) {
+    const int f = i / NB_LDW2, c = i - f * NB_LDW2;
+    if (f < F4 && c < C)
+      cp_async4(w2s + i, w2 + f * C + c);
+    else
+      w2s[i] = 0.f;
+  }
+  for (int i = tid; i < FP; i += NB_THREADS) {
+    if (i < F4)
+      cp_async4(b1s + i, b1 + i);
+    else
+      b1s[i] = 0.f;
+  }
 
   // The forward's percept, through the forward's own device functions
   // (circular padding), so z1 and the relu gates agree bit for bit.
   const float* xb = x + (size_t)b * C * HW;
-  stage_tile(tile, xb, C, H, W, blockIdx.y * NCA_TILE - 1,
-             blockIdx.x * NCA_TILE - 1, 0, tid, NT_THREADS);
-  if (MS) {
+  stage_tile_async(tile, xb, C, H, W, blockIdx.y * NCA_TILE - 1,
+                   blockIdx.x * NCA_TILE - 1, 0, tid, NB_THREADS);
+  if (MS)  // its loads overlap the tile's copies
     half_percept(htile, hp, xb, C, H, W, blockIdx.y, blockIdx.x, 0, tid,
-                 NT_THREADS);
-  } else {
-    __syncthreads();
-  }
+                 NB_THREADS);
+  cp_async_wait_all();
+  __syncthreads();  // the weights, the state tile and the half percept
 
-  const int px = blockIdx.x * NCA_TILE + threadIdx.x;
-  const int py = blockIdx.y * NCA_TILE + threadIdx.y;
+  const int px = blockIdx.x * NCA_TILE + tx;
+  const int py = blockIdx.y * NCA_TILE + ty;
   const bool valid = px < W && py < H;
-  const int pix = valid ? py * W + px : 0;
+  const int gpix = valid ? py * W + px : 0;
   int fi = 0, fin = 0, fj = 0, fjn = 0;
   if (MS && valid) {
-    upsample_taps(blockIdx.y, threadIdx.y, H, fi, fin);
-    upsample_taps(blockIdx.x, threadIdx.x, W, fj, fjn);
+    upsample_taps(blockIdx.y, ty, H, fi, fin);
+    upsample_taps(blockIdx.x, tx, W, fj, fjn);
   }
   const int nf = NCA_HFOOT * NCA_HFOOT;
 
-  // Percept and gdx columns. A thread past the grid's edge writes zeros,
-  // which add nothing to any gradient (its gdx is 0, so is its gz1).
-  for (int c = 0; c < C; ++c) {
+  // Percept and gdx columns, the two threads of a pixel taking alternate
+  // channels. A pixel past the grid's edge gets zeros, which add nothing to
+  // any gradient (its gdx is 0, so is its gz1).
+  for (int c = half; c < C; c += 2) {
     float v = 0.f, sx = 0.f, sy = 0.f, lap = 0.f;
     if (valid) {
-      const float* t =
-          tile + (c * NCA_HALO + threadIdx.y) * NCA_HALO + threadIdx.x;
-      stencils(t, sx, sy, lap);
-      v = t[NCA_HALO + 1];
+      const float* tp = tile + (c * NCA_HALO + ty) * NCA_HALO + tx;
+      stencils(tp, sx, sy, lap);
+      v = tp[NCA_HALO + 1];
       if (MS) {
         v = ms_average(hp + (0 * C + c) * nf, fi, fin, fj, fjn, v);
         sx = ms_average(hp + (1 * C + c) * nf, fi, fin, fj, fjn, sx);
@@ -205,29 +261,39 @@ nca_bwd_mlp_kernel(const float* __restrict__ x, const float* __restrict__ cond,
       sy = bf16_round(sy);
       lap = bf16_round(lap);
     }
-    ps[c * NT_LD + tid] = v;
-    ps[(C + c) * NT_LD + tid] = sx;
-    ps[(2 * C + c) * NT_LD + tid] = sy;
-    ps[(3 * C + c) * NT_LD + tid] = lap;
+    ps[c * NB_LDM + pix] = v;
+    ps[(C + c) * NB_LDM + pix] = sx;
+    ps[(2 * C + c) * NB_LDM + pix] = sy;
+    ps[(3 * C + c) * NB_LDM + pix] = lap;
   }
-  for (int j = 0; j < cc; ++j) {
-    float v = valid ? cond[((size_t)b * cc + j) * HW + pix] : 0.f;
-    ps[(4 * C + j) * NT_LD + tid] = BF16 ? bf16_round(v) : v;
+  for (int j = half; j < cc; j += 2) {
+    const float v = valid ? cond[((size_t)b * cc + j) * HW + gpix] : 0.f;
+    ps[(4 * C + j) * NB_LDM + pix] = BF16 ? bf16_round(v) : v;
   }
+  for (int r = P + half; r < PN; r += 2)
+    ps[r * NB_LDM + pix] = (r == P && valid) ? 1.f : 0.f;
   const bool on =
-      valid && (mask_bits(seed, (uint32_t)b, step, (uint32_t)pix) >> 8) >= thr;
-  for (int c = 0; c < C; ++c) {
-    const float g = on ? gx[((size_t)b * C + c) * HW + pix] : 0.f;
-    gds[c * NT_LD + tid] = BF16 ? bf16_round(g) : g;
+      valid && (mask_bits(seed, (uint32_t)b, step, (uint32_t)gpix) >> 8) >= thr;
+  for (int c = half; c < NCA_C_MAX; c += 2) {
+    const float gv = (on && c < C) ? gx[((size_t)b * C + c) * HW + gpix] : 0.f;
+    gds[c * NB_LDM + pix] = BF16 ? bf16_round(gv) : gv;
   }
   __syncthreads();  // the state tile is dead: hs/gzs take its memory
 
-  float gpa[4][NCA_C_MAX], gpc[NCA_CC_MAX];
+  // This warp's 16 pixels (tile row `warp`) as the A operand of W2 gdx,
+  // the channels in the strided map.
+  const int row0 = NCA_TILE * warp;
+  float ga[8];
 #pragma unroll
-  for (int c = 0; c < NCA_C_MAX; ++c)
-    gpa[0][c] = gpa[1][c] = gpa[2][c] = gpa[3][c] = 0.f;
+  for (int q = 0; q < 4; ++q) {
+    ga[2 * q] = gds[(t + 4 * q) * NB_LDM + row0 + g];
+    ga[2 * q + 1] = gds[(t + 4 * q) * NB_LDM + row0 + g + 8];
+  }
+  FragA<BF16> gfa;
+  gfa.strided(ga);
+  float gpa[NB_NTP][4];
 #pragma unroll
-  for (int j = 0; j < NCA_CC_MAX; ++j) gpc[j] = 0.f;
+  for (int n = 0; n < NB_NTP; ++n) gpa[n][0] = gpa[n][1] = gpa[n][2] = gpa[n][3] = 0.f;
 
   const size_t slot_floats = (size_t)P * F4 + F4 + (size_t)F4 * C + C;
   const int blk = (blockIdx.z * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
@@ -236,140 +302,163 @@ nca_bwd_mlp_kernel(const float* __restrict__ x, const float* __restrict__ cond,
   float* sdw2 = sdb1 + F4;                  // [F4, C]
   float* sdb2 = sdw2 + F4 * C;              // [C]
 
-  for (int f0 = 0; f0 < F4; f0 += NT_FC) {
-    // This pixel's z1 and W2 gdx for hidden units f0 .. f0 + 15.
-    float z[NT_FC], g2[NT_FC];
+  for (int f0 = 0; f0 < FP; f0 += NB_FC) {
+    // z1 = W1^T p + b1 on the CUDA cores in nca_step's order (k = 0 .. P-1,
+    // then the bias), so the relu gates are the forward's; hid to hs,
+    // unrounded (bf16 rounds it as an operand). A thread takes 4 units of
+    // the chunk for 4 pixels, 64 apart: a broadcast float4 of W1 (512 bytes
+    // through the shared memory's 128 a clock) and four percept reads feed
+    // 16 FMAs.
+    {
+      const int p0 = tid & 63, ul = 4 * (tid >> 6), u0 = f0 + ul;
+      float z[4][4];
 #pragma unroll
-    for (int i = 0; i < NT_FC; ++i) z[i] = g2[i] = 0.f;
-    for (int k = 0; k < P; ++k) {
-      const float pk = ps[k * NT_LD + tid];
-      const float* wr = w1s + k * F4 + f0;
+      for (int i = 0; i < 4; ++i) z[i][0] = z[i][1] = z[i][2] = z[i][3] = 0.f;
+      for (int k = 0; k < P; ++k) {
+        const float4 w = *reinterpret_cast<const float4*>(w1s + k * LDW + u0);
 #pragma unroll
-      for (int q = 0; q < NT_FC / 4; ++q) {
-        if (f0 + 4 * q < F4) {
-          const float4 w = *reinterpret_cast<const float4*>(wr + 4 * q);
-          z[4 * q + 0] = fmaf(w.x, pk, z[4 * q + 0]);
-          z[4 * q + 1] = fmaf(w.y, pk, z[4 * q + 1]);
-          z[4 * q + 2] = fmaf(w.z, pk, z[4 * q + 2]);
-          z[4 * q + 3] = fmaf(w.w, pk, z[4 * q + 3]);
+        for (int i = 0; i < 4; ++i) {
+          const float v = ps[k * NB_LDM + p0 + 64 * i];
+          z[i][0] = fmaf(w.x, v, z[i][0]);
+          z[i][1] = fmaf(w.y, v, z[i][1]);
+          z[i][2] = fmaf(w.z, v, z[i][2]);
+          z[i][3] = fmaf(w.w, v, z[i][3]);
         }
       }
-    }
-    for (int c = 0; c < C; ++c) {
-      const float gd = gds[c * NT_LD + tid];
-      const float* wr = w2t + c * F4 + f0;
 #pragma unroll
-      for (int q = 0; q < NT_FC / 4; ++q) {
-        if (f0 + 4 * q < F4) {
-          const float4 w = *reinterpret_cast<const float4*>(wr + 4 * q);
-          g2[4 * q + 0] = fmaf(w.x, gd, g2[4 * q + 0]);
-          g2[4 * q + 1] = fmaf(w.y, gd, g2[4 * q + 1]);
-          g2[4 * q + 2] = fmaf(w.z, gd, g2[4 * q + 2]);
-          g2[4 * q + 3] = fmaf(w.w, gd, g2[4 * q + 3]);
-        }
+      for (int i = 0; i < 4; ++i) {
+#pragma unroll
+        for (int j = 0; j < 4; ++j)
+          hs[(ul + j) * NB_LDM + p0 + 64 * i] = fmaxf(z[i][j] + b1s[u0 + j], 0.f);
       }
     }
-#pragma unroll
-    for (int i = 0; i < NT_FC; ++i) {
-      float hid = 0.f, gz = 0.f;
-      if (f0 + i < F4) {
-        const float zz = z[i] + b1s[f0 + i];
-        hid = fmaxf(zz, 0.f);
-        gz = zz > 0.f ? g2[i] : 0.f;
-        if (BF16) {
-          hid = bf16_round(hid);
-          gz = bf16_round(gz);
-        }
-      }
-      hs[i * NT_LD + tid] = hid;
-      gzs[i * NT_LD + tid] = gz;
-    }
+    __syncthreads();  // hid of the chunk
 
-    // gp += W1 gz1 over this chunk (gz1 read back from this thread's own
-    // column, four units at a time).
-    for (int q = 0; q < NT_FC && f0 + q < F4; q += 4) {
-      const float g0 = gzs[q * NT_LD + tid], g1 = gzs[(q + 1) * NT_LD + tid];
-      const float g2v = gzs[(q + 2) * NT_LD + tid];
-      const float g3 = gzs[(q + 3) * NT_LD + tid];
+    // g2 = W2 gdx on this warp's 16 pixels x 32 units (tensor cores), gated
+    // by z1 > 0 (hid > 0) into gz1, which goes to gzs and, from registers,
+    // into gp += W1 gz1.
+    float gz[NB_FC / 8][4];
 #pragma unroll
-      for (int k = 0; k < 4; ++k) {
+    for (int j = 0; j < NB_FC / 8; ++j) {
+      gz[j][0] = gz[j][1] = gz[j][2] = gz[j][3] = 0.f;
+      float bw[4];
 #pragma unroll
-        for (int c = 0; c < NCA_C_MAX; ++c) {
-          if (c < C) {
-            const float4 w = *reinterpret_cast<const float4*>(
-                w1s + (k * C + c) * F4 + f0 + q);
-            float a = gpa[k][c];
-            a = fmaf(w.x, g0, a);
-            a = fmaf(w.y, g1, a);
-            a = fmaf(w.z, g2v, a);
-            gpa[k][c] = fmaf(w.w, g3, a);
+      for (int q = 0; q < 4; ++q) bw[q] = w2s[(f0 + 8 * j + g) * NB_LDW2 + t + 4 * q];
+      mma_frag<BF16>(gz[j], gfa, bw);
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int o = (8 * j + 2 * t + (e & 1)) * NB_LDM + row0 + g + 8 * (e >> 1);
+        float v = hs[o] > 0.f ? gz[j][e] : 0.f;
+        if (BF16) v = bf16_round(v);
+        gz[j][e] = v;
+        gzs[o] = v;
+      }
+    }
+#pragma unroll
+    for (int jj = 0; jj < NB_FC / 16; ++jj) {
+      const int u = f0 + 16 * jj + 2 * t;
+      FragA<BF16> fz;
+      fz.paired(gz[2 * jj], gz[2 * jj + 1]);
+#pragma unroll
+      for (int n = 0; n < NB_NTP; ++n) {
+        if (n < ntp) {
+          const float* wr = w1s + (8 * n + g) * LDW + u;
+          const float2 lo = *reinterpret_cast<const float2*>(wr);
+          const float2 hi = *reinterpret_cast<const float2*>(wr + 8);
+          const float bw[4] = {lo.x, lo.y, hi.x, hi.y};
+          mma_frag<BF16>(gpa[n], fz, bw);
+        }
+      }
+    }
+    __syncthreads();  // gz1 of the chunk; W2 gdx and W1 gz1 done
+
+    // The block's sums over its 256 pixels (tensor cores, depth = pixels in
+    // the strided map): dW1^T [units x (P | ones)] = gz1^T [p | 1] (db1 in
+    // column P) and dW2^T [units x C] = hid^T gdx, in 16 x 8 output tiles.
+    // Eight groups of up to three tiles that share their A rows (dW1: units
+    // mt x percept tiles 3 ng .. 3 ng + 2; dW2: units mt x both channel
+    // tiles), each summed by two warps over one half of the pixels; the
+    // second half's sums reach the first through red, which adds them and
+    // adds the tile once into the block's slot.
+    {
+      const int gi = warp >> 1, kh = warp & 1;
+      const bool is_w1 = gi < 6;
+      const int mt = is_w1 ? gi / 3 : gi - 6;
+      const int nt0 = is_w1 ? 3 * (gi % 3) : 0;
+      const int n = is_w1 ? min(3, ntp - nt0) : 2;
+      // the slot entry of output (j, e) of this group, or null
+      auto slot_at = [&](int j, int e) -> float* {
+        const int f = f0 + 16 * mt + g + 8 * (e >> 1);
+        const int nn = 8 * (nt0 + j) + 2 * t + (e & 1);
+        if (j >= n || f >= F4) return nullptr;
+        if (is_w1) return nn < P ? sdw1 + nn * F4 + f : nn == P ? sdb1 + f : nullptr;
+        return nn < C ? sdw2 + f * C + nn : nullptr;
+      };
+      // the first half's warps read their slot entries before the products,
+      // so that the reads' latency hides behind them
+      float old[3][4] = {};
+      if (kh == 0) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const float* p = slot_at(j, e);
+            if (p != nullptr) old[j][e] = *p;
           }
         }
       }
+      float acc[3][4] = {};
+      if (n > 0)
+        mma_rows<BF16, 3, NT_THREADS / 2>(acc, (is_w1 ? gzs : hs) + 16 * mt * NB_LDM,
+                                          (is_w1 ? ps : gds) + 8 * nt0 * NB_LDM, n,
+                                          NB_LDM, kh * (NT_THREADS / 2), g, t);
+      float* rw = red + gi * (3 * 4 * 32) + lane;
+      if (kh == 1) {
 #pragma unroll
-      for (int j = 0; j < NCA_CC_MAX; ++j) {
-        if (j < cc) {
-          const float4 w = *reinterpret_cast<const float4*>(
-              w1s + (4 * C + j) * F4 + f0 + q);
-          float a = gpc[j];
-          a = fmaf(w.x, g0, a);
-          a = fmaf(w.y, g1, a);
-          a = fmaf(w.z, g2v, a);
-          gpc[j] = fmaf(w.w, g3, a);
+        for (int j = 0; j < 3; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) rw[(4 * j + e) * 32] = acc[j][e];
         }
       }
-    }
-    __syncthreads();
-
-    // The block's sums over its 256 pixels for this chunk: dW1 [P, nf],
-    // db1 [nf], dW2 [nf, C], each output walked by one thread in pixel
-    // order, added into the block's slot.
-    const int nf = min(NT_FC, F4 - f0);
-    const int n1 = P * nf, n2 = nf * C;
-    for (int o = tid; o < n1 + nf + n2; o += NT_THREADS) {
-      float s = 0.f;
-      if (o < n1) {
-        const int k = o / nf, i = o % nf;
-        const float* a = ps + k * NT_LD;
-        const float* g = gzs + i * NT_LD;
-#pragma unroll 8
-        for (int t = 0; t < NT_THREADS; ++t) s = fmaf(a[t], g[t], s);
-        sdw1[k * F4 + f0 + i] += s;
-      } else if (o < n1 + nf) {
-        const float* g = gzs + (o - n1) * NT_LD;
-#pragma unroll 8
-        for (int t = 0; t < NT_THREADS; ++t) s += g[t];
-        sdb1[f0 + o - n1] += s;
-      } else {
-        const int r = o - n1 - nf;
-        const int i = r / C, c = r % C;
-        const float* hh = hs + i * NT_LD;
-        const float* gd = gds + c * NT_LD;
-#pragma unroll 8
-        for (int t = 0; t < NT_THREADS; ++t) s = fmaf(gd[t], hh[t], s);
-        sdw2[(f0 + i) * C + c] += s;
+      __syncthreads();  // the second pixel half's sums are in red
+      if (kh == 0) {
+#pragma unroll
+        for (int j = 0; j < 3; ++j) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            float* p = slot_at(j, e);
+            if (p != nullptr) *p = old[j][e] + (acc[j][e] + rw[(4 * j + e) * 32]);
+          }
+        }
       }
     }
     __syncthreads();  // the next chunk rewrites hs/gzs
   }
 
-  for (int c = tid; c < C; c += NT_THREADS) {
+  // db2: one warp a channel, lanes over pixels in a fixed order.
+  if (warp < C) {
     float s = 0.f;
-    for (int t = 0; t < NT_THREADS; ++t) s += gds[c * NT_LD + t];
-    sdb2[c] += s;
+    for (int i = lane; i < NT_THREADS; i += 32) s += gds[warp * NB_LDM + i];
+#pragma unroll
+    for (int m = 16; m > 0; m >>= 1) s += __shfl_xor_sync(0xffffffffu, s, m);
+    if (lane == 0) sdb2[warp] += s;
   }
+  // gp through ps (every read of the percept is done), then out by pixel.
+#pragma unroll
+  for (int n = 0; n < NB_NTP; ++n) {
+    if (n < ntp) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        ps[(8 * n + 2 * t + (e & 1)) * NB_LDM + row0 + g + 8 * (e >> 1)] = gpa[n][e];
+    }
+  }
+  __syncthreads();  // gp staged in ps
   if (!valid) return;
-  float* gpb = gp + (size_t)b * 4 * C * HW + pix;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-#pragma unroll
-    for (int c = 0; c < NCA_C_MAX; ++c)
-      if (c < C) gpb[(size_t)(k * C + c) * HW] = gpa[k][c];
-  }
+  float* gpb = gp + (size_t)b * 4 * C * HW + gpix;
+  for (int k = half; k < 4 * C; k += 2) gpb[(size_t)k * HW] = ps[k * NB_LDM + pix];
   if (dcond != nullptr) {
-#pragma unroll
-    for (int j = 0; j < NCA_CC_MAX; ++j)
-      if (j < cc) dcond[((size_t)b * cc + j) * HW + pix] += gpc[j];
+    for (int j = half; j < cc; j += 2)
+      dcond[((size_t)b * cc + j) * HW + gpix] += ps[(4 * C + j) * NB_LDM + pix];
   }
 }
 
@@ -550,21 +639,20 @@ int nca_bwd_mlp_launch(const float* x, const float* cond, const float* gx,
                        unsigned int seed, unsigned int step, unsigned int thr,
                        void* stream) {
   if (C < 1 || C > NCA_C_MAX || cc < 0 || cc > NCA_CC_MAX || F4 < 4 ||
-      F4 > NCA_F_MAX || F4 % 4 != 0 || (ms && (H % 2 || W % 2)))
+      F4 > NCA_F_MAX || F4 % 4 != 0 || (ms && (H % 2 || W % 2)) ||
+      reinterpret_cast<uintptr_t>(w1) % 16 != 0)  // W1 rows go by cp.async
     return (int)cudaErrorInvalidValue;
   const int P = 4 * C + cc;
-  // hs/gzs hold the state tile (and with ms the half tile and percept)
-  // until the percept columns are built
-  size_t scratch = (size_t)C * NCA_HALO * NCA_HALO;
-  if (ms)
-    scratch += (size_t)C * (NCA_HHALO * NCA_HHALO + 4 * NCA_HFOOT * NCA_HFOOT);
-  if (scratch < (size_t)2 * NT_FC * NT_LD) scratch = (size_t)2 * NT_FC * NT_LD;
+  const int PN = (P + 8) & ~7, FP = (F4 + NB_FC - 1) / NB_FC * NB_FC;
+  // hs/gzs (2 * NB_FC columns) hold the state tile, and with ms the half
+  // tile and percept, until the percept columns are built:
+  // C * (18^2 + 12^2 + 4 * 10^2) <= 13888 floats fit in them
   const size_t smem =
-      sizeof(float) * ((size_t)P * F4 + (size_t)C * F4 + F4 +
-                       (size_t)(P + C) * NT_LD + scratch);
+      sizeof(float) * ((size_t)PN * (FP + 8) + (size_t)FP * NB_LDW2 + FP +
+                       (size_t)(PN + NCA_C_MAX + 2 * NB_FC) * NB_LDM + NB_RED);
   const dim3 grid((W + NCA_TILE - 1) / NCA_TILE, (H + NCA_TILE - 1) / NCA_TILE,
                   B);
-  const dim3 block(NCA_TILE, NCA_TILE);
+  const dim3 block(NB_THREADS);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16 && ms)
     launch_mlp<true, true>(grid, block, smem, s, x, cond, gx, gp, dcond, slots,

@@ -37,10 +37,10 @@ def _motion_gram(f: torch.Tensor) -> torch.Tensor:
 
 def precompute_target_motion_features(msoe_params, target_video: torch.Tensor,
                                       motion_img_size=(128, 128),
-                                      budget_bytes: int = 4 * 2**30):
+                                      hbm_budget_bytes: int = 4 * 2**30):
     """The MSOE features of every consecutive pair of a target video
     [T, 3, H, W] in [-1, 1], once: [T - 1, 320, h, w], no gradient. None
-    when they would take more than ``budget_bytes`` of device memory (the
+    when they would take more than ``hbm_budget_bytes`` of device memory (the
     size of a pair measured from the first one); callers then pass the
     window's frames instead."""
     n_pairs = int(target_video.shape[0]) - 1
@@ -50,7 +50,7 @@ def precompute_target_motion_features(msoe_params, target_video: torch.Tensor,
     with torch.no_grad():
         first, _ = motion_feature(msoe_params, target_video[0:1], target_video[1:2],
                                   motion_img_size)
-        if n_pairs * first[0].numel() * first.element_size() > budget_bytes:
+        if n_pairs * first[0].numel() * first.element_size() > hbm_budget_bytes:
             return None
         feats = [first[0]]
         for t in range(1, n_pairs):

@@ -14,9 +14,11 @@ the distribution of the JAX fallback (``vgg16_random_init``, PRNGKey(16)),
 not its numbers. ``convert.vgg_from_jax`` carries the JAX arrays across
 where the two packages must see the same weights.
 
-Max-pool ties: the JAX package's custom VJP splits the gradient evenly over
-tied maxima (``ops/conv.py:205``); ``F.max_pool2d`` sends it to one of them.
-After a ReLU, ties are almost always zeros whose cotangent is zero anyway.
+Max-pool ties: the 2x2/2 pools go through ``ops.conv.max_pool_2d``, whose
+equality-mask VJP splits a tie's gradient evenly over the tied maxima, as
+the JAX package's custom VJP does (``ops/conv.py:193-234``). Ties are real
+here: a flat image region, or the dead cells of a ConditionedNCA, gives
+equal activations in a window.
 """
 
 from __future__ import annotations
@@ -30,6 +32,7 @@ import torch
 import torch.nn.functional as F
 
 from vsnca_tpu_torch.device import resolve_device
+from vsnca_tpu_torch.ops.conv import max_pool_2d
 
 # (out_channels, pool_after) per conv, torchvision vgg16 "D" configuration.
 VGG16_CONVS: Tuple[Tuple[int, bool], ...] = (
@@ -123,7 +126,7 @@ def vgg16_features(
         stages = [lambda x: F.conv2d(x, params[conv_i]["w"], params[conv_i]["b"],
                                      padding=1), torch.relu]
         if pool_after:
-            stages.append(lambda x: F.max_pool2d(x, 2, 2))
+            stages.append(lambda x: max_pool_2d(x, 2, 2))
         for stage in stages:
             x = stage(x)
             if idx in layers:

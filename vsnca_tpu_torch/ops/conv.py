@@ -4,7 +4,8 @@ initializer, the depthwise 3x3 perception and the alive pool.
 
 Weights are OIHW (torch's layout); the JAX package keeps HWIO, and
 ``convert.cnca_params_from_jax`` transposes. ``max_pool_2d(a, 3, 1, 1)``
-of the JAX package pads with -inf, which is ``F.max_pool2d``'s padding.
+of the JAX package pads with -inf, which is ``F.max_pool2d``'s padding;
+``max_pool_2d`` keeps the JAX package's tie-splitting gradients.
 """
 
 from __future__ import annotations
@@ -130,12 +131,43 @@ class _MaxPoolEq(torch.autograd.Function):
         return _eq_bwd_1d(x, y1, g1, ctx.window, ctx.padding, -1), None, None
 
 
+class _MaxPoolNonOverlapEq(torch.autograd.Function):
+    """Non-overlapping max pool (stride == window, no padding, VALID: the
+    tail rows and columns past the last whole window are dropped) with the
+    equality-mask VJP of ``_max_pool_2d_nonoverlap_eq`` (conv.py:193): each
+    input lies in one window, so gx = eq * up(g / ties) with eq = (x ==
+    up(y)), ties the window sum of eq and up the nearest ×window upsample
+    (here a broadcast over each window's rows and columns); the tail rows
+    and columns get zero."""
+
+    @staticmethod
+    def forward(ctx, x, window: int):
+        y = F.max_pool2d(x, window, window)
+        ctx.save_for_backward(x, y)
+        ctx.window = window
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        x, y = ctx.saved_tensors
+        w = ctx.window
+        b, c, h, wd = y.shape
+        win = x[..., : h * w, : wd * w].reshape(b, c, h, w, wd, w)
+        eq = (win == y[:, :, :, None, :, None]).to(x.dtype)
+        ties = eq.sum(dim=(3, 5), keepdim=True)  # exact: at most w*w ones
+        gx = (eq * (g[:, :, :, None, :, None] / ties)).reshape(b, c, h * w, wd * w)
+        return F.pad(gx, (0, x.shape[-1] - wd * w, 0, x.shape[-2] - h * w)), None
+
+
 def max_pool_2d(x: torch.Tensor, window: int, stride: int = 1, padding: int = 0) -> torch.Tensor:
     """Max pool on NCHW with -inf padding (``vsnca_tpu/ops/conv.py::max_pool_2d``
-    :237). A stride-1 float pool splits a tie's gradient evenly over the
-    tied elements, as the JAX package's custom VJP does (``F.max_pool2d``
-    sends it to one of them; MSOE's square-then-pool makes real ties);
-    other strides are ``F.max_pool2d``."""
+    :237). A float pool of stride 1, or of stride == window without padding
+    (VGG's 2x2/2), splits a tie's gradient evenly over the tied elements, as
+    the JAX package's custom VJPs do (``F.max_pool2d`` sends it to one of
+    them; MSOE's square-then-pool and VGG on flat images make real ties);
+    other pools are ``F.max_pool2d``."""
     if stride == 1 and window > 1 and x.is_floating_point():
         return _MaxPoolEq.apply(x, window, padding)
+    if stride == window and padding == 0 and window > 1 and x.is_floating_point():
+        return _MaxPoolNonOverlapEq.apply(x, window)
     return F.max_pool2d(x, window, stride, padding)

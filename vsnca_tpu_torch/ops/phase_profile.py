@@ -1,0 +1,161 @@
+"""Where the time goes inside the training backward kernels: a per-phase
+clock profile of ``nca_bwd_mlp(_ms)`` and ``cnca_bwd_mlp`` on the card.
+
+``python3 -m vsnca_tpu_torch.ops.phase_profile`` (a CUDA card and ``nvcc``
+needed) writes instrumented copies of ``csrc/nca_train.cu`` and
+``csrc/nca_cnca.cu`` into ``build/kernels/profile/``: after every
+``__syncthreads()`` of the two ``*_bwd_mlp_kernel`` bodies, thread 0 of each
+block adds the ``clock64()`` cycles since the previous sample into a device
+counter for that phase. It builds them, launches each kernel at the shapes
+of PERF.md's kernel table through the port's own wrappers (the instrumented
+library stands in for the built one), and prints each phase's mean cycles a
+block and its share. Each phase ends at a barrier, so its cycles include the
+wait for the block's slowest warp. The kernels' results are not checked
+here: ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold the
+uninstrumented kernels to their plain versions.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import re
+import shutil
+import subprocess
+from typing import Dict, List
+
+import torch
+
+from vsnca_tpu_torch.ops import _build
+
+OUT = _build.BUILD_DIR / "profile"
+KERNELS = {"nca_train": "nca_bwd_mlp_kernel(", "nca_cnca": "cnca_bwd_mlp_kernel("}
+MAX_PHASES = 32
+
+_COUNTERS = f"""
+__device__ unsigned long long phase_clk[{MAX_PHASES}];
+#define PHASE(i) do {{ if (threadIdx.x == 0) {{ const long long now = clock64(); \\
+  atomicAdd(&phase_clk[i], (unsigned long long)(now - t_phase)); t_phase = now; }} }} while (0)
+"""
+_READER = f"""
+extern "C" int read_phase_clocks(unsigned long long* out) {{
+  cudaMemcpyFromSymbol(out, phase_clk, sizeof(phase_clk));
+  unsigned long long zero[{MAX_PHASES}] = {{0}};
+  return (int)cudaMemcpyToSymbol(phase_clk, zero, sizeof(zero));
+}}
+"""
+
+
+def instrument(name: str) -> List[str]:
+    """Write the instrumented copy of ``csrc/<name>.cu`` (and the headers)
+    into OUT; returns each phase's label, the comment on its barrier."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    for header in _build.CSRC.glob("*.cuh"):
+        shutil.copy(header, OUT / header.name)
+    src = (_build.CSRC / f"{name}.cu").read_text()
+    start = src.index(KERNELS[name])
+    start = src.index("extern __shared__", start)
+    end = src.index("\n}\n", start)
+    labels, lines = [], []
+    for line in src[start:end].split("\n"):
+        lines.append(line)
+        if "__syncthreads();" in line:
+            lines.append(f"  PHASE({len(labels)});")
+            labels.append(line.split("//", 1)[1].strip() if "//" in line else "")
+    body = "\n".join(lines).replace(
+        "float smem[];", "float smem[];\n  long long t_phase = clock64();", 1)
+    out = src[:start] + body + src[end:]
+    out = re.sub(r'(#include "nca_mma.cuh"\n)', lambda m: m.group(1) + _COUNTERS, out, count=1)
+    (OUT / f"{name}.cu").write_text(out + _READER)
+    return labels
+
+
+def build() -> Dict[str, List[str]]:
+    """Instrument and compile both sources (one nvcc each, together) and put
+    the libraries in place of the built ones for this process."""
+    labels, procs = {}, {}
+    for name in KERNELS:
+        labels[name] = instrument(name)
+        so = OUT / f"lib{name}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(OUT / f"{name}.cu")]
+        proc = subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
+        procs[name] = (proc, so)
+    for name, (proc, so) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the instrumented {name}.cu:\n{out.decode()}")
+        with _build._LOCK:
+            _build._LIBS[name] = ctypes.CDLL(str(so))
+    return labels
+
+
+def _report(lib, labels: List[str], n_blocks: int, reps: int, title: str) -> None:
+    buf = (ctypes.c_ulonglong * MAX_PHASES)()
+    lib.read_phase_clocks(buf)
+    total = sum(buf[i] for i in range(len(labels))) or 1
+    print(f"{title}: mean clocks a block by phase (the barrier that ends it)")
+    for i, label in enumerate(labels):
+        print(f"  {i}: {buf[i] / (n_blocks * reps):9.0f} ({100 * buf[i] / total:4.1f}%)  "
+              f"{label or '__syncthreads()'}")
+
+
+def main(reps: int = 10) -> None:
+    from vsnca_tpu_torch.config import ConditionedNCAConfig, NCAConfig
+    from vsnca_tpu_torch.models import conditioned_nca as cn
+    from vsnca_tpu_torch.models.dynca import dynca_init
+    from vsnca_tpu_torch.ops import fused_cnca as fc
+    from vsnca_tpu_torch.ops import fused_step as fs
+    from vsnca_tpu_torch.ops import fused_train as ft
+
+    if not torch.cuda.is_available():
+        raise SystemExit("phase_profile needs a CUDA device")
+    labels = build()
+    print(torch.cuda.get_device_name(0))
+    thr = fs.uniform_threshold(0.5)
+    lib = _build._LIBS["nca_train"]
+    for c, f, ms, b, n, cdt in ((12, 96, False, 4, 128, "float32"),
+                                (16, 128, True, 3, 256, "float32"),
+                                (16, 128, True, 1, 256, "bfloat16")):
+        cfg = NCAConfig(c_in=c, fc_dim=f, padding_mode="circular", conditioning="pos_emb",
+                        perception_scales=(0, 1) if ms else (0,))
+        params = dynca_init(torch.Generator().manual_seed(0), cfg, device="cuda")
+        g = torch.Generator().manual_seed(3)
+        x = (torch.rand((b, c, n, n), generator=g) - 0.5).cuda()
+        gx = torch.randn((b, c, n, n), generator=g).cuda()
+        cond = (torch.rand((b, 2, n, n), generator=g) - 0.5).cuda()
+        packed = fs.pack_weights(params, c, 2, cdt)
+        gp = torch.empty((b, 4 * c, n, n), device="cuda")
+        slots = ft._zero_slots(b, c, n, n, packed)
+        ft._launch_mlp(x, cond, gx, gp, None, slots, packed, cdt, 5, 17, thr, ms)  # warm-up
+        torch.cuda.synchronize()
+        lib.read_phase_clocks((ctypes.c_ulonglong * MAX_PHASES)())
+        for _ in range(reps):
+            ft._launch_mlp(x, cond, gx, gp, None, slots, packed, cdt, 5, 17, thr, ms)
+        torch.cuda.synchronize()
+        _report(lib, labels["nca_train"], ft.n_blocks(b, n, n), reps,
+                f"{'nca_bwd_mlp_ms' if ms else 'nca_bwd_mlp'} c{c}/fc{f} {n}^2 b{b} {cdt}")
+    lib = _build._LIBS["nca_cnca"]
+    for b in (8, 1):
+        cfg = ConditionedNCAConfig(image_size=64, cell_fire_rate=0.5)
+        params = cn.conditioned_nca_init(torch.Generator().manual_seed(0), cfg, device="cuda")
+        g = torch.Generator().manual_seed(1)
+        x = (0.3 * torch.randn((b, 20, 64, 64), generator=g)).cuda()
+        goal = (0.3 * torch.randn((b, 20, 64, 64), generator=g)).cuda()
+        gy = torch.randn((b, 20, 64, 64), generator=g).cuda()
+        packed = fc.pack_weights(params, cfg, "float32")
+        _, life = fc.cnca_step_reference(x, goal, packed, cfg, "float32", 3, 5, 0.5)
+        gp = torch.empty((b, 60, 64, 64), device="cuda")
+        slots = fc._zero_slots(b, 64, 64, packed)
+        fc._launch_bwd_mlp(x, goal, life, gy.clone(), gp, slots, packed, cfg, "float32", 3, 5,
+                           thr)
+        torch.cuda.synchronize()
+        lib.read_phase_clocks((ctypes.c_ulonglong * MAX_PHASES)())
+        for _ in range(reps):
+            fc._launch_bwd_mlp(x, goal, life, gy.clone(), gp, slots, packed, cfg, "float32", 3,
+                               5, thr)
+        torch.cuda.synchronize()
+        _report(lib, labels["nca_cnca"], fc.n_mlp_blocks(b, 64, 64), reps,
+                f"cnca_bwd_mlp C20/D64 64^2 b{b} float32")
+
+
+if __name__ == "__main__":
+    main()
