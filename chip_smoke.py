@@ -25,6 +25,8 @@ exit and no result line:
    on and off, rates 1 and 0.5, f32 and bf16, and at 256^2 b3; the
    multiscale pair (nca_step_ms forward, nca_bwd_mlp_ms and
    nca_bwd_adjoint_ms backward) at 40x72 and at 256^2 b3 x 16 steps, the
+   step's chain form (the training forward) against the plain step at the
+   static_texture and video_motion shapes, the
    tapped pair at scales (0,) and (0, 1), each multiscale backward kernel
    alone at 256^2 b3; one video_motion train step on the card against the
    CPU at 32^2; the TPU-layout forms: nca_step_mat (algo 'mat') and the
@@ -37,7 +39,9 @@ exit and no result line:
 3. the serving path: ``StylizeServer`` with the edge-conditioned model at
    full width (c12/fc96, random weights from a seed) answers session, frame,
    damage, reset, stream and stats requests at 256^2 with 24 steps a frame;
-   the kernel launch counts must equal frames x 24. The training path:
+   the kernel launch counts must equal frames x 24 (nca_step's chain form
+   under bf16 compute). The same cell at float32 compute through
+   ``VideoStylizer``: 12 frames, the tensor-core nca_step. The training path:
    ``DyNCATrainer`` with the static_texture preset at full width (c12/fc96,
    128^2, batch 4, pool 256, full VGG16 from its seeded fallback) trains four
    iterations (32, 128 and two sampled step counts); each training kernel's
@@ -88,12 +92,15 @@ exit and no result line:
    backward time and added peak memory at K = 1 and 16, for static_texture
    and the video_motion pair), the benchmark harness
    (``benchmark_serving`` with 8 streams at 256^2, ``benchmark_train_step``
-   for static_texture) once each; the tensor-core backward kernels
-   (nca_bwd_mlp at 128^2 b4 f32, nca_bwd_mlp_ms at 256^2 b3 f32 and b1 bf16,
-   cnca_bwd_mlp at 64^2 b8 and b1 f32) beside their float32 and tensor-core
-   bounds, with ptxas' registers and spills and two launches checked for the
-   same bits; VGG16's loss forward and backward with the equality-mask pool
-   and with F.max_pool2d, in turns.
+   for static_texture) once each; the tensor-core kernels (the step's
+   tensor-core forms, nca_step at 128^2 b4 f32 and 256^2 b1 bf16, its
+   bf16-state form, nca_step_ms at 256^2 b3 f32 and b1 bf16, and its chain
+   forms at the training and served shapes; nca_bwd_mlp at 128^2 b4 f32,
+   nca_bwd_mlp_ms at 256^2 b3 f32 and b1 bf16, cnca_bwd_mlp at 64^2 b8 and
+   b1 f32) by CUDA events and by the profiler's device time, beside their
+   float32 and tensor-core bounds, with ptxas' registers and spills, blocks
+   an SM, and two launches checked for the same bits; VGG16's loss forward
+   and backward with the equality-mask pool and with F.max_pool2d, in turns.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Needs one card; exits non-zero without
@@ -244,6 +251,60 @@ def phase_compare(torch, fs, NCAConfig, dynca_init):
     return worst
 
 
+def report_tc_bf16_drift(torch, fs, NCAConfig, dynca_init):
+    """Why the scales-(0,) rollout under bf16 compute runs nca_step's chain
+    form (fused_step.chain_form): the tensor-core form's state against the
+    plain version's on phase_compare's served case (256^2 edges circular, 24
+    steps, bf16), printed beside TOL['bfloat16'] and not held to it, since
+    no rollout entry launches this form. Returns the difference."""
+    cfg = NCAConfig(c_in=12, fc_dim=96, padding_mode="circular", conditioning="edges")
+    g = torch.Generator().manual_seed(1)
+    params = dynca_init(torch.Generator().manual_seed(0), cfg, device="cuda")
+    x = (torch.rand((1, 12, 256, 256), generator=g) - 0.5).cuda()
+    cond = (torch.rand((1, 3, 256, 256), generator=g) - 0.5).cuda()
+    packed = fs.pack_weights(params, 12, 3, "bfloat16")
+    src, dst = x, torch.empty_like(x)
+    for i in range(STEPS):
+        fs.launch_step(src, dst, cond, packed, "circular", "bfloat16", 7, i,
+                       fs.uniform_threshold(cfg.update_rate))
+        src, dst = dst, (torch.empty_like(x) if src is x else src)
+    want = fs.fused_rollout_chw_reference(params, x, 7, cfg, STEPS, cond,
+                                          compute_dtype="bfloat16")
+    torch.cuda.synchronize()
+    err = float((src - want).abs().max())
+    print(f"  the tensor-core nca_step on that case, which no rollout entry launches under "
+          f"bf16 compute: max|kernel-plain| {err:.3e} against TOL {TOL['bfloat16']:.0e} "
+          f"(the chain form's 0: fused_step.chain_form)")
+    return err
+
+
+def phase_f32_stylizer(torch, fs, VideoStylizer, cfg, params):
+    """VideoStylizer at float32 compute, the edge_conditioned cell at 256^2,
+    12 frames of 24 steps: the path of the tensor-core scales-(0,) step.
+    Returns its launches."""
+    styl = VideoStylizer(params, cfg, 256, step_n=STEPS, device="cuda",
+                         compute_dtype="float32")
+    frames = (torch.rand((12, 1, 256, 256, 3), generator=torch.Generator().manual_seed(4))
+              * 2 - 1).cuda()
+    reset_counts(fs)
+    rgbs = [styl.step_frame(f) for f in frames]
+    torch.cuda.synchronize()
+    launches = dict(fs.KERNEL_LAUNCHES)
+    checks = {
+        "nca_step (tensor cores) == 12 x 24, nothing else": launches["nca_step"] == 12 * STEPS
+        and fs.LAUNCHES == 12 * STEPS,
+        "rgb [1, 256, 256, 3] in [0, 1], state finite": all(
+            tuple(r.shape) == (1, 256, 256, 3) and float(r.min()) >= 0
+            and float(r.max()) <= 1 for r in rgbs) and bool(torch.isfinite(styl.state).all()),
+    }
+    print(f"  12 frames, {STEPS} steps a frame, float32: launches {launches}")
+    for k, v in checks.items():
+        print(f"  {k}: {'ok' if v else 'FAIL'}")
+    if not all(checks.values()):
+        raise SystemExit("float32 stylizer phase failed")
+    return launches["nca_step"]
+
+
 def phase_stylizer_parity(torch, VideoStylizer, NCAConfig, dynca_init):
     """The whole stylizer on the card (kernel) against the stylizer on the
     CPU (plain version), float32, 64^2, 3 frames."""
@@ -286,6 +347,8 @@ def phase_serve(torch, fs, server_mod, cfg, params):
         torch.cuda.synchronize()
         launches = fs.LAUNCHES
         frames = 8 + 4
+        if fs.KERNEL_LAUNCHES["nca_step_chain"] != launches:
+            raise SystemExit("the served bf16 step did not run nca_step's chain form")
         for o in outs:
             if decode(o).shape != (256, 256, 3):
                 raise SystemExit("a served frame is not 256x256x3")
@@ -520,7 +583,8 @@ def phase_train(torch, ft, fs, trainer, inputs):
         "nca_step == nca_bwd_mlp == nca_bwd_adjoint == sum(step_n)":
             launches["nca_step"] == launches["nca_bwd_mlp"]
             == launches["nca_bwd_adjoint"] == total,
-        "fused_step.LAUNCHES == sum(step_n)": fs.LAUNCHES == total,
+        "fused_step.LAUNCHES == nca_step_chain == sum(step_n)":
+            fs.LAUNCHES == fs.KERNEL_LAUNCHES["nca_step_chain"] == total,
         "pool written back (finite, non-zero)": all(written),
     }
     for log, n in zip(logs, steps):
@@ -618,6 +682,25 @@ def profile_frames(torch, next_frame, n_frames: int = 10, unit: str = "frame"):
     for us, key, count in rows[:8]:
         if us > 0:
             print(f"    {us / 1e3 / n_frames:.4f} ms  {count / n_frames:g}x  {key[:70]}")
+
+
+def device_ms(torch, fn, reps: int = 20) -> float:
+    """Device time of one call of ``fn`` (the kernels it launches, summed by
+    torch.profiler over ``reps`` calls): the kernel's own time, whatever the
+    host's pace of launching. CUDA events over back-to-back launches read
+    the larger of the two, and a launch's host work is about a 30-50 us
+    kernel's time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.device_time_total for e in prof.events() if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / reps
 
 
 # --------------------------------------------------------------- ConditionedNCA
@@ -1062,6 +1145,45 @@ def phase_compare_ms(torch, fs, NCAConfig, dynca_init):
     return worst
 
 
+def phase_compare_chain(torch, fs, NCAConfig, dynca_init):
+    """The chain form of the step (the training pair's forward: float32 FMAs
+    in the plain version's order) against the plain step, 8 steps at rate
+    0.5, f32 and bf16: static_texture's cell at 128^2 b4 and video_motion's
+    at 256^2 b3. Within TOL (f32) and TOL["bfloat16"]; the count of
+    bit-identical cases is printed. Returns the largest difference of
+    each form."""
+    worst = {"nca_step_chain": 0.0, "nca_step_ms_chain": 0.0}
+    same = 0
+    for name, c, f, shape in (("nca_step_chain", 12, 96, (4, 12, 128, 128)),
+                              ("nca_step_ms_chain", 16, 128, (3, 16, VM_SIZE, VM_SIZE))):
+        ms = name == "nca_step_ms_chain"
+        cfg = ms_cfg(NCAConfig, scales=(0, 1) if ms else (0,))
+        cfg = dataclasses.replace(cfg, c_in=c, fc_dim=f)
+        params, x, cond = ms_inputs(torch, cfg, dynca_init, shape)
+        for cdt in ("float32", "bfloat16"):
+            packed = fs.pack_weights(params, c, 2, cdt)
+            src, got, want = x, torch.empty_like(x), x
+            before = fs.KERNEL_LAUNCHES[name]
+            for step in range(8):
+                fs.launch_step(src, got, cond, packed, "circular", cdt, 7, step,
+                               fs.uniform_threshold(0.5), ms, chain=True)
+                want = fs.reference_step(want, cond, packed, "circular", cdt, 7, step, 0.5, ms)
+                src, got = got, torch.empty_like(x)
+            torch.cuda.synchronize()
+            err = float((src - want).abs().max())
+            same += int(err == 0.0)
+            worst[name] = max(worst[name], err)
+            ok = (err <= TOL[cdt] and fs.KERNEL_LAUNCHES[name] - before == 8
+                  and bool(torch.isfinite(src).all()))
+            if not ok:
+                raise SystemExit(f"{name} {cdt} disagrees with the plain step: {err:.3e}")
+    print(f"  the chain form (the training forward) against the plain step, 8 steps, 128^2 "
+          f"b4 c12/fc96 and 256^2 b3 c16/fc128 scales (0, 1), f32 and bf16: max|kernel-plain| "
+          f"{worst} (tol {TOL['float32']:.0e} f32, {TOL['bfloat16']:.0e} bf16); bit-identical "
+          f"{same} of 4 ok")
+    return worst
+
+
 def phase_compare_ms_train(torch, ft, NCAConfig, dynca_init):
     """The multiscale pair (nca_step_ms forward, nca_bwd_mlp_ms and
     nca_bwd_adjoint_ms backward) against its plain version: states, dx0,
@@ -1259,7 +1381,8 @@ def phase_vm_train(torch, ft, fs, trainer, inputs, motion_feats):
         "nca_step_ms == nca_bwd_mlp_ms == nca_bwd_adjoint_ms == sum(step_n)":
             all(launches[k] == total for k in ms_names),
         "no scale-0 launches": all(launches[k] == 0 for k in launches if k not in ms_names),
-        "fused_step nca_step_ms == sum(step_n)": fs.KERNEL_LAUNCHES["nca_step_ms"] == total,
+        "fused_step nca_step_ms_chain == sum(step_n), no tensor-core step":
+            fs.KERNEL_LAUNCHES["nca_step_ms_chain"] == total == fs.LAUNCHES,
         "pool written back (finite, non-zero)": all(written),
     }
     for log, n in zip(logs, steps):
@@ -1374,8 +1497,9 @@ def phase_ms_stylizer(torch, fs, presets, VideoStylizer, dynca_init):
 
 def time_ms_kernels(torch, fs, ft, params):
     """Each multiscale kernel's ms per launch at the video_motion training
-    shape (256^2 b3, pos_emb, f32) beside its bound and its plain version,
-    and nca_step_ms at the stylizer's (256^2 b1, bf16)."""
+    shape (256^2 b3, pos_emb, f32) beside its bound and its plain version
+    (nca_step_ms in its tensor-core form and in the chain form the training
+    forward runs), and nca_step_ms at the stylizer's (256^2 b1, bf16)."""
     g = torch.Generator().manual_seed(3)
     shape = (3, 16, VM_SIZE, VM_SIZE)
     x = (torch.rand(shape, generator=g) - 0.5).cuda()
@@ -1393,6 +1517,10 @@ def time_ms_kernels(torch, fs, ft, params):
         "nca_step_ms": (
             lambda: fs.launch_step(x, dst, cond, packed, "circular", "float32", 5, 17, thr, True),
             lambda: fs.reference_step(x, cond, packed, "circular", "float32", 5, 17, 0.5, True)),
+        "nca_step_ms_chain": (
+            lambda: fs.launch_step(x, dst, cond, packed, "circular", "float32", 5, 17, thr, True,
+                                   chain=True),
+            lambda: fs.reference_step(x, cond, packed, "circular", "float32", 5, 17, 0.5, True)),
         "nca_bwd_mlp_ms": (
             lambda: ft._launch_mlp(x, cond, gx, gp, None, slots, packed, "float32", 5, 17, thr,
                                    True),
@@ -1403,7 +1531,7 @@ def time_ms_kernels(torch, fs, ft, params):
             lambda: ft.nca_bwd_adjoint_reference(gp, gx, None, True)),
     }
     for name, (kern, plain) in runs.items():
-        bound, by = ms_bound_ms(name, 16, 2, 128, hw)
+        bound, by = ms_bound_ms(name.replace("_chain", ""), 16, 2, 128, hw)
         k_ms, p_ms = cuda_ms(kern, 20), cuda_ms(plain, 2)
         out[name] = (k_ms, p_ms, bound, by)
         print(f"  {name} {VM_SIZE}^2 b3 pos_emb f32: kernel {k_ms:.4f} ms/launch, plain "
@@ -1526,13 +1654,14 @@ def phase_compare_forms(torch, fs, NCAConfig, dynca_init):
 
 def phase_compare_stream(torch, fs, cfg, params):
     """The streaming entry (circular, edges, bf16) at 1024^2 b1 x 4 steps
-    against its plain version: nca_step, 4 launches."""
+    against its plain version: nca_step's chain form (fused_step.chain_form),
+    4 launches."""
     g = torch.Generator().manual_seed(5)
     x = (torch.rand((1, 12, 1024, 1024), generator=g) - 0.5).cuda()
     cond = (torch.rand((1, 3, 1024, 1024), generator=g) - 0.5).cuda()
-    before = fs.KERNEL_LAUNCHES["nca_step"]
+    before = fs.KERNEL_LAUNCHES["nca_step_chain"]
     got = fs.fused_rollout_stream_chw(params, x, 7, cfg, 4, cond, compute_dtype="bfloat16")
-    launched = fs.KERNEL_LAUNCHES["nca_step"] - before
+    launched = fs.KERNEL_LAUNCHES["nca_step_chain"] - before
     want = fs.fused_rollout_chw_reference(params, x, 7, cfg, 4, cond, compute_dtype="bfloat16")
     torch.cuda.synchronize()
     err = float((got - want).abs().max())
@@ -1654,8 +1783,9 @@ def phase_tpu_layout_path(torch, fs, ft, presets, dynca_init, make_conditioning,
 
     k = ft.pick_segment(st_cfg, 128, 128, SEG_STEPS)
     train_steps = 2 * SEG_STEPS - SEG_STEPS // k  # the forward and the recompute
-    want_fs = {"nca_step": 96 + 8 + train_steps, "nca_step_ms": 0, "nca_step_mat": STEPS,
-               "nca_step_bf16_state": STEPS}
+    want_fs = {"nca_step": 0, "nca_step_ms": 0, "nca_step_mat": STEPS,
+               "nca_step_bf16_state": STEPS, "nca_step_chain": 96 + 8 + train_steps,
+               "nca_step_ms_chain": 0}
     want_ft = {"nca_step": train_steps, "nca_bwd_mlp": SEG_STEPS,
                "nca_bwd_adjoint": SEG_STEPS}
     checks = {
@@ -1813,24 +1943,39 @@ def phase_benchmark(torch, fs, ft, benchmark):
 H100_TF32_FLOPS = 495e12  # dense tensor-core peak
 
 
+# FLOPs of the three perception stencils a pixel and channel
+# (nca_common.cuh::stencils: Sobel x and y 4 products and 5 sums each, the
+# Laplacian 5 and 8)
+STENCIL_FLOP = 9 + 9 + 13
+
+
 def tc_bound_ms(kernel: str, c: int, k2: int, f: int, hw: int, compute_dtype="float32"):
-    """Least time of one launch of a tensor-core backward kernel on an H100
-    for the design's arithmetic: the FLOPs it keeps on the CUDA cores over
-    the float32 peak plus its tensor-core FLOPs over the TF32 peak, three
-    times over for split TF32 (float32 compute), or over the bf16 peak,
-    against its bytes (counted as ``train_bound_ms`` and ``cnca_bound_ms``
-    count them) over the memory rate. nca_bwd_mlp(_ms) (k2 = cc) keeps z1 = W1^T p
-    (2 P*F a pixel, and the multiscale percept's MS_PERCEPT_FLOP a pixel and
-    channel) and puts W2 gdx, W1 gz1, dW1 and dW2 (2 (2 P*F + 2 F*C)) on the
-    tensor cores; cnca_bwd_mlp (k2 = D) keeps the recompute (the MLP and the
-    percept) and the depthwise weight gradient (2 x 2*27*C) and puts the
-    three transposed and three weight-gradient products (2 x the MLP) on
-    them."""
-    if kernel.startswith("nca_bwd_mlp"):
+    """Least time of one launch of a tensor-core kernel on an H100 for the
+    design's arithmetic: the FLOPs it keeps on the CUDA cores over the
+    float32 peak plus its tensor-core FLOPs over the TF32 peak, three times
+    over for split TF32 (float32 compute), or over the bf16 peak, against
+    its bytes (counted as ``step_bound_ms``, ``form_bound_ms``,
+    ``ms_bound_ms``, ``train_bound_ms`` and ``cnca_bound_ms`` count them) over
+    the memory rate. nca_step, its bf16-state form and nca_step_ms (k2 = cc)
+    keep the stencils (STENCIL_FLOP a pixel and channel) and the multiscale
+    percept (MS_PERCEPT_FLOP) and put the MLP (2 (P*F + F*C)) on the tensor
+    cores; nca_bwd_mlp(_ms) (k2 = cc) keeps the multiscale percept and puts
+    z1 = W1^T p, W2 gdx, W1 gz1, dW1 and dW2 (2 (3 P*F + 2 F*C)) on them;
+    cnca_bwd_mlp (k2 = D) keeps the recompute (the MLP and the percept) and
+    the depthwise weight gradient (2 x 2*27*C) and puts the three transposed
+    and three weight-gradient products (2 x the MLP) on them."""
+    ms = kernel.startswith("nca_step_ms") or kernel == "nca_bwd_mlp_ms"
+    if kernel.startswith("nca_step"):
+        p = 4 * c + k2
+        state_bytes = 2 if kernel == "nca_step_bf16_state" else 4
+        n_bytes = (2 * c + k2) * hw * state_bytes + (p * f + f + f * c + c) * 4
+        cuda = (STENCIL_FLOP + (MS_PERCEPT_FLOP if ms else 0)) * c * hw
+        tc = 2 * hw * (p * f + f * c)
+    elif kernel.startswith("nca_bwd_mlp"):
         p = 4 * c + k2
         n_bytes = (c + k2 + c + 4 * c) * hw * 4 + (p * f + f + f * c + c) * 4
-        cuda = 2 * hw * p * f + (MS_PERCEPT_FLOP * c * hw if kernel.endswith("_ms") else 0)
-        tc = 2 * hw * (2 * p * f + 2 * f * c)
+        cuda = MS_PERCEPT_FLOP * c * hw if ms else 0
+        tc = 2 * hw * (3 * p * f + 2 * f * c)
     else:
         d, p = k2, 3 * c
         mlp = 2 * (p * d + d * d + d * c)
@@ -1845,26 +1990,77 @@ def tc_bound_ms(kernel: str, c: int, k2: int, f: int, hw: int, compute_dtype="fl
 
 
 def time_tc_kernels(torch, fs, ft, fc, cn, ConditionedNCAConfig, _build):
-    """The redesigned backward kernels at the shapes of PERF.md's table:
-    nca_bwd_mlp at 128^2 b4 f32 (c12/fc96, pos_emb), nca_bwd_mlp_ms at
-    256^2 b3 f32 and b1 bf16 (c16/fc128, pos_emb), cnca_bwd_mlp at 64^2 b8
-    and b1 f32 (C 20 / D 64): ms per launch beside the float32 bound and the
-    tensor-core bound, two launches on the same inputs checked for the same
-    bits, and ptxas' registers and spills of each instantiation. Returns
-    {(name, label): (ms, f32 bound, tensor-core bound)}."""
+    """The tensor-core kernels at the shapes of PERF.md's table: the step
+    nca_step at 128^2 b4 f32 (c12/fc96, pos_emb) and 256^2 b1 bf16 (the
+    served c12/fc96/edges; also its bf16-state form), nca_step_ms at 256^2
+    b3 f32 and b1 bf16 (c16/fc128, pos_emb), each with its blocks an SM
+    (cudaOccupancyMaxActiveBlocksPerMultiprocessor), and the chain forms at
+    the training shapes and the served one;
+    nca_bwd_mlp at 128^2 b4 f32, nca_bwd_mlp_ms at 256^2 b3 f32 and b1 bf16,
+    cnca_bwd_mlp at 64^2 b8 and b1 f32 (C 20 / D 64): ms per launch (CUDA
+    events, and the step's and the DyNCA backward's device time) beside the
+    float32 bound and the tensor-core bound, two launches on the same inputs
+    checked for the same bits, and ptxas' registers and spills of each
+    instantiation. Returns {(name, label): (ms, f32 bound, tensor-core
+    bound or None, device ms or None)}."""
     from vsnca_tpu_torch.models.dynca import dynca_init
     from vsnca_tpu_torch.config import NCAConfig
 
     out = {}
-    want = False  # inside ptxas' report of a bwd_mlp instantiation
-    for line in (_build.build_log("nca_train") + _build.build_log("nca_cnca")).splitlines():
+    want = False  # inside ptxas' report of a tensor-core kernel or the chain form
+    for line in (_build.build_log("nca_step") + _build.build_log("nca_train")
+                 + _build.build_log("nca_cnca")).splitlines():
         if "Function properties" in line:
-            want = "bwd_mlp" in line
+            want = any(k in line for k in ("bwd_mlp", "nca_step_kernel", "nca_step_chain"))
             if want:
                 print(f"    ptxas: {line.split('for', 1)[1].strip()}")
         elif want and ("registers" in line or "spill" in line):
             print(f"    ptxas:   {line.strip()}")
     thr = fs.uniform_threshold(0.5)
+    for name, c, cc, f, b, n, cdt in (("nca_step", 12, 2, 96, 4, 128, "float32"),
+                                      ("nca_step", 12, 3, 96, 1, 256, "bfloat16"),
+                                      ("nca_step_bf16_state", 12, 3, 96, 1, 256, "bfloat16"),
+                                      ("nca_step_ms", 16, 2, 128, 3, 256, "float32"),
+                                      ("nca_step_ms", 16, 2, 128, 1, 256, "bfloat16"),
+                                      ("nca_step_chain", 12, 2, 96, 4, 128, "float32"),
+                                      ("nca_step_chain", 12, 3, 96, 1, 256, "bfloat16"),
+                                      ("nca_step_ms_chain", 16, 2, 128, 3, 256, "float32")):
+        ms, bstate = name.startswith("nca_step_ms"), name == "nca_step_bf16_state"
+        chain = name.endswith("_chain")
+        cfg = NCAConfig(c_in=c, fc_dim=f, padding_mode="circular",
+                        conditioning="edges" if cc == 3 else "pos_emb",
+                        perception_scales=(0, 1) if ms else (0,))
+        params = dynca_init(torch.Generator().manual_seed(0), cfg, device="cuda")
+        g = torch.Generator().manual_seed(3)
+        sdt = torch.bfloat16 if bstate else torch.float32
+        x = (torch.rand((b, c, n, n), generator=g) - 0.5).cuda().to(sdt)
+        cond = (torch.rand((b, cc, n, n), generator=g) - 0.5).cuda().to(sdt)
+        packed = fs.pack_weights(params, c, cc, cdt)
+        outs = [torch.empty_like(x) for _ in range(2)]
+        step = lambda o: fs.launch_step(x, o, cond, packed, "circular", cdt, 5, 17,  # noqa: E731
+                                        thr, ms, chain=chain)
+        for o in outs:
+            step(o)
+        torch.cuda.synchronize()
+        same = torch.equal(outs[0], outs[1])
+        k_ms = cuda_ms(lambda: step(outs[0]), 20)
+        dev = device_ms(torch, lambda: step(outs[0]))
+        hw = b * n * n
+        base = name.replace("_chain", "")
+        f32b = (ms_bound_ms(base, c, cc, f, hw)[0] if ms
+                else form_bound_ms(base, c, cc, f, hw, "float32")[0])
+        tcb = None if chain else tc_bound_ms(name, c, cc, f, hw, cdt)[0]
+        blocks, smem = fs.step_occupancy(
+            c, cc, f, cdt, ms, "chain" if chain else "bf16_state" if bstate else "tc")
+        label = f"{n}^2 b{b} {cdt}"
+        out[(name, label)] = (k_ms, f32b, tcb, dev)
+        tc_text = "" if chain else f", tensor-core bound {tcb:.5f} ms ({dev / tcb:.1f}x)"
+        print(f"  {name} {label}: kernel {k_ms:.4f} ms/launch (CUDA events), {dev:.4f} device "
+              f"(profiler); float32 bound {f32b:.5f} ms ({dev / f32b:.1f}x){tc_text}; {blocks} "
+              f"blocks an SM ({smem / 1000:.1f} KB of shared memory); two launches "
+              f"bit-identical: {same}")
+        if not same:
+            raise SystemExit(f"{name}: two launches on the same inputs differ")
     for name, c, f, ms, b, n, cdt in (("nca_bwd_mlp", 12, 96, False, 4, 128, "float32"),
                                       ("nca_bwd_mlp_ms", 16, 128, True, 3, 256, "float32"),
                                       ("nca_bwd_mlp_ms", 16, 128, True, 1, 256, "bfloat16")):
@@ -1886,17 +2082,18 @@ def time_tc_kernels(torch, fs, ft, fc, cn, ConditionedNCAConfig, _build):
         torch.cuda.synchronize()
         same = torch.equal(runs[0], runs[1]) and torch.equal(gp, gp2)
         slots = runs[0]
-        k_ms = cuda_ms(lambda: ft._launch_mlp(x, cond, gx, gp, None, slots, packed, cdt, 5, 17,
-                                              thr, ms), 20)
+        launch = lambda: ft._launch_mlp(x, cond, gx, gp, None, slots, packed, cdt,  # noqa: E731
+                                        5, 17, thr, ms)
+        k_ms, dev = cuda_ms(launch, 20), device_ms(torch, launch)
         hw = b * n * n
         f32b = (ms_bound_ms(name, c, 2, f, hw)[0] if ms
                 else train_bound_ms(name, c, 2, f, hw)[0])
         tcb = tc_bound_ms(name, c, 2, f, hw, cdt)[0]
         label = f"{n}^2 b{b} {cdt}"
-        out[(name, label)] = (k_ms, f32b, tcb)
-        print(f"  {name} {label}: kernel {k_ms:.4f} ms/launch; float32 bound {f32b:.5f} ms "
-              f"({k_ms / f32b:.1f}x), tensor-core bound {tcb:.5f} ms ({k_ms / tcb:.1f}x); "
-              f"two launches bit-identical: {same}")
+        out[(name, label)] = (k_ms, f32b, tcb, dev)
+        print(f"  {name} {label}: kernel {k_ms:.4f} ms/launch (CUDA events), {dev:.4f} device "
+              f"(profiler); float32 bound {f32b:.5f} ms ({dev / f32b:.1f}x), tensor-core bound "
+              f"{tcb:.5f} ms ({dev / tcb:.1f}x); two launches bit-identical: {same}")
         if not same:
             raise SystemExit(f"{name}: two launches on the same inputs differ")
     for b in (8, 1):
@@ -1924,7 +2121,7 @@ def time_tc_kernels(torch, fs, ft, fc, cn, ConditionedNCAConfig, _build):
         f32b = cnca_bound_ms("cnca_bwd_mlp", 20, 64, hw)[0]
         tcb = tc_bound_ms("cnca_bwd_mlp", 20, 64, 64, hw)[0]
         label = f"64^2 b{b} float32"
-        out[("cnca_bwd_mlp", label)] = (k_ms, f32b, tcb)
+        out[("cnca_bwd_mlp", label)] = (k_ms, f32b, tcb, None)
         print(f"  cnca_bwd_mlp {label}: kernel {k_ms:.4f} ms/launch; float32 bound {f32b:.5f} "
               f"ms ({k_ms / f32b:.1f}x), tensor-core bound {tcb:.5f} ms ({k_ms / tcb:.1f}x); "
               f"two launches bit-identical: {same}")
@@ -2032,6 +2229,7 @@ def main() -> int:
 
     print("[2] kernel vs plain version on the card (TF32 off)")
     max_err = phase_compare(torch, fs, NCAConfig, dynca_init)
+    tc_bf16_drift = report_tc_bf16_drift(torch, fs, NCAConfig, dynca_init)
     phase_stylizer_parity(torch, VideoStylizer, NCAConfig, dynca_init)
     print("[2] training pair vs its plain version on the card")
     train_err = phase_compare_train(torch, ft, NCAConfig, dynca_init)
@@ -2042,6 +2240,7 @@ def main() -> int:
     print("[2] multiscale kernels (the video_motion cell, c16/fc128, scales (0, 1)) vs their "
           "plain versions on the card")
     ms_err = phase_compare_ms(torch, fs, NCAConfig, dynca_init)
+    chain_err = phase_compare_chain(torch, fs, NCAConfig, dynca_init)
     ms_train_err = phase_compare_ms_train(torch, ft, NCAConfig, dynca_init)
     phase_vm_step_parity(torch, make_train_step, LossState, presets, dynca_init,
                          vgg16_random_init, msoe_random_init, make_optimizer, tap_schedule,
@@ -2059,6 +2258,9 @@ def main() -> int:
     cfg = edge_conditioned()
     params = dynca_init(torch.Generator().manual_seed(0), cfg, device="cuda")
     launches, serve = phase_serve(torch, fs, server_mod, cfg, params)
+    print("[3] float32 stylizer: VideoStylizer, edge_conditioned, 256^2, compute_dtype float32 "
+          "(the tensor-core scales-(0,) step)")
+    f32_launches = phase_f32_stylizer(torch, fs, VideoStylizer, cfg, params)
 
     print("[3] training path: DyNCATrainer, static_texture c12/fc96/pos_emb, 128^2, "
           "batch 4, pool 256, full VGG16 (seed-16 fallback), Gram + overflow")
@@ -2101,6 +2303,18 @@ def main() -> int:
 
     print("[4] times (CUDA events, median of 5 rounds after warm-up)")
     timing = {}
+    g = torch.Generator().manual_seed(1)
+    x = (torch.rand((1, 12, 256, 256), generator=g) - 0.5).cuda()
+    cond = (torch.rand((1, 3, 256, 256), generator=g) - 0.5).cuda()
+    k = cuda_ms(lambda: fs.fused_rollout_chw(params, x, 1, cfg, STEPS, cond), 4) / STEPS
+    p = cuda_ms(lambda: fs.fused_rollout_chw_reference(params, x, 1, cfg, STEPS, cond), 1) / STEPS
+    bound, by = step_bound_ms(12, 3, 96, 256 * 256, "float32")
+    tcb = tc_bound_ms("nca_step", 12, 3, 96, 256 * 256)[0]
+    timing["f32"] = {"kernel_ms_per_step": k, "plain_ms_per_step": p, "bound_ms_per_step": bound,
+                     "bound_by": by, "tc_bound_ms": tcb}
+    print(f"  256^2 edges f32 (tensor cores): kernel {k:.4f} ms/step, plain {p:.4f} ms/step, "
+          f"bound {bound:.5f} ms/step ({by}), tensor-core bound {tcb:.5f}; {k / bound:.1f}x "
+          f"the bound, {k / tcb:.1f}x the tensor-core bound")
     for n in (256, 512):
         g = torch.Generator().manual_seed(1)
         x = (torch.rand((1, 12, n, n), generator=g) - 0.5).cuda()
@@ -2112,7 +2326,7 @@ def main() -> int:
         bound, by = step_bound_ms(12, 3, 96, n * n, "bfloat16")
         timing[n] = {"kernel_ms_per_step": k, "plain_ms_per_step": p,
                      "bound_ms_per_step": bound, "bound_by": by}
-        print(f"  {n}^2 edges bf16: kernel {k:.4f} ms/step, plain {p:.4f} ms/step, "
+        print(f"  {n}^2 edges bf16 (chain form): kernel {k:.4f} ms/step, plain {p:.4f} ms/step, "
               f"bound {bound:.5f} ms/step ({by}); {k / bound:.1f}x the bound")
 
     styl = VideoStylizer(params, cfg, 256, step_n=STEPS, device="cuda")
@@ -2180,7 +2394,7 @@ def main() -> int:
     for name, (k, p, b, by) in tk.items():
         print(f"  {name} 128^2 b4 pos_emb f32: kernel {k:.4f} ms/launch, plain {p:.4f} ms, "
               f"bound {b:.5f} ms ({by}); {k / b:.1f}x the bound")
-    print(f"  training forward (nca_step into the checkpoint buffer) 128^2 b4 f32: "
+    print(f"  training forward (nca_step's chain form into the checkpoint buffer) 128^2 b4 f32: "
           f"{fwd_ms:.4f} ms/step, plain {fwd_plain:.4f}, bound {fwd_bound:.5f} ({fwd_by}); "
           f"{fwd_ms / fwd_bound:.1f}x the bound")
     split = {}
@@ -2299,6 +2513,9 @@ def main() -> int:
     metrics = {
         "card": card,
         "kernel_ms_per_step_256": timing[256]["kernel_ms_per_step"],
+        "kernel_ms_per_step_256_f32": timing["f32"]["kernel_ms_per_step"],
+        "tc_bf16_served_drift_24": tc_bf16_drift,
+        "f32_stylizer_launches": f32_launches,
         "kernel_ms_per_step_512": timing[512]["kernel_ms_per_step"],
         "plain_ms_per_step_256": timing[256]["plain_ms_per_step"],
         "plain_ms_per_step_512": timing[512]["plain_ms_per_step"],
@@ -2353,7 +2570,8 @@ def main() -> int:
         "segment_max_abs_err_vs_plain": seg_err,
         **{f"tc_{name}_{label.replace('^', '').replace(' ', '_')}_{what}": v
            for (name, label), t in tc_times.items()
-           for what, v in zip(("ms", "f32_bound_ms", "tc_bound_ms"), t)},
+           for what, v in zip(("ms", "f32_bound_ms", "tc_bound_ms", "device_ms"), t)
+           if v is not None},
         **{f"vgg_loss_fwd_bwd_{label.replace('^', '').replace(' ', '_')}_{which}_ms": v
            for label, t in vgg_pool_ms.items() for which, v in zip(("eq_pool", "torch_pool"), t)},
     }
@@ -2371,25 +2589,41 @@ def main() -> int:
                    "_flat_percept_ms_adj :185 and the tap injection :1361-1373, :1542)")
     cnca_rows = {"cnca_update": fwd_rows, "cnca_gate": fwd_rows, "cnca_bwd_mlp": bwd_cnca,
                  "cnca_bwd_adjoint": bwd_cnca}
+    rollout_rows = ("vsnca_tpu/ops/pallas_step.py:1600 (_make_kernel_flat :1411); "
+                    "vsnca_tpu/ops/pallas_step.py:1885 (_make_kernel_stream_flat :1621); "
+                    "vsnca_tpu/ops/pallas_step.py:731 (fused_rollout_chw algo 'roll', "
+                    "_make_kernel_roll :175); vsnca_tpu/ops/pallas_step.py:1066 "
+                    "(fused_rollout_stream_chw, _make_kernel_stream :845)")
     print(json.dumps({"kernels": [{
         "name": "nca_step",
         "route": "cuda",
         "source": "vsnca_tpu_torch/csrc/nca_step.cu",
-        "replaces": "vsnca_tpu/ops/pallas_step.py:1600 (_make_kernel_flat :1411); "
-                    "vsnca_tpu/ops/pallas_step.py:1885 (_make_kernel_stream_flat :1621); "
-                    "vsnca_tpu/ops/pallas_train.py:2079 (_make_fwd_kernel_flat :942); "
-                    "vsnca_tpu/ops/pallas_step.py:731 (fused_rollout_chw algo 'roll', "
-                    "_make_kernel_roll :175); vsnca_tpu/ops/pallas_step.py:1066 "
-                    "(fused_rollout_stream_chw, _make_kernel_stream :845); "
-                    "vsnca_tpu/ops/pallas_train.py:759 (_fwd_call, _make_fwd_kernel :390) and "
-                    "the recompute of vsnca_tpu/ops/pallas_train.py:843 (_make_bwd_kernel :485)",
-        "launches": launches,
-        "max_abs_err": max(max_err, stream_err),
+        "replaces": rollout_rows,
+        "launches": f32_launches,
+        "max_abs_err": max_err,
+        "ms": timing["f32"]["kernel_ms_per_step"],
+        "plain_ms": timing["f32"]["plain_ms_per_step"],
+        "bound_ms": timing["f32"]["bound_ms_per_step"],
+        "bound_by": timing["f32"]["bound_by"],
+        "library_ms": None,
+        "f32_bound_ms": timing["f32"]["bound_ms_per_step"],
+        "tc_bound_ms": timing["f32"]["tc_bound_ms"],
+    }, {
+        "name": "nca_step_chain",
+        "route": "cuda",
+        "source": "vsnca_tpu_torch/csrc/nca_step.cu",
+        "replaces": rollout_rows + "; vsnca_tpu/ops/pallas_train.py:2079 (_fwd_call_flat, "
+                    "_make_fwd_kernel_flat :942); vsnca_tpu/ops/pallas_train.py:759 "
+                    "(_fwd_call, _make_fwd_kernel :390) and the recompute of "
+                    "vsnca_tpu/ops/pallas_train.py:843 (_make_bwd_kernel :485)",
+        "launches": launches + train_launches["nca_step"],
+        "max_abs_err": max(max_err, stream_err, chain_err["nca_step_chain"]),
         "ms": timing[256]["kernel_ms_per_step"],
         "plain_ms": timing[256]["plain_ms_per_step"],
         "bound_ms": timing[256]["bound_ms_per_step"],
         "bound_by": timing[256]["bound_by"],
         "library_ms": None,
+        "f32_bound_ms": step_bound_ms(12, 3, 96, 256 * 256, "float32")[0],
     }] + [{
         "name": name,
         "route": "cuda",
@@ -2423,7 +2657,7 @@ def main() -> int:
         "route": "cuda",
         "source": src,
         "replaces": rows,
-        "launches": vm_launches[name],
+        "launches": vm_launches[name.replace("_chain", "")],
         "max_abs_err": err,
         "ms": ms_times[name][0],
         "plain_ms": ms_times[name][1],
@@ -2433,15 +2667,29 @@ def main() -> int:
         **({"tc_bound_ms": tc_times[(name, "256^2 b3 float32")][2]}
            if name == "nca_bwd_mlp_ms" else {}),
     } for name, src, rows, err in (
-        ("nca_step_ms", "vsnca_tpu_torch/csrc/nca_step.cu",
-         "vsnca_tpu/ops/pallas_step.py:731 (fused_rollout_chw, _make_kernel_roll_ms :308); "
+        ("nca_step_ms_chain", "vsnca_tpu_torch/csrc/nca_step.cu",
          "vsnca_tpu/ops/pallas_train.py:2144 (_fwd_call_flat_tiled_ms, "
-         "_make_fwd_kernel_flat_tiled_ms :1031)", ms_err),
+         "_make_fwd_kernel_flat_tiled_ms :1031)", chain_err["nca_step_ms_chain"]),
         ("nca_bwd_mlp_ms", "vsnca_tpu_torch/csrc/nca_train.cu", ms_bwd_rows,
          ms_train_err["nca_bwd_mlp_ms"]),
         ("nca_bwd_adjoint_ms", "vsnca_tpu_torch/csrc/nca_train.cu", ms_bwd_rows,
          ms_train_err["nca_bwd_adjoint_ms"]),
     )] + [{
+        "name": "nca_step_ms",
+        "route": "cuda",
+        "source": "vsnca_tpu_torch/csrc/nca_step.cu",
+        "replaces": "vsnca_tpu/ops/pallas_step.py:731 (fused_rollout_chw, "
+                    "_make_kernel_roll_ms :308)",
+        "launches": ms_styl_launches,
+        "max_abs_err": ms_err,
+        "ms": ms_times["nca_step_ms_b1_bf16"][0],
+        "plain_ms": ms_times["nca_step_ms_b1_bf16"][1],
+        "bound_ms": ms_times["nca_step_ms_b1_bf16"][2],
+        "bound_by": ms_times["nca_step_ms_b1_bf16"][3],
+        "library_ms": None,
+        "f32_bound_ms": ms_bound_ms("nca_step_ms", 16, 2, 128, VM_SIZE * VM_SIZE)[0],
+        "tc_bound_ms": tc_times[("nca_step_ms", "256^2 b1 bfloat16")][2],
+    }] + [{
         "name": name,
         "route": "cuda",
         "source": "vsnca_tpu_torch/csrc/nca_step.cu",

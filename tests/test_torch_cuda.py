@@ -525,12 +525,13 @@ def test_bf16_state_kernel_matches_plain(cuda, pad_mode, conditioning, compute_d
 
 def test_stream_and_registry_entries_launch_nca_step(cuda):
     """The streaming entry past the TPU's resident cap (and an odd width),
-    and every registry entry the policy picks, launch nca_step (or
-    nca_step_ms) and equal the plain version; fused_rollout (NHWC) too."""
+    and every registry entry the policy picks, launch nca_step (its chain
+    form under bf16 compute, fused_step.chain_form; or nca_step_ms) and
+    equal the plain version; fused_rollout (NHWC) too."""
     cfg, params, x, cond = _rollout_case(cuda, "circular", "edges", shape=(1, 520, 300))
-    before = fs.KERNEL_LAUNCHES["nca_step"]
+    before = fs.KERNEL_LAUNCHES["nca_step_chain"]
     got = fs.fused_rollout_stream_chw(params, x, 2, cfg, 3, cond, compute_dtype="bfloat16")
-    assert fs.KERNEL_LAUNCHES["nca_step"] == before + 3
+    assert fs.KERNEL_LAUNCHES["nca_step_chain"] == before + 3
     want = fs.fused_rollout_chw_reference(params, x, 2, cfg, 3, cond,
                                           compute_dtype="bfloat16")
     torch.testing.assert_close(got, want, **TOL["bfloat16"])
@@ -657,3 +658,175 @@ def test_cnca_backward_mlp_widths_are_exact_and_repeatable(cuda, hidden, d, comp
     for a, b in zip((g_xn, gp, *sums), (w_xn, w_gp, *w_sums)):
         _close(a, b, TRAIN_TOL[compute_dtype])
     assert _same_bits((g_xn, gp, *sums), (g2, gp2, *sums2))
+
+
+# -------------------------------------- the tensor-core step and its chain form
+
+# (form, state dtype, compute dtype, scales) of nca_step_kernel and its
+# tolerance against the plain version (the existing ones of each form)
+STEP_FORMS = [
+    ("nca_step", "float32", "float32", (0,), TOL["float32"]),
+    ("nca_step_chain", "float32", "bfloat16", (0,), TOL["bfloat16"]),
+    ("nca_step_bf16_state", "bfloat16", "float32", (0,), BF16_STATE_TOL),
+    ("nca_step_ms", "float32", "float32", (0, 1), TOL["float32"]),
+    ("nca_step_ms", "float32", "bfloat16", (0, 1), TOL["bfloat16"]),
+]
+
+
+@pytest.mark.parametrize("form,state_dtype,compute_dtype,scales,tol", STEP_FORMS)
+def test_step_forms_at_full_width_match_plain_and_repeat(cuda, form, state_dtype,
+                                                         compute_dtype, scales, tol):
+    """Each form of the step a rollout launches (the tensor-core forms; the
+    chain form for scales (0,) under bf16 compute) at the served
+    (c12/fc96/edges) or video_motion (c16/fc128/pos_emb) widths, 6 steps at
+    rate 0.5 on a ragged 66 x 98 grid: within the form's tolerance of the
+    plain version, and two launches give the same bits."""
+    c, f, cond_kind = (16, 128, "pos_emb") if scales == (0, 1) else (12, 96, "edges")
+    cfg = NCAConfig(c_in=c, fc_dim=f, padding_mode="replicate", conditioning=cond_kind,
+                    perception_scales=scales, update_rate=0.5)
+    params = dynca.dynca_init(torch.Generator().manual_seed(4), cfg, device=cuda)
+    g = torch.Generator().manual_seed(5)
+    x = (torch.rand((2, c, 66, 98), generator=g) - 0.5).to(cuda)
+    cond = (torch.rand((2, cfg.c_cond, 66, 98), generator=g) - 0.5).to(cuda)
+    kw = dict(state_dtype=state_dtype, algo="padded" if state_dtype == "bfloat16" else "roll")
+    before = fs.KERNEL_LAUNCHES[form]
+    got = fs.fused_rollout_chw(params, x, 3, cfg, 6, cond, None, compute_dtype, **kw)
+    again = fs.fused_rollout_chw(params, x, 3, cfg, 6, cond, None, compute_dtype, **kw)
+    assert fs.KERNEL_LAUNCHES[form] == before + 12
+    want = fs.fused_rollout_chw_reference(params, x, 3, cfg, 6, cond, None, compute_dtype,
+                                          **kw)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert torch.equal(got, again)
+
+
+def test_tensor_core_step_under_bf16_compute(cuda):
+    """The tensor-core scales-(0,) step under bf16 compute, which no rollout
+    entry launches (fused_step.chain_form): one step at the served widths
+    against the plain step within TOL['bfloat16'], two launches the same
+    bits."""
+    cfg = NCAConfig(c_in=12, fc_dim=96, padding_mode="circular", conditioning="edges")
+    params = dynca.dynca_init(torch.Generator().manual_seed(0), cfg, device=cuda)
+    g = torch.Generator().manual_seed(1)
+    x = (torch.rand((1, 12, 80, 112), generator=g) - 0.5).to(cuda)
+    cond = (torch.rand((1, 3, 80, 112), generator=g) - 0.5).to(cuda)
+    packed = fs.pack_weights(params, 12, 3, "bfloat16")
+    outs = [torch.empty_like(x) for _ in range(2)]
+    before = fs.KERNEL_LAUNCHES["nca_step"]
+    for o in outs:
+        fs.launch_step(x, o, cond, packed, "circular", "bfloat16", 3, 4, fs.uniform_threshold(0.5))
+    assert fs.KERNEL_LAUNCHES["nca_step"] == before + 2
+    want = fs.reference_step(x, cond, packed, "circular", "bfloat16", 3, 4, 0.5)
+    torch.testing.assert_close(outs[0], want, **TOL["bfloat16"])
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("scales", [(0,), (0, 1)])
+def test_chain_form_is_the_plain_step_bit_for_bit(cuda, scales, compute_dtype):
+    """The training pair's forward (the chain form: float32 FMAs in the plain
+    version's order) reproduces the plain step's bits, so the pair's relu
+    gates are the plain pair's; one launch a step."""
+    c, f = (16, 128) if scales == (0, 1) else (12, 96)
+    cfg = NCAConfig(c_in=c, fc_dim=f, padding_mode="circular", conditioning="pos_emb",
+                    perception_scales=scales, update_rate=0.5)
+    params = dynca.dynca_init(torch.Generator().manual_seed(0), cfg, device=cuda)
+    g = torch.Generator().manual_seed(1)
+    x = (torch.rand((2, c, 64, 96), generator=g) - 0.5).to(cuda)
+    cond = (torch.rand((2, 2, 64, 96), generator=g) - 0.5).to(cuda)
+    packed = fs.pack_weights(params, c, 2, compute_dtype)
+    name = "nca_step_ms_chain" if scales == (0, 1) else "nca_step_chain"
+    src, dst = x, torch.empty_like(x)
+    for step in range(3):
+        before = fs.KERNEL_LAUNCHES[name]
+        fs.launch_step(src, dst, cond, packed, "circular", compute_dtype, 9, step,
+                       fs.uniform_threshold(0.5), scales == (0, 1), chain=True)
+        assert fs.KERNEL_LAUNCHES[name] == before + 1
+        want = fs.reference_step(src, cond, packed, "circular", compute_dtype, 9, step, 0.5,
+                                 scales == (0, 1))
+        assert torch.equal(dst, want)
+        src, dst = dst.clone(), torch.empty_like(x)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("multiscale", [False, True])
+@pytest.mark.parametrize("c_in,c_cond,fc_dim", [(1, 0, 4), (5, 1, 30), (16, 4, 128)])
+def test_chain_form_widths_match_plain_and_repeat(cuda, c_in, c_cond, fc_dim, multiscale,
+                                                  compute_dtype):
+    """The chain form at the width limits (C 1..16, cc 0..4, F 4..128, F
+    padded to a multiple of 4) on a ragged even 38 x 70 grid, 3 steps at
+    rate 0.5: within the float32 / bf16 tolerance of the plain step (at these
+    widths the plain version's matrix products may sum in another order),
+    and two launches give the same bits."""
+    g = torch.Generator().manual_seed(c_in * 131 + fc_dim)
+    p = 4 * c_in + c_cond
+    params = {"w1": 0.3 * torch.randn((p, fc_dim), generator=g),
+              "b1": 0.1 * torch.randn(fc_dim, generator=g),
+              "w2": 0.2 * torch.randn((fc_dim, c_in), generator=g),
+              "b2": 0.01 * torch.randn(c_in, generator=g)}
+    x = (torch.rand((2, c_in, 38, 70), generator=g) - 0.5).to(cuda)
+    cond = ((torch.rand((2, c_cond, 38, 70), generator=g) - 0.5).to(cuda)
+            if c_cond else None)
+    packed = fs.pack_weights({k: v.to(cuda) for k, v in params.items()}, c_in, c_cond,
+                             compute_dtype)
+    thr = fs.uniform_threshold(0.5)
+    runs = []
+    for _ in range(2):
+        src = x
+        for step in range(3):
+            dst = torch.empty_like(x)
+            fs.launch_step(src, dst, cond, packed, "circular", compute_dtype, 4, step, thr,
+                           multiscale, chain=True)
+            src = dst
+        runs.append(src)
+    want = x
+    for step in range(3):
+        want = fs.reference_step(want, cond, packed, "circular", compute_dtype, 4, step, 0.5,
+                                 multiscale)
+    torch.testing.assert_close(runs[0], want, **TOL[compute_dtype])
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("preset", ["static_texture", "video_motion"])
+def test_gate_stress_pair_matches_plain(cuda, preset):
+    """The static_texture (c12/fc96, scales (0,)) and video_motion (c16/fc128,
+    scales (0, 1)) pairs with b1 set so that about a tenth of the first
+    step's z1 lies within 1e-6 of zero (a constant patch of state and
+    conditioning shares one percept; b1 leaves its z1 between 1e-7 and 1e-6
+    from zero, either side): every one of those goes through the
+    backward's certificate, which recomputes it as the forward's chain, and
+    the gradients stay within TRAIN_TOL of the plain pair's. 4 steps at
+    rate 0.5, 64^2 b1."""
+    from vsnca_tpu_torch.ops import fused_train as ft
+    from vsnca_tpu_torch.ops.perception import perceive
+
+    ms = preset == "video_motion"
+    c, f = (16, 128) if ms else (12, 96)
+    cfg = NCAConfig(c_in=c, fc_dim=f, padding_mode="circular", conditioning="pos_emb",
+                    perception_scales=(0, 1) if ms else (0,), update_rate=0.5)
+    params = dynca.dynca_init(torch.Generator().manual_seed(0), cfg, device=cuda)
+    rng = np.random.RandomState(7)
+    x = torch.from_numpy(rng.uniform(-0.5, 0.5, (1, c, 64, 64)).astype(np.float32))
+    cond = torch.from_numpy(rng.uniform(-0.5, 0.5, (1, 2, 64, 64)).astype(np.float32))
+    x[..., 4:36, 4:36] = torch.from_numpy(rng.uniform(-0.5, 0.5, (c, 1, 1)).astype(np.float32))
+    cond[..., 4:36, 4:36] = 0.25
+    x, cond = x.to(cuda), cond.to(cuda)
+    p = torch.cat([fs.multiscale_percept(x, "circular") if ms else perceive(x, "circular"),
+                   cond], dim=1)
+    z_patch = torch.einsum("p,pf->f", p[0, :, 20, 20], params["w1"])  # z1 - b1 in the patch
+    offset = rng.uniform(1e-7, 1e-6, f) * rng.choice([-1.0, 1.0], f)
+    params["b1"] = torch.from_numpy(offset.astype(np.float32)).to(cuda) - z_patch
+    z1 = torch.einsum("bphw,pf->bfhw", p, params["w1"]) + params["b1"][:, None, None]
+    near = float((z1.abs() <= 1e-6).float().mean())
+    assert near >= 0.09
+    gy = torch.from_numpy(rng.randn(1, c, 64, 64).astype(np.float32)).to(cuda)
+    pr = {k: v.clone().requires_grad_() for k, v in params.items()}
+    xr, cr = x.clone().requires_grad_(), cond.clone().requires_grad_()
+    y = ft.fused_rollout_train(pr, xr, 7, cfg, 4, cr)
+    (y * gy).sum().backward()
+    want_y, grads, dx0, dcond = ft.fused_rollout_train_reference(
+        params, x, 7, cfg, 4, cond, gy, need_dcond=True)
+    _close(y.detach(), want_y, TOL["float32"]["atol"])
+    for k in grads:
+        _close(pr[k].grad, grads[k], TRAIN_TOL["float32"])
+    _close(xr.grad, dx0, TRAIN_TOL["float32"])
+    _close(cr.grad, dcond, TRAIN_TOL["float32"])

@@ -1,6 +1,6 @@
-// Warp-level tensor-core products for the training backward kernels
-// (nca_train.cu, nca_cnca.cu): mma.sync m16n8k8 in TF32 and m16n8k16 in
-// bf16, both with float32 accumulators.
+// Warp-level tensor-core products for the DyNCA and ConditionedNCA kernels
+// (nca_step.cu, nca_train.cu, nca_cnca.cu): mma.sync m16n8k8 in TF32 and
+// m16n8k16 in bf16, both with float32 accumulators.
 //
 // float32 compute runs split TF32 ("3xTF32"): each operand a = a_hi + a_lo,
 // a_hi rounded to TF32 as cvt.rna rounds (to nearest, ties away), a_lo the
@@ -32,8 +32,20 @@
 //   "paired" over the columns of a C fragment (a product whose A is the
 //     previous product's output, still in registers): TF32 k-step j takes
 //     units (2t, 2t+1) of n-tile j as its (t, t+4); bf16 takes n-tiles j and
-//     j+1 in their natural order. See FragA.
-
+//     j+1 in their natural order. See FragA. The first layer z1 = P^T W1
+//     (z1_mma) uses the same paired order over the percept rows, k = 2t,
+//     2t+1, 2t+8, 2t+9, read from shared memory: with both row strides
+//     = 4 mod 32 every read is free of bank conflicts.
+//
+// z1 and its relu gates. The DyNCA training forward (nca_step's exact form)
+// computes z1 as a float32 FMA chain over the percept rows in order, the
+// plain version's bits; the backward (nca_bwd_mlp) and the rollout step's
+// tensor-core form share one z1 function (z1_mma + z1_finish): the split
+// TF32 or bf16 product above, then the bias, then a certificate — where
+// |z1 + b1| is below Z1_KAPPA * max_k |p_k| * sum_k |W1[k][u]|, a bound on
+// the distance between the product and the chain, the element is
+// recomputed as the chain (z1_chain). Every relu gate the backward uses is
+// therefore the forward's, whichever form ran the forward.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -111,6 +123,24 @@ struct FragA {
   }
 };
 
+// B's four values split once for any number of A operands: bf16 packs
+// them into h[0..1]; TF32 splits them into h (hi) and l (lo), [0..1] the
+// first k-step, [2..3] the second.
+template <bool BF16>
+struct FragB {
+  uint32_t h[4], l[4];
+
+  __device__ __forceinline__ void set(const float b[4]) {
+    if constexpr (BF16) {
+      h[0] = pack_bf16(b[0], b[1]);
+      h[1] = pack_bf16(b[2], b[3]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i) tf32_split(b[i], h[i], l[i]);
+    }
+  }
+};
+
 // d += A B over a depth block of 16, B's four values b[4] at the thread's
 // k = t, t+4, t+8, t+12 (strided map) or 2t, 2t+1, 2t+8, 2t+9 (paired).
 // bf16: one m16n8k16, accumulated in the tensor core. TF32: the two
@@ -122,24 +152,28 @@ struct FragA {
 // depth block.
 template <bool BF16>
 __device__ __forceinline__ void mma_frag(float d[4], const FragA<BF16>& A,
-                                         const float b[4]) {
+                                         const FragB<BF16>& B) {
   if constexpr (BF16) {
-    const uint32_t ub[2] = {pack_bf16(b[0], b[1]), pack_bf16(b[2], b[3])};
-    mma_bf16(d, A.h, ub);
+    mma_bf16(d, A.h, B.h);
   } else {
-    uint32_t bh[4], bl[4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) tf32_split(b[i], bh[i], bl[i]);
     float ss[4] = {0.f, 0.f, 0.f, 0.f}, sb[4] = {0.f, 0.f, 0.f, 0.f};
-    mma_tf32(ss, A.l, bh);
-    mma_tf32(sb, A.h, bh);
-    mma_tf32(ss, A.h, bl);
-    mma_tf32(sb, A.h + 4, bh + 2);
-    mma_tf32(ss, A.l + 4, bh + 2);
-    mma_tf32(ss, A.h + 4, bl + 2);
+    mma_tf32(ss, A.l, B.h);
+    mma_tf32(sb, A.h, B.h);
+    mma_tf32(ss, A.h, B.l);
+    mma_tf32(sb, A.h + 4, B.h + 2);
+    mma_tf32(ss, A.l + 4, B.h + 2);
+    mma_tf32(ss, A.h + 4, B.l + 2);
 #pragma unroll
     for (int i = 0; i < 4; ++i) d[i] += ss[i] + sb[i];
   }
+}
+
+template <bool BF16>
+__device__ __forceinline__ void mma_frag(float d[4], const FragA<BF16>& A,
+                                         const float b[4]) {
+  FragB<BF16> B;
+  B.set(b);
+  mma_frag<BF16>(d, A, B);
 }
 
 // d[j] += A B_j^T for j < n (n <= NT, the same for the whole warp), where
@@ -170,6 +204,132 @@ __device__ __forceinline__ void mma_rows(float d[NT][4], const float* a, const f
 #pragma unroll
         for (int q = 0; q < 4; ++q) bv[q] = b[8 * j * ld + k + 4 * q];
         mma_frag<BF16>(d[j], fa, bv);
+      }
+    }
+  }
+}
+
+// ------------------------------------------------------------------ z1
+
+// 2^-16: bounds the distance between z1_mma's sum and the FMA chain's,
+// relative to S = sum_k |p_k W1[k][u]| <= max_k |p_k| * sum_k |W1[k][u]|:
+// the chain is within P * 2^-24 / (1 - P * 2^-24) S of the exact sum
+// (4.1e-6 S at P = 68), split TF32 within ~3 * 2^-22 S a product plus the
+// tensor core's truncating additions and the block adds (< 3e-6 S), bf16
+// within the latter alone; 2^-16 = 1.5e-5 leaves a factor of two.
+#define Z1_KAPPA 1.52587890625e-05f
+
+// Percept columns in shared memory: entry (k, m) — percept row k of the
+// block's pixel m — at k * ld + (m ^ (swz & ((k & 7) << 2))): swz = -1
+// swizzles rows of 256 floats so that the paired reads stay free of bank
+// conflicts; swz = 0 reads rows padded to ld = 4 mod 32.
+struct Cols {
+  const float* p;
+  int ld, swz;
+  __device__ __forceinline__ int idx(int k, int m) const {
+    return k * ld + (m ^ (swz & ((k & 7) << 2)));
+  }
+  __device__ __forceinline__ float at(int k, int m) const { return p[idx(k, m)]; }
+};
+
+// One depth block of z1_mma from row k0: rows past P read as zeros (TAIL).
+template <bool BF16, int MT, int NT, bool TAIL>
+__device__ __forceinline__ void z1_block(float d[MT][NT][4], Cols ps, const float* w1s,
+                                         int ldw, int P, int m0, int u0, int k0, int g,
+                                         int t) {
+  const int k = k0 + 2 * t;
+  FragA<BF16> fa[MT];
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int m = m0 + 16 * i + g;
+    float av[8];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int kk = k + (q & 1) + 8 * (q >> 1);
+      const bool in = !TAIL || kk < P;
+      av[2 * q] = in ? ps.at(kk, m) : 0.f;
+      av[2 * q + 1] = in ? ps.at(kk, m + 8) : 0.f;
+    }
+    fa[i].strided(av);
+  }
+#pragma unroll
+  for (int j = 0; j < NT; ++j) {
+    float bv[4];
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const int kk = k + (q & 1) + 8 * (q >> 1);
+      bv[q] = (!TAIL || kk < P) ? w1s[kk * ldw + u0 + 8 * j + g] : 0.f;
+    }
+    FragB<BF16> fb;
+    fb.set(bv);
+#pragma unroll
+    for (int i = 0; i < MT; ++i) mma_frag<BF16>(d[i][j], fa[i], fb);
+  }
+}
+
+// d[i][j] = P^T W1 for the MT x 16 pixels m0 + 16 i + (0..15) and the
+// units u0 + 8 j + (0..7): the paired map over depth blocks of 16 of the
+// percept rows 0 .. P-1 (the last block's rows past P are zeros), W1 [P, ldw]
+// in shared memory, ldw = 4 mod 32 for conflict-free reads (8 mod 32 costs a
+// two-way conflict). Every (pixel, unit) gets the same bits whichever warp,
+// MT or NT computes it.
+template <bool BF16, int MT, int NT>
+__device__ __forceinline__ void z1_mma(float d[MT][NT][4], Cols ps, const float* w1s, int ldw,
+                                       int P, int m0, int u0, int g, int t) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) d[i][j][0] = d[i][j][1] = d[i][j][2] = d[i][j][3] = 0.f;
+  }
+  const int kf = P & ~15;
+#pragma unroll 1
+  for (int k0 = 0; k0 < kf; k0 += 16)
+    z1_block<BF16, MT, NT, false>(d, ps, w1s, ldw, P, m0, u0, k0, g, t);
+  if (kf < P) z1_block<BF16, MT, NT, true>(d, ps, w1s, ldw, P, m0, u0, kf, g, t);
+}
+
+// z1 of pixel m and unit u as the FMA chain over the percept rows in
+// order: the plain version's bits, and the training forward's.
+__device__ __noinline__ float z1_chain(Cols ps, const float* w1s, int ldw, int P, int m,
+                                          int u) {
+  float a = 0.f;
+#pragma unroll 4
+  for (int k = 0; k < P; ++k) a = fmaf(w1s[k * ldw + u], ps.at(k, m), a);
+  return a;
+}
+
+// w1n[u] = sum_k |W1[k][u]| over the P rows, in row order (both kernels
+// certify with the same bits), for u < FP. All threads of the block call
+// it; the caller synchronises before z1_finish reads it.
+__device__ __forceinline__ void z1_norms(float* w1n, const float* w1s, int ldw, int P, int FP,
+                                         int tid, int nthr) {
+  for (int u = tid; u < FP; u += nthr) {
+    float s = 0.f;
+    for (int k = 0; k < P; ++k) s += fabsf(w1s[k * ldw + u]);
+    w1n[u] = s;
+  }
+}
+
+// d = z1 + b1 in place, each element certified or recomputed as the chain
+// (see the header): pmx[m] (and pmx2[m], the other half of a pixel's
+// percept rows where two threads built it) is max_k |p_k| of pixel m.
+template <int MT, int NT>
+__device__ __forceinline__ void z1_finish(float d[MT][NT][4], Cols ps, const float* w1s, int ldw,
+                                          const float* b1s, const float* w1n, const float* pmx,
+                                          const float* pmx2, int P, int m0, int u0, int g,
+                                          int t) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int m = m0 + 16 * i + g + 8 * (e >> 1);
+      const float pm = fmaxf(pmx[m], pmx2[m]);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const int u = u0 + 8 * j + 2 * t + (e & 1);
+        float z = d[i][j][e] + b1s[u];
+        if (fabsf(z) < Z1_KAPPA * pm * w1n[u]) z = z1_chain(ps, w1s, ldw, P, m, u) + b1s[u];
+        d[i][j][e] = z;
       }
     }
   }

@@ -32,7 +32,7 @@
 //     read gx by then.
 // Scales (0, 1): nca_bwd_mlp's MS form recomputes the averaged percept
 // through nca_step's own device functions (nca_common.cuh::half_percept,
-// ms_average), so z1 and the relu gates agree with the forward bit for bit,
+// ms_average), so the percept and the relu gates agree with the forward,
 // and its gp is the cotangent of the average. nca_bwd_adjoint_ms is the
 // transpose of down -> half-res stencils -> clamped up, plus the scale-0
 // stencils, averaged 0.5 — in gather form: each block forms U^T gp over W,
@@ -46,41 +46,41 @@
 // reverse walk serves a whole tapped schedule.
 //
 // What bounds it on an H100: per pixel and step nca_bwd_mlp does the
-// forward's first layer again (z1 = W1^T p, P*F FMAs; the second layer is
-// not recomputed) plus W2 gdx (F*C), W1 gz1 (P*F) and the weight-gradient
+// forward's first layer again (z1 = W1^T p, P*F multiply-adds; the second
+// layer is not recomputed) plus W2 gdx (F*C), W1 gz1 (P*F) and the weight-gradient
 // products summed over pixels (P*F + F*C): 2*(3*P*F + 2*F*C) FLOP, 33.4
 // kFLOP at c12/fc96/pos_emb, 55.8 k at c16/fc128/pos_emb, against ~32 C*4 +
 // cc*4 bytes of state, cond, gx and gp: arithmetic bounds it. The first
 // design ran all of it as float32 FMAs on the CUDA cores, and its
 // weight-gradient products at shared-memory speed (two loads an FMA).
 //
-// What the design does about it: everything after the relu gate runs on
-// the tensor cores as warp-level mma.sync (nca_mma.cuh; float32 compute in
-// split TF32, bf16 compute in bf16, float32 accumulators), and only the
-// recompute of z1 stays on the CUDA cores, in nca_step's order through the
-// shared device functions, so the gates are the forward's bits (P*F of the
-// 3*P*F + 2*F*C FMAs a pixel). A block is a 16 x 16 tile of 256 pixels and
+// What the design does about it: every product runs on the tensor cores as
+// warp-level mma.sync (nca_mma.cuh; float32 compute in split TF32, bf16
+// compute in bf16, float32 accumulators). The recompute of z1 goes through
+// the rollout step's own z1 function (z1_mma, z1_finish): the product, then
+// a certificate that recomputes, as the forward's FMA chain, every element
+// whose relu input lies within the product's error bound of zero, so the
+// gates are the forward's bits. A block is a 16 x 16 tile of 256 pixels and
 // 512 threads (16 warps: twice the first design's, as many as two 256-thread
-// blocks; its ~220 KB of shared memory at c16/fc128/cc2 allows one block an
+// blocks; its ~223 KB of shared memory at c16/fc128/cc2 allows one block an
 // SM). Two threads a pixel build the percept and the gdx columns in shared
 // memory (stride 260 floats, so every fragment read is free of bank
 // conflicts); the weights and the state tile arrive by cp.async. Then, a
-// chunk of 32 hidden units at a time: the block recomputes z1 and writes
-// hid, a thread 4 units x 4 pixels; each warp forms W2 gdx for its 16
-// pixels x 32 units (M = pixels, K = channels), gates it into gz1 in
-// registers and feeds those registers straight into gp += W1 gz1 (M =
-// pixels, K = units, N = percept rows; gp accumulates in registers over the
-// chunks); then the block's dW1^T = gz1^T [p | 1] and dW2^T = hid^T gdx
-// (depth = the 256 pixels) go to the warps as groups of 16 x 8 output tiles
-// that share their A rows, each group summed by two warps over half the
-// pixels and added once into the block's slot (db1 is the ones row of the
-// percept; db2 a warp reduction). No atomics: every block owns the same
+// chunk of 32 hidden units at a time: each warp forms z1 for its 16 pixels
+// x 32 units and writes hid; forms W2 gdx (M = pixels, K = channels), gates
+// it into gz1 in registers and feeds those registers straight into gp += W1
+// gz1 (M = pixels, K = units, N = percept rows; gp accumulates in registers
+// over the chunks); then the block's dW1^T = gz1^T [p | 1] and dW2^T = hid^T
+// gdx (depth = the 256 pixels) go to the warps as groups of 16 x 8 output
+// tiles that share their A rows, each group summed by two warps over half
+// the pixels and added once into the block's slot (db1 is the ones row of
+// the percept; db2 a warp reduction). No atomics: every block owns the same
 // pixels and slot every step and sums in a fixed order, so two launches
 // give the same bits. Measured on the H100 (PERF.md §6): 0.47 ms at 256^2
-// b3 c16/fc128 against 1.90 for the first design; a clock64 profile of a
-// block puts a quarter of its time in the z1 recompute, a third in the
-// weight-gradient products and a sixth each in W2 gdx + W1 gz1 and the
-// percept.
+// b3 c16/fc128 with z1 as float32 FMAs against 1.90 for the first design; a
+// clock64 profile of that block put a quarter of its time in the z1
+// recompute, a third in the weight-gradient products and a sixth each in W2
+// gdx + W1 gz1 and the percept.
 // The multiscale adjoint adds per pixel and channel 4 x 22 x 10 / 256 U_W^T
 // gathers of 4 reads (from L1/L2) and the half-resolution stencils: bytes
 // and latency, not FLOPs; its 9.3 KB of static shared memory leaves room for
@@ -144,6 +144,7 @@ __device__ __forceinline__ float stencil_adjoint(float raw, const float* tx,
 //   w1s [PN, LDW]  W1, rows in the percept's block order, zero past P and F4
 //   w2s [FP, 20]   W2 (unit-major), zero past F4 and C
 //   b1s [FP]
+//   w1n [FP]       sum_k |W1[k][u]| (z1's certificate, nca_mma.cuh)
 //   ps  [PN, LDM]  percept columns, one per pixel; row P all ones (db1 rides
 //                  in dW1's product), rows past it zero; gp at the end
 //   gds [16, LDM]  gdx columns, zero past C
@@ -151,6 +152,8 @@ __device__ __forceinline__ float stencil_adjoint(float raw, const float* tx,
 //   gzs [FC, LDM]  gz1 of the current chunk
 //   red [8, 3, 4, 32]  the second pixel half's sums of the weight-gradient
 //                  tiles
+//   pmx [2, 256]   max |p| of each pixel over the rows each of its two
+//                  threads built (z1's certificate)
 // The C x 18 x 18 state tile (and with MS the half-state tile and the half
 // percept, nca_common.cuh::half_percept) lives in hs/gzs until the percept
 // is built. PN = P + 1 rounded up to 8, FP = F4 rounded up to FC,
@@ -172,11 +175,13 @@ nca_bwd_mlp_kernel(const float* __restrict__ x, const float* __restrict__ cond,
   float* w1s = smem;
   float* w2s = w1s + PN * LDW;
   float* b1s = w2s + FP * NB_LDW2;
-  float* ps = b1s + FP;
+  float* w1n = b1s + FP;
+  float* ps = w1n + FP;
   float* gds = ps + PN * NB_LDM;
   float* hs = gds + NCA_C_MAX * NB_LDM;
   float* gzs = hs + NB_FC * NB_LDM;
   float* red = gzs + NB_FC * NB_LDM;
+  float* pmx = red + NB_RED;
   float* tile = hs;
   float* htile = tile + C * NCA_HALO * NCA_HALO;
   float* hp = htile + C * NCA_HHALO * NCA_HHALO;
@@ -242,6 +247,7 @@ nca_bwd_mlp_kernel(const float* __restrict__ x, const float* __restrict__ cond,
   // Percept and gdx columns, the two threads of a pixel taking alternate
   // channels. A pixel past the grid's edge gets zeros, which add nothing to
   // any gradient (its gdx is 0, so is its gz1).
+  float pm = 0.f;  // max |p| over this thread's percept rows (certificate)
   for (int c = half; c < C; c += 2) {
     float v = 0.f, sx = 0.f, sy = 0.f, lap = 0.f;
     if (valid) {
@@ -265,11 +271,16 @@ nca_bwd_mlp_kernel(const float* __restrict__ x, const float* __restrict__ cond,
     ps[(C + c) * NB_LDM + pix] = sx;
     ps[(2 * C + c) * NB_LDM + pix] = sy;
     ps[(3 * C + c) * NB_LDM + pix] = lap;
+    pm = fmaxf(fmaxf(pm, fmaxf(fabsf(v), fabsf(sx))), fmaxf(fabsf(sy), fabsf(lap)));
   }
   for (int j = half; j < cc; j += 2) {
-    const float v = valid ? cond[((size_t)b * cc + j) * HW + gpix] : 0.f;
-    ps[(4 * C + j) * NB_LDM + pix] = BF16 ? bf16_round(v) : v;
+    float v = valid ? cond[((size_t)b * cc + j) * HW + gpix] : 0.f;
+    v = BF16 ? bf16_round(v) : v;
+    ps[(4 * C + j) * NB_LDM + pix] = v;
+    pm = fmaxf(pm, fabsf(v));
   }
+  pmx[half * NT_THREADS + pix] = pm;
+  z1_norms(w1n, w1s, LDW, P, FP, tid, NB_THREADS);
   for (int r = P + half; r < PN; r += 2)
     ps[r * NB_LDM + pix] = (r == P && valid) ? 1.f : 0.f;
   const bool on =
@@ -283,6 +294,7 @@ nca_bwd_mlp_kernel(const float* __restrict__ x, const float* __restrict__ cond,
   // This warp's 16 pixels (tile row `warp`) as the A operand of W2 gdx,
   // the channels in the strided map.
   const int row0 = NCA_TILE * warp;
+  const Cols cols{ps, NB_LDM, 0};
   float ga[8];
 #pragma unroll
   for (int q = 0; q < 4; ++q) {
@@ -303,34 +315,20 @@ nca_bwd_mlp_kernel(const float* __restrict__ x, const float* __restrict__ cond,
   float* sdb2 = sdw2 + F4 * C;              // [C]
 
   for (int f0 = 0; f0 < FP; f0 += NB_FC) {
-    // z1 = W1^T p + b1 on the CUDA cores in nca_step's order (k = 0 .. P-1,
-    // then the bias), so the relu gates are the forward's; hid to hs,
-    // unrounded (bf16 rounds it as an operand). A thread takes 4 units of
-    // the chunk for 4 pixels, 64 apart: a broadcast float4 of W1 (512 bytes
-    // through the shared memory's 128 a clock) and four percept reads feed
-    // 16 FMAs.
-    {
-      const int p0 = tid & 63, ul = 4 * (tid >> 6), u0 = f0 + ul;
-      float z[4][4];
+    // z1 + b1 for this warp's 16 pixels x the chunk's 32 units through the
+    // rollout step's own z1 function (nca_mma.cuh: the tensor-core product
+    // and the near-zero certificate), so every relu gate is the forward's;
+    // hid to hs, unrounded (bf16 rounds it as an operand).
+    float z[1][NB_FC / 8][4];
+    z1_mma<BF16, 1, NB_FC / 8>(z, cols, w1s, LDW, P, row0, f0, g, t);
+    z1_finish<1, NB_FC / 8>(z, cols, w1s, LDW, b1s, w1n, pmx, pmx + NT_THREADS, P, row0,
+                            f0, g, t);
 #pragma unroll
-      for (int i = 0; i < 4; ++i) z[i][0] = z[i][1] = z[i][2] = z[i][3] = 0.f;
-      for (int k = 0; k < P; ++k) {
-        const float4 w = *reinterpret_cast<const float4*>(w1s + k * LDW + u0);
+    for (int j = 0; j < NB_FC / 8; ++j) {
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float v = ps[k * NB_LDM + p0 + 64 * i];
-          z[i][0] = fmaf(w.x, v, z[i][0]);
-          z[i][1] = fmaf(w.y, v, z[i][1]);
-          z[i][2] = fmaf(w.z, v, z[i][2]);
-          z[i][3] = fmaf(w.w, v, z[i][3]);
-        }
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 4; ++j)
-          hs[(ul + j) * NB_LDM + p0 + 64 * i] = fmaxf(z[i][j] + b1s[u0 + j], 0.f);
-      }
+      for (int e = 0; e < 4; ++e)
+        hs[(8 * j + 2 * t + (e & 1)) * NB_LDM + row0 + g + 8 * (e >> 1)] =
+            fmaxf(z[0][j][e], 0.f);
     }
     __syncthreads();  // hid of the chunk
 
@@ -348,7 +346,7 @@ nca_bwd_mlp_kernel(const float* __restrict__ x, const float* __restrict__ cond,
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int o = (8 * j + 2 * t + (e & 1)) * NB_LDM + row0 + g + 8 * (e >> 1);
-        float v = hs[o] > 0.f ? gz[j][e] : 0.f;
+        float v = z[0][j][e] > 0.f ? gz[j][e] : 0.f;
         if (BF16) v = bf16_round(v);
         gz[j][e] = v;
         gzs[o] = v;
@@ -648,8 +646,9 @@ int nca_bwd_mlp_launch(const float* x, const float* cond, const float* gx,
   // tile and percept, until the percept columns are built:
   // C * (18^2 + 12^2 + 4 * 10^2) <= 13888 floats fit in them
   const size_t smem =
-      sizeof(float) * ((size_t)PN * (FP + 8) + (size_t)FP * NB_LDW2 + FP +
-                       (size_t)(PN + NCA_C_MAX + 2 * NB_FC) * NB_LDM + NB_RED);
+      sizeof(float) * ((size_t)PN * (FP + 8) + (size_t)FP * NB_LDW2 + 2 * FP +
+                       (size_t)(PN + NCA_C_MAX + 2 * NB_FC) * NB_LDM + NB_RED +
+                       2 * NT_THREADS);
   const dim3 grid((W + NCA_TILE - 1) / NCA_TILE, (H + NCA_TILE - 1) / NCA_TILE,
                   B);
   const dim3 block(NB_THREADS);

@@ -39,13 +39,20 @@ ops, so the kernel and the plain version draw bit-identical masks at any
 update rate. ``jax.random``'s bits cannot be reproduced, so parity with the
 JAX package holds at ``update_rate=1`` and otherwise only in distribution.
 
+``nca_step`` and ``nca_step_ms`` come in two forms of one template: the
+tensor-core form (the MLP as ``mma.sync``, split TF32 or bf16) and the
+chain form (the MLP as float32 FMAs in the plain version's order, bit for
+bit). The training pair launches the chain form; so does the scales-(0,)
+rollout under bf16 compute (``chain_form`` says why); every other rollout
+launches the tensor-core form.
+
 Every entry launches a kernel for a CUDA tensor and runs the plain version
 (``fused_rollout_chw_reference``) only for a CPU tensor; there is no
 fallback. ``fused_rollout`` runs ``dynca_rollout``'s eager steps where
 ``select_rollout_kernel`` returns None, as the JAX wrapper runs its scan:
 that is the reference's semantics for a config no kernel takes. ``LAUNCHES``
 counts kernel launches (one per step); ``KERNEL_LAUNCHES`` splits them by
-kernel form.
+kernel form (``nca_step_chain`` and ``nca_step_ms_chain`` the chain forms).
 """
 
 from __future__ import annotations
@@ -65,6 +72,7 @@ from vsnca_tpu_torch.ops.perception import perceive
 LAUNCHES = 0
 KERNEL_LAUNCHES: Dict[str, int] = {
     "nca_step": 0, "nca_step_ms": 0, "nca_step_mat": 0, "nca_step_bf16_state": 0,
+    "nca_step_chain": 0, "nca_step_ms_chain": 0,
 }
 
 PAD_CODES = {"circular": 0, "replicate": 1, "zeros": 2}
@@ -325,22 +333,42 @@ def fused_rollout_chw(
         dst = bufs[i % 2]
         launch_step(src, dst, cond, packed, cfg.padding_mode, compute_dtype,
                     seed, first_step + i, uniform_threshold(rate),
-                    form == "nca_step_ms", mat)
+                    form == "nca_step_ms", mat, chain_form(form, compute_dtype))
         src = dst
     return src
+
+
+def chain_form(form: str, compute_dtype: str) -> bool:
+    """Whether a rollout of ``form`` runs ``nca_step``'s chain form rather
+    than its tensor-core form: the scales-(0,) step with a float32 state
+    under bf16 compute. Its percept is rounded to bf16 every step, so a
+    one-ulp difference in a state (the tensor-core second layer sums in
+    another order than the plain version) flips percept roundings, and over
+    the served 24 steps at 256^2 the state drifted 2.07e-3 from the plain
+    version's against ``TOL['bfloat16']`` 1e-3 (H100, chip_smoke.py); the
+    chain form reproduces the plain version's bits. The multiscale step
+    (whose average damps the flips: 7.0e-4 over 24 steps at 256^2 b3), the
+    float32 step and the bf16-state step run on the tensor cores."""
+    return form == "nca_step" and compute_dtype == "bfloat16"
 
 
 def launch_step(src: torch.Tensor, dst: torch.Tensor, cond: Optional[torch.Tensor],
                 packed: Tuple[torch.Tensor, ...], padding_mode: str,
                 compute_dtype: str, seed: int, step: int, thr: int,
-                multiscale: bool = False, mat: bool = False) -> None:
+                multiscale: bool = False, mat: bool = False, chain: bool = False) -> None:
     """One step launch on the current stream: ``src`` → ``dst`` (distinct
     contiguous CUDA buffers [B, C, H, W]) with the mask of absolute step
     ``step``; ``packed`` from ``pack_weights`` (with its ``mat`` for
     ``mat``). The form: ``nca_step_ms`` with ``multiscale``,
     ``nca_step_mat`` with ``mat``, the bf16-state ``nca_step`` for bfloat16
-    buffers (cond bfloat16 too), else ``nca_step``. Counts the launch in
-    ``LAUNCHES`` and ``KERNEL_LAUNCHES``."""
+    buffers (cond bfloat16 too), else ``nca_step``. ``nca_step`` and
+    ``nca_step_ms`` run the MLP on the tensor cores; with ``chain`` (a
+    float32 state) they run it as float32 FMAs in the plain version's order
+    instead (``nca_step_chain``, ``nca_step_ms_chain``): the training
+    pair's forward, whose states, and so its relu gates, must be the plain
+    pair's bits (see csrc/nca_step.cu), and the bf16 scales-(0,) rollout
+    (``chain_form``). Counts the launch in ``LAUNCHES`` and
+    ``KERNEL_LAUNCHES``."""
     global LAUNCHES
     w1, b1, w2, b2 = packed
     b, c, h, w = src.shape
@@ -358,8 +386,8 @@ def launch_step(src: torch.Tensor, dst: torch.Tensor, cond: Optional[torch.Tenso
     elif bf16_state:
         name, fn, ms = "nca_step_bf16_state", lib.nca_step_bf16_state_launch, ()
     else:
-        name = "nca_step_ms" if multiscale else "nca_step"
-        fn, ms = lib.nca_step_launch, (int(multiscale),)
+        name = ("nca_step_ms" if multiscale else "nca_step") + ("_chain" if chain else "")
+        fn, ms = lib.nca_step_launch, (int(multiscale), int(chain))
     with torch.cuda.device(src.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(src.device).cuda_stream)
         err = fn(*head, *ms, *tail, stream)
@@ -373,14 +401,30 @@ def _launcher() -> ctypes.CDLL:
     lib = _build.load("nca_step")
     if lib.nca_step_launch.argtypes is None:
         ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-        lib.nca_step_launch.argtypes = [ptr] * 7 + [i32] * 9 + [u32] * 3 + [ptr]
+        lib.nca_step_launch.argtypes = [ptr] * 7 + [i32] * 10 + [u32] * 3 + [ptr]
         lib.nca_step_launch.restype = ctypes.c_int
+        lib.nca_step_occupancy.argtypes = [i32] * 6 + [ctypes.POINTER(ctypes.c_int)] * 2
+        lib.nca_step_occupancy.restype = ctypes.c_int
         for fn in (lib.nca_step_mat_launch, lib.nca_step_bf16_state_launch):
             fn.argtypes = [ptr] * 7 + [i32] * 8 + [u32] * 3 + [ptr]
             fn.restype = ctypes.c_int
         lib.nca_step_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
         lib.nca_step_limits.restype = ctypes.c_int
     return lib
+
+
+def step_occupancy(c: int, cc: int, fc_dim: int, compute_dtype: str, multiscale: bool,
+                   form: str) -> Tuple[int, int]:
+    """(blocks an SM, dynamic shared-memory bytes) of a step kernel at these
+    widths, from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``: ``form``
+    'tc' (``nca_step``/``nca_step_ms``), 'bf16_state' or 'chain'."""
+    blocks, smem = ctypes.c_int(), ctypes.c_int()
+    err = _launcher().nca_step_occupancy(
+        c, cc, fc_dim + (-fc_dim % 4), int(compute_dtype == "bfloat16"), int(multiscale),
+        ("tc", "bf16_state", "chain").index(form), ctypes.byref(blocks), ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"nca_step_occupancy failed: CUDA error {err}")
+    return blocks.value, smem.value
 
 
 def kernel_limits() -> Tuple[int, int, int]:

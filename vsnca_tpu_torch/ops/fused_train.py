@@ -9,7 +9,9 @@ Counterpart of ``vsnca_tpu/ops/pallas_train.py::fused_rollout_train_flat``
 
 - forward (``_make_fwd_kernel_flat`` :942, and for perception_scales (0, 1)
   ``_make_fwd_kernel_flat_tiled_ms`` :1031): one ``nca_step`` (or
-  ``nca_step_ms``) launch a step, each step's input state written into a
+  ``nca_step_ms``) launch a step in its chain form (the MLP as float32 FMAs
+  in the plain version's order, so the pair's states and relu gates are the
+  plain pair's bits), each step's input state written into a
   checkpoint buffer [n_steps, B, C, H, W] — the TPU's segment 1, with no
   recompute. The masks are the hash of (seed, batch, step, pixel)
   (``fused_step.mask_bits``), so the backward regenerates them exactly;
@@ -253,7 +255,7 @@ def _forward_card(packed, x, cond, spec: _Spec):
         nxt = s + 1
         dst = y if nxt == n else ckpt[nxt // k] if nxt % k == 0 else bufs[s % 2]
         fs.launch_step(src, dst, cond, packed, "circular", spec.compute_dtype,
-                       spec.seed, spec.first_step + s, spec.thr, spec.multiscale)
+                       spec.seed, spec.first_step + s, spec.thr, spec.multiscale, chain=True)
         _count("nca_step_ms" if spec.multiscale else "nca_step")
         if nxt in spec.tap_steps:
             taps.append(dst.clone())
@@ -291,7 +293,7 @@ def _segment_states(ckpt, seg: int, cond, packed, spec: _Spec, scratch, step):
 
 def _recompute_card(src, dst, cond, packed, spec: _Spec, step: int):
     fs.launch_step(src, dst, cond, packed, "circular", spec.compute_dtype, spec.seed,
-                   step, spec.thr, spec.multiscale)
+                   step, spec.thr, spec.multiscale, chain=True)
     _count("nca_step_ms" if spec.multiscale else "nca_step")
     return dst
 

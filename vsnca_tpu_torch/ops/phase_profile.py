@@ -1,18 +1,24 @@
-"""Where the time goes inside the training backward kernels: a per-phase
-clock profile of ``nca_bwd_mlp(_ms)`` and ``cnca_bwd_mlp`` on the card.
+"""Where the time goes inside the tensor-core kernels: a per-phase clock
+profile of the rollout step ``nca_step_ms`` (its tensor-core and chain
+forms) and of the training backward's ``nca_bwd_mlp(_ms)`` and
+``cnca_bwd_mlp`` on the card.
 
 ``python3 -m vsnca_tpu_torch.ops.phase_profile`` (a CUDA card and ``nvcc``
-needed) writes instrumented copies of ``csrc/nca_train.cu`` and
-``csrc/nca_cnca.cu`` into ``build/kernels/profile/``: after every
-``__syncthreads()`` of the two ``*_bwd_mlp_kernel`` bodies, thread 0 of each
-block adds the ``clock64()`` cycles since the previous sample into a device
-counter for that phase. It builds them, launches each kernel at the shapes
-of PERF.md's kernel table through the port's own wrappers (the instrumented
-library stands in for the built one), and prints each phase's mean cycles a
-block and its share. Each phase ends at a barrier, so its cycles include the
-wait for the block's slowest warp. The kernels' results are not checked
-here: ``chip_smoke.py`` and ``tests/test_torch_cuda.py`` hold the
-uninstrumented kernels to their plain versions.
+needed) writes instrumented copies of ``csrc/nca_step.cu``,
+``csrc/nca_train.cu`` and ``csrc/nca_cnca.cu`` into
+``build/kernels/profile/``: after every ``__syncthreads()`` of the
+``nca_step_kernel`` and ``*_bwd_mlp_kernel`` bodies, and after every
+``// phase:`` comment, thread 0 of each block adds the ``clock64()`` cycles
+since the previous sample into a device counter for that phase. It builds
+them, launches each kernel at the shapes of PERF.md's kernel table through
+the port's own wrappers (the instrumented library stands in for the built
+one), and prints each phase's mean cycles a block and its share. A phase
+that ends at a barrier includes the wait for the block's slowest warp; one
+that ends at a ``// phase:`` mark (the step's z1 and second layer, a chunk
+of units at a time, and its store) counts thread 0's warp alone. The
+kernels' results are not checked here: ``chip_smoke.py`` and
+``tests/test_torch_cuda.py`` hold the uninstrumented kernels to their plain
+versions.
 """
 
 from __future__ import annotations
@@ -28,7 +34,8 @@ import torch
 from vsnca_tpu_torch.ops import _build
 
 OUT = _build.BUILD_DIR / "profile"
-KERNELS = {"nca_train": "nca_bwd_mlp_kernel(", "nca_cnca": "cnca_bwd_mlp_kernel("}
+KERNELS = {"nca_step": "nca_step_kernel(", "nca_train": "nca_bwd_mlp_kernel(",
+           "nca_cnca": "cnca_bwd_mlp_kernel("}
 MAX_PHASES = 32
 
 _COUNTERS = f"""
@@ -61,6 +68,9 @@ def instrument(name: str) -> List[str]:
         if "__syncthreads();" in line:
             lines.append(f"  PHASE({len(labels)});")
             labels.append(line.split("//", 1)[1].strip() if "//" in line else "")
+        elif "// phase:" in line:
+            lines.append(f"  PHASE({len(labels)});")
+            labels.append(line.split("// phase:", 1)[1].strip())
     body = "\n".join(lines).replace(
         "float smem[];", "float smem[];\n  long long t_phase = clock64();", 1)
     out = src[:start] + body + src[end:]
@@ -70,7 +80,7 @@ def instrument(name: str) -> List[str]:
 
 
 def build() -> Dict[str, List[str]]:
-    """Instrument and compile both sources (one nvcc each, together) and put
+    """Instrument and compile the sources (one nvcc each, together) and put
     the libraries in place of the built ones for this process."""
     labels, procs = {}, {}
     for name in KERNELS:
@@ -111,6 +121,26 @@ def main(reps: int = 10) -> None:
     labels = build()
     print(torch.cuda.get_device_name(0))
     thr = fs.uniform_threshold(0.5)
+    lib = _build._LIBS["nca_step"]
+    for b, cdt, chain in ((3, "float32", False), (1, "bfloat16", False), (3, "float32", True)):
+        cfg = NCAConfig(c_in=16, fc_dim=128, padding_mode="circular", conditioning="pos_emb",
+                        perception_scales=(0, 1))
+        params = dynca_init(torch.Generator().manual_seed(0), cfg, device="cuda")
+        g = torch.Generator().manual_seed(3)
+        x = (torch.rand((b, 16, 256, 256), generator=g) - 0.5).cuda()
+        cond = (torch.rand((b, 2, 256, 256), generator=g) - 0.5).cuda()
+        dst = torch.empty_like(x)
+        packed = fs.pack_weights(params, 16, 2, cdt)
+        fs.launch_step(x, dst, cond, packed, "circular", cdt, 5, 17, thr, True,
+                       chain=chain)  # warm-up
+        torch.cuda.synchronize()
+        lib.read_phase_clocks((ctypes.c_ulonglong * MAX_PHASES)())
+        for _ in range(reps):
+            fs.launch_step(x, dst, cond, packed, "circular", cdt, 5, 17, thr, True, chain=chain)
+        torch.cuda.synchronize()
+        _report(lib, labels["nca_step"], ft.n_blocks(b, 256, 256), reps,
+                f"nca_step_ms{'_chain' if chain else ''} c16/fc128 256^2 b{b} {cdt} (the "
+                f"other form's phases read 0)")
     lib = _build._LIBS["nca_train"]
     for c, f, ms, b, n, cdt in ((12, 96, False, 4, 128, "float32"),
                                 (16, 128, True, 3, 256, "float32"),
