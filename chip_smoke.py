@@ -35,7 +35,14 @@ exit and no result line:
    pos_emb / edges, rates 1 and 0.5, f32 and bf16 compute; the streaming entry
    at 1024^2 b1 x 4 steps; the segment-checkpointed CHW pair at the
    static_texture cell (128^2 b4 x 128 steps, K = 16) against K = 1 and
-   against its plain segment walk;
+   against its plain segment walk; the redesigned nca_bwd_adjoint_ms at
+   256^2 b3 and at 16^2, 18^2, 40x72 and 34x66 b2 (footprints that wrap or
+   are ragged) with a tap and without, and the redesigned cnca_update at
+   64^2 b8 and b1, 8^2 and 24x40 b2, living channel on and off, f32 and bf16,
+   rates 1 and 0.5; the ConditionedNCA pair at 64^2 b8 x 24 steps with b1
+   and b2 set so that a tenth of h1's and h2's pre-activations lie within
+   1e-6 of zero (the guard that the update and the backward's recompute
+   share their bits);
 3. the serving path: ``StylizeServer`` with the edge-conditioned model at
    full width (c12/fc96, random weights from a seed) answers session, frame,
    damage, reset, stream and stats requests at 256^2 with 24 steps a frame;
@@ -99,8 +106,11 @@ exit and no result line:
    nca_bwd_mlp_ms at 256^2 b3 f32 and b1 bf16, cnca_bwd_mlp at 64^2 b8 and
    b1 f32) by CUDA events and by the profiler's device time, beside their
    float32 and tensor-core bounds, with ptxas' registers and spills, blocks
-   an SM, and two launches checked for the same bits; VGG16's loss forward
-   and backward with the equality-mask pool and with F.max_pool2d, in turns.
+   an SM, and two launches checked for the same bits; the same for the
+   redesigned CUDA-core kernels, nca_bwd_adjoint_ms at 256^2 b3 and
+   cnca_update at 64^2 b8 and b1, beside their float32 bounds; VGG16's loss
+   forward and backward with the equality-mask pool and with F.max_pool2d,
+   in turns.
 
 The last two lines are the kernels' JSON record and
 ``{"ok": true, "device": {...}}``. Needs one card; exits non-zero without
@@ -2130,6 +2140,191 @@ def time_tc_kernels(torch, fs, ft, fc, cn, ConditionedNCAConfig, _build):
     return out
 
 
+# --------------------------- the redesigned CUDA-core kernels (PERF.md rows 10, 11)
+
+# (shape, channels) of nca_bwd_adjoint_ms's footprint cases: 256^2 b3 the
+# video_motion shape; 16^2 (the half-resolution footprint wraps more than
+# once), 18^2 and 34x66 (rows of 18 and 66 floats: the 4-byte staging) and
+# 40x72 (ragged against 16 x 16 blocks)
+ADJ_SHAPES = ((3, 16, 256, 256), (2, 16, 16, 16), (2, 16, 18, 18), (2, 16, 40, 72),
+              (2, 16, 34, 66))
+# cnca_update's: 64^2 b8 and b1 the trainer's and the grower's shapes; 8^2 and
+# 24x40 ragged against its 16 x 8 blocks
+UPDATE_SHAPES = ((8, 64, 64), (1, 64, 64), (2, 8, 8), (2, 24, 40))
+
+
+def phase_compare_redesigned(torch, ft, fc, cn, ConditionedNCAConfig):
+    """nca_bwd_adjoint_ms and cnca_update, redesigned for the H100, alone
+    against their plain versions on the same card tensors: the adjoint at
+    ADJ_SHAPES with a tap and without, within MS_STATE_TOL of the largest
+    element; the update at UPDATE_SHAPES, living channel on and off, f32 and
+    bf16, rates 1 and 0.5, within CNCA_TOL. Returns the largest absolute
+    difference of each."""
+    worst = {"nca_bwd_adjoint_ms": 0.0, "cnca_update": 0.0}
+    g = torch.Generator().manual_seed(11)
+    rel_adj, n_adj = 0.0, 0
+    for b, c, h, w in ADJ_SHAPES:
+        gp = torch.randn((b, 4 * c, h, w), generator=g).cuda()
+        gx = torch.randn((b, c, h, w), generator=g).cuda()
+        gtap = torch.randn((b, c, h, w), generator=g).cuda()
+        for tap in (None, gtap):
+            got = ft.nca_bwd_adjoint(gp, gx, tap, True)
+            want = ft.nca_bwd_adjoint_reference(gp, gx, tap, True)
+            torch.cuda.synchronize()
+            err, rel = float((got - want).abs().max()), scaled_err(got, want)
+            worst["nca_bwd_adjoint_ms"] = max(worst["nca_bwd_adjoint_ms"], err)
+            rel_adj, n_adj = max(rel_adj, rel), n_adj + 1
+            if not (rel <= MS_STATE_TOL and bool(torch.isfinite(got).all())):
+                raise SystemExit(f"nca_bwd_adjoint_ms disagrees with its plain version at "
+                                 f"{h}x{w} b{b}, tap {tap is not None}: {rel:.2e} of max")
+    print(f"  nca_bwd_adjoint_ms: {n_adj} cases (256^2 b3, 16^2, 18^2, 40x72, 34x66 b2, C 16, "
+          f"tap on/off): max|kernel-plain|/max|plain| {rel_adj:.2e} (tol {MS_STATE_TOL:.0e}), "
+          f"max|kernel-plain| {worst['nca_bwd_adjoint_ms']:.3e} ok")
+    rel_up = {"float32": 0.0, "bfloat16": 0.0}
+    n_up = 0
+    for shape in UPDATE_SHAPES:
+        for use_life in (True, False):
+            for rate in (1.0, 0.5):
+                cfg, params, x, goal = cnca_case(torch, cn, ConditionedNCAConfig, shape, rate,
+                                                 use_life)
+                thr = fc.fs.uniform_threshold(rate)
+                for cdt in ("float32", "bfloat16"):
+                    packed = fc.pack_weights(params, cfg, cdt)
+                    got = torch.empty_like(x)
+                    fc.launch_update(x, goal, got, packed, cfg, cdt, 3, 5, thr)
+                    want = fc.cnca_update_reference(x, goal, packed, cfg, cdt, 3, 5, rate)
+                    torch.cuda.synchronize()
+                    err, rel = float((got - want).abs().max()), scaled_err(got, want)
+                    worst["cnca_update"] = max(worst["cnca_update"], err)
+                    rel_up[cdt] = max(rel_up[cdt], rel)
+                    n_up += 1
+                    if not (rel <= CNCA_TOL[cdt] and bool(torch.isfinite(got).all())):
+                        raise SystemExit(f"cnca_update disagrees with its plain version at "
+                                         f"{shape} living {use_life} rate {rate} {cdt}: "
+                                         f"{rel:.2e} of max")
+    print(f"  cnca_update: {n_up} cases (64^2 b8, b1, 8^2 b2, 24x40 b2 x living on/off x rate "
+          f"1/0.5 x f32/bf16): max|kernel-plain|/max|plain| f32 {rel_up['float32']:.2e}, bf16 "
+          f"{rel_up['bfloat16']:.2e} (tol {CNCA_TOL['float32']:.0e}, "
+          f"{CNCA_TOL['bfloat16']:.0e}) ok")
+    return worst
+
+
+def phase_cnca_gate_stress(torch, fc, cn, ConditionedNCAConfig):
+    """The ConditionedNCA training pair (cnca_update + cnca_gate forward,
+    cnca_bwd_mlp recomputing h1, h2 and xn in the update's order) with b1
+    and b2 shifted so that about a tenth of the first step's h1 and h2
+    pre-activations lie within 1e-6 of zero: a 24 x 24 patch of constant
+    state and goal shares one percept, and b1 (then b2, from the patch's h1)
+    leaves each unit's pre-activation there between 1e-7 and 1e-6 from zero,
+    either side. A forward and a recompute on different bits would flip
+    those gates; the pair's state and gradients stay within CNCA_TOL of the
+    plain pair's. 64^2 b8 x 24 steps, rate 0.5, f32. Returns the share of
+    pre-activations within 1e-6 of zero (h1, h2) and the largest scaled
+    error."""
+    cfg, params, x, goal = cnca_case(torch, cn, ConditionedNCAConfig, (8, 64, 64))
+    rng = np.random.RandomState(7)
+    c = cfg.num_channels
+    patch = (slice(None), slice(None), slice(20, 44), slice(20, 44))
+    x[patch] = torch.from_numpy(rng.uniform(-0.5, 0.5, (c, 1, 1)).astype(np.float32)).cuda()
+    x[:, cfg.alive_channel][:, 20:44, 20:44] = 0.5  # alive in the patch
+    goal[patch] = torch.from_numpy(rng.uniform(-0.5, 0.5, (c, 1, 1)).astype(np.float32)).cuda()
+    d = cfg.update_hidden_dim
+    packed = fc.pack_weights(params, cfg, "float32")
+    xg = x + goal * fc._alive(x, cfg)
+    p = fc.depthwise_perceive(xg, packed[0].reshape(c, 3, 3, 3))
+    pp = p[0, :, 32, 32]
+    off1 = rng.uniform(1e-7, 1e-6, d) * rng.choice([-1.0, 1.0], d)
+    b1 = torch.from_numpy(off1.astype(np.float32)).cuda() - pp @ params["update1.w"]
+    h1p = torch.relu(pp @ params["update1.w"] + b1)
+    off2 = rng.uniform(1e-7, 1e-6, d) * rng.choice([-1.0, 1.0], d)
+    b2 = torch.from_numpy(off2.astype(np.float32)).cuda() - h1p @ params["update2.w"]
+    params = dict(params, **{"update1.b": b1, "update2.b": b2})
+    z1 = torch.einsum("bkhw,kf->bfhw", p, params["update1.w"]) + b1[:, None, None]
+    z2 = torch.einsum("bfhw,fe->behw", torch.relu(z1), params["update2.w"]) + b2[:, None, None]
+    near = (float((z1.abs() <= 1e-6).float().mean()), float((z2.abs() <= 1e-6).float().mean()))
+    gy = torch.from_numpy(rng.randn(*x.shape).astype(np.float32)).cuda()
+    pr = {k: v.clone().requires_grad_() for k, v in params.items()}
+    xr, gr = x.clone().requires_grad_(), goal.clone().requires_grad_()
+    y = fc.fused_cnca_train(pr, xr, gr, 9, cfg, 24, "float32")
+    (y * gy).sum().backward()
+    want_y, grads, dx0, dgoal = fc.fused_cnca_train_reference(params, x, goal, 9, cfg, 24, gy,
+                                                              "float32")
+    torch.cuda.synchronize()
+    pairs = {"state": (y.detach(), want_y), "dx0": (xr.grad, dx0), "dgoal": (gr.grad, dgoal),
+             **{f"d{k}": (pr[k].grad, grads[k]) for k in fc.WEIGHT_KEYS}}
+    errs = {k: scaled_err(a, b) for k, (a, b) in pairs.items()}
+    ok = (min(near) >= 0.09 and max(errs.values()) <= CNCA_TOL["float32"]
+          and all(bool(torch.isfinite(a).all()) for a, _ in pairs.values()))
+    print(f"  gate stress, cnca pair 64^2 b8 x 24 steps: h1 / h2 pre-activations within 1e-6 of "
+          f"zero {near[0]:.3f} / {near[1]:.3f} of all; max|kernel-plain|/max|plain|: "
+          + ", ".join(f"{k} {v:.1e}" for k, v in errs.items())
+          + f" (tol {CNCA_TOL['float32']:.0e}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the cnca training pair under the gate stress disagrees with its "
+                         "plain version")
+    return near, max(errs.values())
+
+
+def time_redesigned(torch, ft, fc, cn, ConditionedNCAConfig, _build):
+    """nca_bwd_adjoint_ms at 256^2 b3 f32 (c16) and cnca_update at 64^2 b8
+    and b1 f32 (C 20 / D 64): ms a launch by CUDA events and by the
+    profiler's device time, beside the float32 bound; blocks an SM; ptxas'
+    registers and spills; two launches on the same inputs checked for the
+    same bits. Returns {(name, label): (ms, device ms, f32
+    bound, blocks an SM)}."""
+    want = False
+    for line in (_build.build_log("nca_train") + _build.build_log("nca_cnca")).splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            want = any(k in line for k in ("nca_bwd_adjoint_ms", "cnca_update"))
+            if want and "Compiling" in line:
+                print(f"    ptxas: {line.split('function', 1)[1].strip()}")
+        elif want and ("registers" in line or "spill" in line):
+            print(f"    ptxas:   {line.strip()}")
+    out = {}
+    g = torch.Generator().manual_seed(3)
+    gp = torch.randn((3, 64, VM_SIZE, VM_SIZE), generator=g).cuda()
+    gx = torch.randn((3, 16, VM_SIZE, VM_SIZE), generator=g).cuda()
+    runs = [gx.clone() for _ in range(2)]
+    for r in runs:
+        ft._launch_adjoint(gp, r, None, True)
+    torch.cuda.synchronize()
+    same = torch.equal(runs[0], runs[1])
+    launch = lambda: ft._launch_adjoint(gp, runs[0], None, True)  # noqa: E731
+    k_ms, dev = cuda_ms(launch, 20), device_ms(torch, launch)
+    bound = ms_bound_ms("nca_bwd_adjoint_ms", 16, 2, 128, 3 * VM_SIZE * VM_SIZE)[0]
+    blocks, smem = ft.adjoint_ms_occupancy()
+    out[("nca_bwd_adjoint_ms", "256^2 b3 float32")] = (k_ms, dev, bound, blocks)
+    print(f"  nca_bwd_adjoint_ms 256^2 b3 f32: kernel {k_ms:.4f} ms/launch (CUDA events), "
+          f"{dev:.4f} device (profiler); float32 bound {bound:.5f} ms (bytes, {dev / bound:.1f}x); "
+          f"{blocks} blocks an SM ({smem / 1000:.1f} KB of shared memory); "
+          f"two launches bit-identical: {same}")
+    if not same:
+        raise SystemExit("nca_bwd_adjoint_ms: two launches on the same inputs differ")
+    for b in (8, 1):
+        cfg, params, x, goal = cnca_case(torch, cn, ConditionedNCAConfig, (b, 64, 64))
+        packed = fc.pack_weights(params, cfg, "float32")
+        thr = fc.fs.uniform_threshold(0.5)
+        outs = [torch.empty_like(x) for _ in range(2)]
+        for o in outs:
+            fc.launch_update(x, goal, o, packed, cfg, "float32", 3, 5, thr)
+        torch.cuda.synchronize()
+        same = torch.equal(outs[0], outs[1])
+        launch = lambda: fc.launch_update(x, goal, outs[0], packed, cfg,  # noqa: E731
+                                          "float32", 3, 5, thr)
+        k_ms, dev = cuda_ms(launch, 20), device_ms(torch, launch)
+        bound, by = cnca_bound_ms("cnca_update", 20, 64, b * 64 * 64)
+        blocks, smem = fc.update_occupancy(20, 64)
+        out[("cnca_update", f"64^2 b{b} float32")] = (k_ms, dev, bound, blocks)
+        print(f"  cnca_update 64^2 b{b} f32: kernel {k_ms:.4f} ms/launch (CUDA events), "
+              f"{dev:.4f} device (profiler); float32 bound {bound:.5f} ms ({by}, "
+              f"{dev / bound:.1f}x); {blocks} "
+              f"blocks an SM ({smem / 1000:.1f} KB of shared memory); two launches "
+              f"bit-identical: {same}")
+        if not same:
+            raise SystemExit("cnca_update: two launches on the same inputs differ")
+    return out
+
+
 def time_vgg_pool(torch, vgg_mod, F):
     """VGG16's loss forward and backward (the five style taps and the
     content tap, the sum of squares of each, d/d image) with the
@@ -2242,6 +2437,11 @@ def main() -> int:
     ms_err = phase_compare_ms(torch, fs, NCAConfig, dynca_init)
     chain_err = phase_compare_chain(torch, fs, NCAConfig, dynca_init)
     ms_train_err = phase_compare_ms_train(torch, ft, NCAConfig, dynca_init)
+    print("[2] the redesigned nca_bwd_adjoint_ms and cnca_update vs their plain versions, at "
+          "the main-path shapes and grids whose footprints wrap or are ragged; the cnca pair "
+          "under a gate stress")
+    redesigned_err = phase_compare_redesigned(torch, ft, fc, cn, ConditionedNCAConfig)
+    stress_near, stress_err = phase_cnca_gate_stress(torch, fc, cn, ConditionedNCAConfig)
     phase_vm_step_parity(torch, make_train_step, LossState, presets, dynca_init,
                          vgg16_random_init, msoe_random_init, make_optimizer, tap_schedule,
                          precompute_target_motion_features)
@@ -2507,6 +2707,8 @@ def main() -> int:
     # the tensor-core backward kernels at the table's shapes, and the VGG
     # loss with the equality-mask pool against F.max_pool2d
     tc_times = time_tc_kernels(torch, fs, ft, fc, cn, ConditionedNCAConfig, _build)
+    print("  the redesigned CUDA-core kernels (PERF.md rows 10 and 11):")
+    redesigned = time_redesigned(torch, ft, fc, cn, ConditionedNCAConfig, _build)
     vgg_pool_ms = time_vgg_pool(torch, vgg_mod, torch.nn.functional)
     print(f"  card during timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
@@ -2572,6 +2774,11 @@ def main() -> int:
            for (name, label), t in tc_times.items()
            for what, v in zip(("ms", "f32_bound_ms", "tc_bound_ms", "device_ms"), t)
            if v is not None},
+        **{f"redesigned_{name}_{label.replace('^', '').replace(' ', '_')}_{what}": v
+           for (name, label), t in redesigned.items()
+           for what, v in zip(("ms", "device_ms", "f32_bound_ms", "blocks_per_sm"), t)},
+        "cnca_gate_stress_near_zero_h1_h2": list(stress_near),
+        "cnca_gate_stress_max_scaled_err": stress_err,
         **{f"vgg_loss_fwd_bwd_{label.replace('^', '').replace(' ', '_')}_{which}_ms": v
            for label, t in vgg_pool_ms.items() for which, v in zip(("eq_pool", "torch_pool"), t)},
     }
@@ -2644,7 +2851,7 @@ def main() -> int:
         "source": "vsnca_tpu_torch/csrc/nca_cnca.cu",
         "replaces": cnca_rows[name],
         "launches": enc_launches[name],
-        "max_abs_err": cnca_err[name],
+        "max_abs_err": max(cnca_err[name], redesigned_err.get(name, 0.0)),
         "ms": cnca_times[(name, 8)][0],
         "plain_ms": cnca_times[(name, 8)][1],
         "bound_ms": cnca_times[(name, 8)][2],
@@ -2652,6 +2859,9 @@ def main() -> int:
         "library_ms": None,
         **({"tc_bound_ms": tc_times[(name, "64^2 b8 float32")][2]}
            if name == "cnca_bwd_mlp" else {}),
+        **({"device_ms": redesigned[(name, "64^2 b8 float32")][1],
+            "blocks_per_sm": redesigned[(name, "64^2 b8 float32")][3]}
+           if name == "cnca_update" else {}),
     } for name in fc.KERNEL_LAUNCHES] + [{
         "name": name,
         "route": "cuda",
@@ -2666,6 +2876,9 @@ def main() -> int:
         "library_ms": None,
         **({"tc_bound_ms": tc_times[(name, "256^2 b3 float32")][2]}
            if name == "nca_bwd_mlp_ms" else {}),
+        **({"device_ms": redesigned[(name, "256^2 b3 float32")][1],
+            "blocks_per_sm": redesigned[(name, "256^2 b3 float32")][3]}
+           if name == "nca_bwd_adjoint_ms" else {}),
     } for name, src, rows, err in (
         ("nca_step_ms_chain", "vsnca_tpu_torch/csrc/nca_step.cu",
          "vsnca_tpu/ops/pallas_train.py:2144 (_fwd_call_flat_tiled_ms, "
@@ -2673,7 +2886,7 @@ def main() -> int:
         ("nca_bwd_mlp_ms", "vsnca_tpu_torch/csrc/nca_train.cu", ms_bwd_rows,
          ms_train_err["nca_bwd_mlp_ms"]),
         ("nca_bwd_adjoint_ms", "vsnca_tpu_torch/csrc/nca_train.cu", ms_bwd_rows,
-         ms_train_err["nca_bwd_adjoint_ms"]),
+         max(ms_train_err["nca_bwd_adjoint_ms"], redesigned_err["nca_bwd_adjoint_ms"])),
     )] + [{
         "name": "nca_step_ms",
         "route": "cuda",

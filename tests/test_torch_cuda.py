@@ -830,3 +830,107 @@ def test_gate_stress_pair_matches_plain(cuda, preset):
         _close(pr[k].grad, grads[k], TRAIN_TOL["float32"])
     _close(xr.grad, dx0, TRAIN_TOL["float32"])
     _close(cr.grad, dcond, TRAIN_TOL["float32"])
+
+
+# ----------- the redesigned CUDA-core kernels: nca_bwd_adjoint_ms, cnca_update
+
+# grids whose footprint wraps (16^2: more than once at half resolution) or
+# is ragged against 16 x 16 blocks; rows of 18 and 66 floats take the
+# kernel's 4-byte staging
+ADJ_GRIDS = [(16, 16), (18, 18), (40, 72), (34, 66)]
+MS_STATE_TOL = 1e-6  # chip_smoke.py's, relative to the largest element
+
+
+@pytest.mark.parametrize("c", [1, 2, 5, 16])
+def test_multiscale_adjoint_widths_and_wrapping_grids(cuda, c):
+    """nca_bwd_adjoint_ms at C 1..16 on ADJ_GRIDS, b2, with a tap and
+    without, and once on a gp that is not 16-byte aligned (4-byte staging
+    at W % 4 == 0): within MS_STATE_TOL of the plain version, and two
+    launches on the same inputs give the same bits."""
+    from vsnca_tpu_torch.ops import fused_train as ft
+
+    g = torch.Generator().manual_seed(c)
+    for h, w in ADJ_GRIDS:
+        gp = torch.randn((2, 4 * c, h, w), generator=g).to(cuda)
+        gx = torch.randn((2, c, h, w), generator=g).to(cuda)
+        gtap = torch.randn((2, c, h, w), generator=g).to(cuda)
+        for tap in (None, gtap):
+            got = ft.nca_bwd_adjoint(gp, gx, tap, True)
+            again = ft.nca_bwd_adjoint(gp, gx, tap, True)
+            _close(got, ft.nca_bwd_adjoint_reference(gp, gx, tap, True), MS_STATE_TOL)
+            assert torch.equal(got, again)
+    n = 2 * 4 * c * 40 * 72
+    gp = torch.randn(n + 1, generator=g).to(cuda)[1:].view(2, 4 * c, 40, 72)
+    assert gp.data_ptr() % 16 != 0
+    gx = torch.randn((2, c, 40, 72), generator=g).to(cuda)
+    _close(ft.nca_bwd_adjoint(gp, gx, None, True),
+           ft.nca_bwd_adjoint_reference(gp, gx, None, True), MS_STATE_TOL)
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("hidden,d", [(1, 4), (16, 64), (20, 64), (7, 36)])
+def test_cnca_update_widths_and_grids_are_exact_and_repeatable(cuda, hidden, d,
+                                                                compute_dtype):
+    """cnca_update at the width limits (C 5..24, D 4..64) on 8^2 b2, 24 x 40
+    b2 and 64^2 b1 and b8, living channel on and off, rates 1 and 0.5:
+    within TRAIN_TOL of the plain version, and two launches on the same
+    inputs give the same bits."""
+    from vsnca_tpu_torch.ops import fused_cnca as fc
+
+    for shape in ((2, 8, 8), (2, 24, 40), (1, 64, 64), (8, 64, 64)):
+        for use_life, rate in ((True, 1.0), (True, 0.5), (False, 0.5)):
+            cfg, params, x, goal = _cnca_case(cuda, rate, use_life, shape=shape, hidden=hidden,
+                                              d=d)
+            packed = fc.pack_weights(params, cfg, compute_dtype)
+            thr = fs.uniform_threshold(rate)
+            got, again = torch.empty_like(x), torch.empty_like(x)
+            fc.launch_update(x, goal, got, packed, cfg, compute_dtype, 3, 5, thr)
+            fc.launch_update(x, goal, again, packed, cfg, compute_dtype, 3, 5, thr)
+            want = fc.cnca_update_reference(x, goal, packed, cfg, compute_dtype, 3, 5, rate)
+            _close(got, want, TRAIN_TOL[compute_dtype])
+            assert torch.equal(got, again)
+
+
+def test_cnca_gate_stress_pair_matches_plain(cuda):
+    """The ConditionedNCA pair with b1 and b2 set so that about a tenth of
+    the first step's h1 and h2 pre-activations lie within 1e-6 of zero (a
+    24 x 24 patch of constant state and goal shares one percept; b1, then b2
+    from the patch's h1, leaves each unit's pre-activation there between
+    1e-7 and 1e-6 from zero, either side): the forward (cnca_update) and the
+    backward's recompute (cnca_bwd_mlp) share their bits, so no gate flips
+    and the state and gradients stay within 1e-6 of the largest element of
+    the plain pair's. 12 steps at rate 0.5, 64^2 b2, f32."""
+    from vsnca_tpu_torch.ops import fused_cnca as fc
+
+    cfg, params, x, goal = _cnca_case(cuda, 0.5, True, shape=(2, 64, 64), hidden=16, d=64)
+    rng = np.random.RandomState(7)
+    c, d = cfg.num_channels, cfg.update_hidden_dim
+    x[..., 20:44, 20:44] = torch.from_numpy(
+        rng.uniform(-0.5, 0.5, (c, 1, 1)).astype(np.float32)).to(cuda)
+    x[:, cfg.alive_channel, 20:44, 20:44] = 0.5
+    goal[..., 20:44, 20:44] = torch.from_numpy(
+        rng.uniform(-0.5, 0.5, (c, 1, 1)).astype(np.float32)).to(cuda)
+    packed = fc.pack_weights(params, cfg, "float32")
+    p = fc.depthwise_perceive(x + goal * fc._alive(x, cfg), packed[0].reshape(c, 3, 3, 3))
+    pp = p[0, :, 32, 32]
+    off = [rng.uniform(1e-7, 1e-6, d) * rng.choice([-1.0, 1.0], d) for _ in range(2)]
+    b1 = torch.from_numpy(off[0].astype(np.float32)).to(cuda) - pp @ params["update1.w"]
+    h1p = torch.relu(pp @ params["update1.w"] + b1)
+    b2 = torch.from_numpy(off[1].astype(np.float32)).to(cuda) - h1p @ params["update2.w"]
+    params = dict(params, **{"update1.b": b1, "update2.b": b2})
+    z1 = torch.einsum("bkhw,kf->bfhw", p, params["update1.w"]) + b1[:, None, None]
+    z2 = torch.einsum("bfhw,fe->behw", torch.relu(z1), params["update2.w"]) + b2[:, None, None]
+    assert float((z1.abs() <= 1e-6).float().mean()) >= 0.09
+    assert float((z2.abs() <= 1e-6).float().mean()) >= 0.09
+    gy = torch.from_numpy(rng.randn(*x.shape).astype(np.float32)).to(cuda)
+    pr = {k: v.clone().requires_grad_() for k, v in params.items()}
+    xr, gr = x.clone().requires_grad_(), goal.clone().requires_grad_()
+    y = fc.fused_cnca_train(pr, xr, gr, 9, cfg, 12, "float32")
+    (y * gy).sum().backward()
+    want_y, grads, dx0, dgoal = fc.fused_cnca_train_reference(params, x, goal, 9, cfg, 12, gy,
+                                                              "float32")
+    _close(y.detach(), want_y, 1e-6)
+    _close(xr.grad, dx0, 1e-6)
+    _close(gr.grad, dgoal, 1e-6)
+    for k in fc.WEIGHT_KEYS:
+        _close(pr[k].grad, grads[k], 1e-6)

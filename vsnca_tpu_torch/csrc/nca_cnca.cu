@@ -43,22 +43,26 @@
 // and clamp gates must be the forward's bits) is a third. cnca_gate and
 // cnca_bwd_adjoint are bound by their bytes.
 //
-// What the design does about it: cnca_update runs one thread a pixel in
-// 16 x 16 blocks, with the weights, the alpha tile (20 x 20), the pre mask
-// and the xg tile (C x 18 x 18) in shared memory; the percept (3C values),
-// the second layer's sums (D) and dx (C) in registers; weights read as
-// float4 along the output dimension and broadcast to the warp (a tensor-core
-// form of the update is later work). cnca_bwd_mlp keeps the recompute on the
-// CUDA cores in cnca_update's order — a 16 x 8 block of 256 threads, with
-// the weights and the x and goal tiles staged by cp.async, the percept
-// two threads a pixel, h1, h2 and dx a thread 8 units (4 channels) x 4
-// pixels, written as per-pixel columns in shared memory (stride 132 floats,
-// so every fragment read is free of bank conflicts) — and runs every
-// backward product on the tensor cores as warp-level mma.sync (nca_mma.cuh;
-// float32 compute in split TF32, bf16 compute in bf16, float32
-// accumulators): each warp takes 16 pixels through g_h2 = (W3 g_dx)[h2 > 0],
-// g_h1 = (W2 g_h2)[h1 > 0] and g_p = W1 g_h1, each product's output
-// registers feeding the next as its A operand, and the block forms
+// What the design does about it: cnca_update and cnca_bwd_mlp's recompute
+// are one code path (stage_mat_async, stage_pre, stage_xg_async,
+// percept_cols, relu_layer, dx_layer) on a 16 x 8 block of 256 threads: the
+// weights and the x and goal tiles staged by cp.async, the percept two
+// threads a pixel, h1, h2 and dx a thread 8 units (4 channels) x 4 pixels
+// as float32 FMA chains, so each broadcast float4 weight read feeds 16
+// FMAs, written as per-pixel columns in shared memory (stride 132 floats,
+// so every fragment read of the backward is free of bank conflicts). The
+// update keeps only what it needs (h2 over the percept's columns: 108.8 KB
+// at C = 20, D = 64, two blocks an SM; 64^2 b8 is 256 blocks); it stays an
+// FMA chain because the training pair's backward must recompute its relu
+// and clamp gates bit for bit (a tensor-core form reaches other bits).
+// Its first design ran one thread a pixel in 16 x 16 blocks (128 blocks at
+// 64^2 b8, fewer than the SMs), every weight read feeding 4 FMAs.
+// cnca_bwd_mlp then runs every backward product on the tensor cores as
+// warp-level mma.sync (nca_mma.cuh; float32 compute in split TF32, bf16
+// compute in bf16, float32 accumulators): each warp takes 16 pixels
+// through g_h2 = (W3 g_dx)[h2 > 0], g_h1 = (W2 g_h2)[h1 > 0] and
+// g_p = W1 g_h1, each product's output registers feeding the next as its A
+// operand, and the block forms
 // dW3 = h2^T g_dx, dW2 = h1^T g_h2 (db2 as a ones row of h1) and
 // dW1 = p^T g_h1 (db1 as a ones row of p) over its 128 pixels, a warp
 // taking a run of 16 x 8 output tiles that share their A rows and adding
@@ -89,12 +93,11 @@
 #define CNCA_D_MAX 64
 #define CNCA_P_MAX (3 * CNCA_C_MAX)
 
-#define CU_TILE 16               // cnca_update / cnca_bwd_adjoint: 16 x 16
+#define CU_TILE 16               // cnca_bwd_adjoint: 16 x 16
 #define CU_THREADS (CU_TILE * CU_TILE)
-#define CU_HALO (CU_TILE + 2)    // xg / gp tile side
-#define CU_AH (CU_TILE + 4)      // alpha tile side
+#define CU_HALO (CU_TILE + 2)    // gp tile side
 
-#define CB_TX 16                 // cnca_bwd_mlp: 16 wide, 8 tall
+#define CB_TX 16                 // cnca_update, cnca_bwd_mlp: 16 wide, 8 tall
 #define CB_TY 8
 #define CB_PIX (CB_TX * CB_TY)
 #define CB_THREADS (2 * CB_PIX)  // two threads a pixel
@@ -157,30 +160,11 @@ __device__ __forceinline__ void stage_pre(const float* xa, float* at, float* pre
   __syncthreads();
 }
 
-// Stage the xg tile [C, hy, hx] at (y0, x0): x + goal * pre inside the grid,
-// zero outside (the percept's padding). pre is the (hy x hx) mask tile.
-__device__ __forceinline__ void stage_xg(const float* xb, const float* gb,
-                                         const float* pre, float* xg, int C, int hy,
-                                         int hx, int y0, int x0, int H, int W, int tid,
-                                         int nthr) {
-  const int HW = H * W;
-  for (int i = tid; i < C * hy * hx; i += nthr) {
-    const int c = i / (hy * hx), rq = i % (hy * hx);
-    const int gy = y0 + rq / hx, gx = x0 + rq % hx;
-    float v = 0.f;
-    if (gy >= 0 && gy < H && gx >= 0 && gx < W) {
-      const size_t o = (size_t)c * HW + gy * W + gx;
-      v = __fadd_rn(xb[o], __fmul_rn(gb[o], pre[rq]));
-    }
-    xg[i] = v;
-  }
-  __syncthreads();
-}
-
-// stage_xg by asynchronous copies: x into xg and goal into tmp (both
-// [C, hy, hx], zero outside the grid), then xg = x + goal * pre in shared
-// memory, as stage_xg rounds it. Ends with the block synchronised (and every
-// asynchronous copy the block issued before it complete).
+// Stage the xg tile [C, hy, hx] at (y0, x0) by asynchronous copies: x
+// into xg and goal into tmp (both zero outside the grid: the percept's
+// padding), then xg = x + goal * pre in shared memory, pre the (hy x hx)
+// mask tile. Ends with the block synchronised (and every asynchronous copy
+// the block issued before it complete).
 __device__ __forceinline__ void stage_xg_async(const float* xb, const float* gb,
                                                const float* pre, float* xg, float* tmp,
                                                int C, int hy, int hx, int y0, int x0, int H,
@@ -204,12 +188,132 @@ __device__ __forceinline__ void stage_xg_async(const float* xb, const float* gb,
   __syncthreads();
 }
 
-// Shared memory of cnca_update, float32, in this order (the float4-read
-// weights first, each a multiple of 4 floats long):
-//   w1s [P, D4]  w2s [D4, D4]  w3s [D4, C4]  b1s [D4]  b2s [D4]  wcs [C*27]
-//   at [20, 20]  pre [18, 18]  xg [C, 18, 18]
+// Stage a [rp, ld] matrix by 16-byte asynchronous copies: entry (r, f) is
+// src[r * nc + f] for r < nr and f < nc, zero elsewhere (plain stores). nc
+// and ld are multiples of 4, dst and src 16-byte aligned (the launchers
+// refuse weights that are not).
+__device__ __forceinline__ void stage_mat_async(float* dst, const float* src, int rp, int ld,
+                                                int nr, int nc, int tid, int nthr) {
+  const int l4 = ld / 4, n4 = nc / 4;
+  for (int i = tid; i < rp * l4; i += nthr) {
+    const int r = i / l4, f4 = i - r * l4;
+    float* d = dst + r * ld + 4 * f4;
+    if (r < nr && f4 < n4)
+      cp_async16(d, src + r * nc + 4 * f4);
+    else
+      d[0] = d[1] = d[2] = d[3] = 0.f;
+  }
+}
+
+// The update's recompute on a 16 x 8 tile, the phases cnca_update and
+// cnca_bwd_mlp share, so that the backward's relu and clamp gates are the
+// forward's bits. Per-pixel columns have stride CB_LDM.
+//
+// The percept columns pc[(3c + s) * CB_LDM + pix] (rounded to bf16 with
+// BF16), zeros for a pixel outside the grid; the pixel's two threads
+// (half 0 and 1) take alternate channels.
 template <bool BF16>
-__global__ void __launch_bounds__(CU_THREADS)
+__device__ __forceinline__ void percept_cols(const float* xg, const float* wcs, float* pc,
+                                             int C, bool valid, int pix, int half) {
+  const int tx = pix & (CB_TX - 1), ty = pix >> 4;
+  for (int c = half; c < C; c += 2) {
+    float o[3] = {0.f, 0.f, 0.f};
+    if (valid) percept3(xg + (c * CB_HY + ty) * CB_HX + tx, CB_HX, wcs + c * 27, o);
+#pragma unroll
+    for (int s = 0; s < 3; ++s) pc[(3 * c + s) * CB_LDM + pix] = rnd_if(BF16, o[s]);
+  }
+}
+
+// One hidden layer: out[u] = relu(sum_k w[k][u] * in[k] + bias[u]) for the
+// 8 units u0 .. u0 + 7 and the 4 pixels q0 + 32 i — FMA chains over k
+// ascending from 0, then + bias (cnca_update's order), in[k] rounded to bf16
+// on read with RND. A weight read (a broadcast float4) feeds 16 FMAs.
+// Computed for u0 < nu, written (zeros past nu) for u0 < nw. w's rows are
+// ldw floats apart, ldw >= u0 + 8.
+template <bool RND>
+__device__ __forceinline__ void relu_layer(const float* w, int ldw, const float* in, int nk,
+                                           const float* bias, float* out, int u0, int nu,
+                                           int nw, int q0) {
+  float a[4][8] = {};
+  if (u0 < nu) {
+    for (int k = 0; k < nk; ++k) {
+      const float4 wa = *reinterpret_cast<const float4*>(w + k * ldw + u0);
+      const float4 wb = *reinterpret_cast<const float4*>(w + k * ldw + u0 + 4);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const float v = rnd_if(RND, in[k * CB_LDM + q0 + 32 * i]);
+        a[i][0] = fmaf(wa.x, v, a[i][0]);
+        a[i][1] = fmaf(wa.y, v, a[i][1]);
+        a[i][2] = fmaf(wa.z, v, a[i][2]);
+        a[i][3] = fmaf(wa.w, v, a[i][3]);
+        a[i][4] = fmaf(wb.x, v, a[i][4]);
+        a[i][5] = fmaf(wb.y, v, a[i][5]);
+        a[i][6] = fmaf(wb.z, v, a[i][6]);
+        a[i][7] = fmaf(wb.w, v, a[i][7]);
+      }
+    }
+  }
+  if (u0 < nw) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+#pragma unroll
+      for (int j = 0; j < 8; ++j)
+        out[(u0 + j) * CB_LDM + q0 + 32 * i] = fmaxf(a[i][j] + bias[u0 + j], 0.f);
+    }
+  }
+}
+
+// dx of the channels c0 .. c0 + 3 for the 4 pixels q0 + 32 i: FMA chains
+// over e ascending from 0 (h2 rounded to bf16 on read with BF16); zeros for
+// c0 >= C4. w3's rows are ld3 floats apart.
+template <bool BF16>
+__device__ __forceinline__ void dx_layer(const float* w3, int ld3, const float* h2, int D4,
+                                         int c0, int C4, int q0, float dx[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i) dx[i][0] = dx[i][1] = dx[i][2] = dx[i][3] = 0.f;
+  if (c0 >= C4) return;
+  for (int e = 0; e < D4; ++e) {
+    const float4 w = *reinterpret_cast<const float4*>(w3 + e * ld3 + c0);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const float v = rnd_if(BF16, h2[e * CB_LDM + q0 + 32 * i]);
+      dx[i][0] = fmaf(w.x, v, dx[i][0]);
+      dx[i][1] = fmaf(w.y, v, dx[i][1]);
+      dx[i][2] = fmaf(w.z, v, dx[i][2]);
+      dx[i][3] = fmaf(w.w, v, dx[i][3]);
+    }
+  }
+}
+
+// Floats of cnca_update's shared memory (below), and its two regions of
+// per-pixel columns.
+__host__ __device__ __forceinline__ int cu_cols_a(int C, int D8) {
+  return (3 * C > D8 ? 3 * C : D8) * CB_LDM;
+}
+__host__ __device__ __forceinline__ int cu_cols_b(int C, int D8) {
+  return D8 * CB_LDM > C * CB_HY * CB_HX ? D8 * CB_LDM : C * CB_HY * CB_HX;
+}
+__host__ __device__ __forceinline__ int cu_smem_floats(int C, int D4) {
+  const int D8 = (D4 + 7) & ~7, C4 = (C + 3) & ~3;
+  return 3 * C * D8 + D4 * D8 + D4 * C4 + 2 * D8 + ((C * 27 + 3) & ~3) + CB_AY * CB_AX +
+         CB_HY * CB_HX + cu_cols_a(C, D8) + cu_cols_b(C, D8);
+}
+
+// Shared memory of cnca_update, float32, in this order (the float4-read
+// weights first, D8 = D4 rounded up to 8, zero past D4):
+//   w1s [P, D8]  w2s [D4, D8]  w3s [D4, C4]  b1s [D8]  b2s [D8]
+//   wcs [C*27, rounded up to 4]  at [12, 20]  pre [10, 18]
+//   ca  [max(P, D8), LDM]  the goal tile while xg is staged; the percept;
+//                          then h2 (the percept is dead once h1 is done)
+//   cb  [max(D8 * LDM, C*10*18)]  the xg tile until the percept is built;
+//                          then h1 [D8, LDM]
+// Only what the forward needs: 108.8 KB at C = 20, D = 64, two blocks an SM.
+// The staging, the percept columns and the three layers are cnca_bwd_mlp's
+// own device functions (stage_mat_async, stage_pre, stage_xg_async,
+// percept_cols, relu_layer, dx_layer), so xn is the backward's recompute bit
+// for bit.
+template <bool BF16>
+__global__ void __launch_bounds__(CB_THREADS, 2)
 cnca_update_kernel(const float* __restrict__ x, const float* __restrict__ goal,
                    float* __restrict__ xn, const float* __restrict__ wcol,
                    const float* __restrict__ w1, const float* __restrict__ b1,
@@ -218,115 +322,72 @@ cnca_update_kernel(const float* __restrict__ x, const float* __restrict__ goal,
                    int alive, float athr, int use_life, uint32_t seed, uint32_t step,
                    uint32_t fthr) {
   extern __shared__ __align__(16) float smem[];
-  const int P = 3 * C, C4 = (C + 3) & ~3;
+  const int P = 3 * C, C4 = (C + 3) & ~3, D8 = (D4 + 7) & ~7;
   float* w1s = smem;
-  float* w2s = w1s + P * D4;
-  float* w3s = w2s + D4 * D4;
+  float* w2s = w1s + P * D8;
+  float* w3s = w2s + D4 * D8;
   float* b1s = w3s + D4 * C4;
-  float* b2s = b1s + D4;
-  float* wcs = b2s + D4;
-  float* at = wcs + C * 27;
-  float* pre = at + CU_AH * CU_AH;
-  float* xg = pre + CU_HALO * CU_HALO;
+  float* b2s = b1s + D8;
+  float* wcs = b2s + D8;
+  float* at = wcs + ((C * 27 + 3) & ~3);
+  float* pre = at + CB_AY * CB_AX;
+  float* ca = pre + CB_HY * CB_HX;
+  float* cb = ca + cu_cols_a(C, D8);
 
-  const int tid = threadIdx.y * CU_TILE + threadIdx.x;
+  const int tid = threadIdx.x;
+  const int pix = tid & (CB_PIX - 1), half = tid >> 7;
   const int b = blockIdx.z;
   const int HW = H * W;
-  for (int i = tid; i < P * D4; i += CU_THREADS) w1s[i] = w1[i];
-  for (int i = tid; i < D4 * D4; i += CU_THREADS) w2s[i] = w2[i];
-  for (int i = tid; i < D4 * C4; i += CU_THREADS) w3s[i] = w3[i];
-  for (int i = tid; i < D4; i += CU_THREADS) {
-    b1s[i] = b1[i];
-    b2s[i] = b2[i];
-  }
-  for (int i = tid; i < C * 27; i += CU_THREADS) wcs[i] = wcol[i];
-
-  const int y0 = blockIdx.y * CU_TILE, x0 = blockIdx.x * CU_TILE;
+  stage_mat_async(w1s, w1, P, D8, P, D4, tid, CB_THREADS);
+  stage_mat_async(w2s, w2, D4, D8, D4, D4, tid, CB_THREADS);
+  stage_mat_async(w3s, w3, D4, C4, D4, C4, tid, CB_THREADS);
+  stage_mat_async(b1s, b1, 1, D8, 1, D4, tid, CB_THREADS);
+  stage_mat_async(b2s, b2, 1, D8, 1, D4, tid, CB_THREADS);
+  for (int i = tid; i < C * 27; i += CB_THREADS) wcs[i] = wcol[i];
+  const int y0 = blockIdx.y * CB_TY, x0 = blockIdx.x * CB_TX;
   const float* xb = x + (size_t)b * C * HW;
-  stage_pre(xb + (size_t)alive * HW, at, pre, CU_AH, CU_AH, y0 - 2, x0 - 2, H, W, athr,
-            use_life, tid, CU_THREADS);
-  stage_xg(xb, goal + (size_t)b * C * HW, pre, xg, C, CU_HALO, CU_HALO, y0 - 1, x0 - 1, H,
-           W, tid, CU_THREADS);
-
-  const int px = x0 + threadIdx.x, py = y0 + threadIdx.y;
-  if (px >= W || py >= H) return;
-  const int pix = py * W + px;
-
-  float p[CNCA_P_MAX];
+  stage_pre(xb + (size_t)alive * HW, at, pre, CB_AY, CB_AX, y0 - 2, x0 - 2, H, W, athr,
+            use_life, tid, CB_THREADS);
+  stage_xg_async(xb, goal + (size_t)b * C * HW, pre, cb, ca, C, CB_HY, CB_HX, y0 - 1, x0 - 1,
+                 H, W, tid, CB_THREADS);
+  // phase: staging (weights, pre, xg)
+  const bool valid = x0 + (pix & (CB_TX - 1)) < W && y0 + (pix >> 4) < H;
+  percept_cols<BF16>(cb, wcs, ca, C, valid, pix, half);
+  __syncthreads();  // the percept
+  const int q0 = tid & 31, ug = tid >> 5;
+  relu_layer<false>(w1s, D8, ca, P, b1s, cb, 8 * ug, D4, D4, q0);
+  __syncthreads();  // h1
+  relu_layer<BF16>(w2s, D8, cb, D4, b2s, ca, 8 * ug, D4, D4, q0);
+  __syncthreads();  // h2, over the percept
+  // x at the thread's 4 pixels and channels, loaded before dx's chains
+  const int c0 = 4 * ug;
+  float xc[4][4];
 #pragma unroll
-  for (int c = 0; c < CNCA_C_MAX; ++c) {
-    float o[3] = {0.f, 0.f, 0.f};
-    if (c < C)
-      percept3(xg + (c * CU_HALO + threadIdx.y) * CU_HALO + threadIdx.x, CU_HALO,
-               wcs + c * 27, o);
+  for (int i = 0; i < 4; ++i) {
+    const int q = q0 + 32 * i;
+    const int qx = x0 + (q & (CB_TX - 1)), qy = y0 + (q >> 4);
 #pragma unroll
-    for (int s = 0; s < 3; ++s) p[3 * c + s] = rnd_if(BF16, o[s]);
+    for (int j = 0; j < 4; ++j)
+      xc[i][j] = (qx < W && qy < H && c0 + j < C)
+                     ? xb[(size_t)(c0 + j) * HW + qy * W + qx] : 0.f;
   }
-
-  float h2[CNCA_D_MAX];
+  float dx[4][4];
+  dx_layer<BF16>(w3s, C4, ca, D4, c0, C4, q0, dx);
 #pragma unroll
-  for (int e = 0; e < CNCA_D_MAX; ++e) h2[e] = 0.f;
-  for (int f = 0; f < D4; f += 4) {
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
+  for (int i = 0; i < 4; ++i) {
+    const int q = q0 + 32 * i;
+    const int qx = x0 + (q & (CB_TX - 1)), qy = y0 + (q >> 4);
+    if (qx >= W || qy >= H) continue;
+    const int qpix = qy * W + qx;
+    const bool on = (mask_bits(seed, (uint32_t)b, step, (uint32_t)qpix) >> 8) >= fthr;
 #pragma unroll
-    for (int k = 0; k < CNCA_P_MAX; ++k) {
-      if (k < P) {
-        const float4 w = *reinterpret_cast<const float4*>(w1s + k * D4 + f);
-        a.x = fmaf(w.x, p[k], a.x);
-        a.y = fmaf(w.y, p[k], a.y);
-        a.z = fmaf(w.z, p[k], a.z);
-        a.w = fmaf(w.w, p[k], a.w);
-      }
-    }
-    const float hv[4] = {
-        rnd_if(BF16, fmaxf(a.x + b1s[f], 0.f)), rnd_if(BF16, fmaxf(a.y + b1s[f + 1], 0.f)),
-        rnd_if(BF16, fmaxf(a.z + b1s[f + 2], 0.f)), rnd_if(BF16, fmaxf(a.w + b1s[f + 3], 0.f))};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float* w2r = w2s + (f + i) * D4;
-#pragma unroll
-      for (int e = 0; e < CNCA_D_MAX; e += 4) {
-        if (e < D4) {
-          const float4 w = *reinterpret_cast<const float4*>(w2r + e);
-          h2[e] = fmaf(w.x, hv[i], h2[e]);
-          h2[e + 1] = fmaf(w.y, hv[i], h2[e + 1]);
-          h2[e + 2] = fmaf(w.z, hv[i], h2[e + 2]);
-          h2[e + 3] = fmaf(w.w, hv[i], h2[e + 3]);
-        }
-      }
+    for (int j = 0; j < 4; ++j) {
+      if (c0 + j < C)
+        xn[((size_t)b * C + c0 + j) * HW + qpix] = on ? __fadd_rn(xc[i][j], dx[i][j])
+                                                      : xc[i][j];
     }
   }
-
-  float dx[CNCA_C_MAX];
-#pragma unroll
-  for (int c = 0; c < CNCA_C_MAX; ++c) dx[c] = 0.f;
-#pragma unroll
-  for (int e = 0; e < CNCA_D_MAX; ++e) {
-    if (e < D4) {
-      const float v = rnd_if(BF16, fmaxf(h2[e] + b2s[e], 0.f));
-      const float* w3r = w3s + e * C4;
-#pragma unroll
-      for (int c = 0; c < CNCA_C_MAX; c += 4) {
-        if (c < C4) {
-          const float4 w = *reinterpret_cast<const float4*>(w3r + c);
-          dx[c] = fmaf(w.x, v, dx[c]);
-          dx[c + 1] = fmaf(w.y, v, dx[c + 1]);
-          dx[c + 2] = fmaf(w.z, v, dx[c + 2]);
-          dx[c + 3] = fmaf(w.w, v, dx[c + 3]);
-        }
-      }
-    }
-  }
-
-  const bool on = (mask_bits(seed, (uint32_t)b, step, (uint32_t)pix) >> 8) >= fthr;
-  float* ob = xn + (size_t)b * C * HW + pix;
-#pragma unroll
-  for (int c = 0; c < CNCA_C_MAX; ++c) {
-    if (c < C) {
-      const float xc = xb[(size_t)c * HW + pix];
-      ob[(size_t)c * HW] = on ? __fadd_rn(xc, dx[c]) : xc;
-    }
-  }
+  // phase: dx and the store
 }
 
 // One thread a pixel: pre from x, post from xn, out = clamp(xn * life).
@@ -409,37 +470,13 @@ cnca_bwd_mlp_kernel(const float* __restrict__ x, const float* __restrict__ goal,
   const int warp = tid >> 5, lane = tid & 31, gq = lane >> 2, t = lane & 3;
   const int b = blockIdx.z;
   const int HW = H * W;
-  // The weights by 4-byte asynchronous copies (zero padding by plain
+  // The weights by 16-byte asynchronous copies (zero padding by plain
   // stores), waited for with the xg tile's.
-  for (int i = tid; i < PN * LDW; i += CB_THREADS) {
-    const int r = i / LDW, f = i - r * LDW;
-    if (r < P && f < D4)
-      cp_async4(w1s + i, w1 + r * D4 + f);
-    else
-      w1s[i] = 0.f;
-  }
-  for (int i = tid; i < DP * LDW; i += CB_THREADS) {
-    const int r = i / LDW, f = i - r * LDW;
-    if (r < D4 && f < D4)
-      cp_async4(w2s + i, w2 + r * D4 + f);
-    else
-      w2s[i] = 0.f;
-  }
-  for (int i = tid; i < DP * CB_LD3; i += CB_THREADS) {
-    const int e = i / CB_LD3, c = i - e * CB_LD3;
-    if (e < D4 && c < C4)
-      cp_async4(w3s + i, w3 + e * C4 + c);
-    else
-      w3s[i] = 0.f;
-  }
-  for (int i = tid; i < DP; i += CB_THREADS) {
-    if (i < D4) {
-      cp_async4(b1s + i, b1 + i);
-      cp_async4(b2s + i, b2 + i);
-    } else {
-      b1s[i] = b2s[i] = 0.f;
-    }
-  }
+  stage_mat_async(w1s, w1, PN, LDW, P, D4, tid, CB_THREADS);
+  stage_mat_async(w2s, w2, DP, LDW, D4, D4, tid, CB_THREADS);
+  stage_mat_async(w3s, w3, DP, CB_LD3, D4, C4, tid, CB_THREADS);
+  stage_mat_async(b1s, b1, 1, DP, 1, D4, tid, CB_THREADS);
+  stage_mat_async(b2s, b2, 1, DP, 1, D4, tid, CB_THREADS);
   for (int i = tid; i < C * 27; i += CB_THREADS) wcs[i] = wcol[i];
 
   const int y0 = blockIdx.y * CB_TY, x0 = blockIdx.x * CB_TX;
@@ -454,106 +491,30 @@ cnca_bwd_mlp_kernel(const float* __restrict__ x, const float* __restrict__ goal,
   const bool valid = px < W && py < H;
   const int gpix = valid ? py * W + px : 0;
 
-  // The forward's recompute, on the CUDA cores in cnca_update's order (so
+  // The forward's recompute through cnca_update's own device functions (so
   // the relu gates and xn are its bits), the two threads of a pixel taking
   // alternate channels, then halves of the hidden units. Percept column
   // (zeros past the grid's edge: such a pixel's g_dx is 0, so it adds
   // nothing to any gradient), the ones row and zero rows after it.
-  for (int c = half; c < C; c += 2) {
-    float o[3] = {0.f, 0.f, 0.f};
-    if (valid)
-      percept3(xg + (c * CB_HY + ty) * CB_HX + tx, CB_HX, wcs + c * 27, o);
-#pragma unroll
-    for (int s = 0; s < 3; ++s) pc[(3 * c + s) * CB_LDM + pix] = rnd_if(BF16, o[s]);
-  }
+  percept_cols<BF16>(xg, wcs, pc, C, valid, pix, half);
   for (int r = P + half; r < PN; r += 2) pc[r * CB_LDM + pix] = (r == P && valid) ? 1.f : 0.f;
   for (int r = DP + half; r < DP + 8; r += 2)
     hc1[r * CB_LDM + pix] = (r == DP && valid) ? 1.f : 0.f;
   __syncthreads();  // the percept
   // h1, h2 and dx: a thread takes 8 hidden units (or 4 channels) for 4
-  // pixels, 32 apart, so each weight read (a broadcast float4: 512 bytes
-  // through the shared memory's 128 a clock) feeds 16 FMAs, not 4.
+  // pixels, 32 apart; rows past D4 up to DP are zeros (b1s and b2s are zero
+  // there).
   const int q0 = tid & 31, ug = tid >> 5;
-  {
-    const int u0 = 8 * ug;
-    float a[4][8] = {};
-    if (u0 < D4) {
-      for (int k = 0; k < P; ++k) {
-        const float4 wa = *reinterpret_cast<const float4*>(w1s + k * LDW + u0);
-        const float4 wb = *reinterpret_cast<const float4*>(w1s + k * LDW + u0 + 4);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float v = pc[k * CB_LDM + q0 + 32 * i];
-          a[i][0] = fmaf(wa.x, v, a[i][0]);
-          a[i][1] = fmaf(wa.y, v, a[i][1]);
-          a[i][2] = fmaf(wa.z, v, a[i][2]);
-          a[i][3] = fmaf(wa.w, v, a[i][3]);
-          a[i][4] = fmaf(wb.x, v, a[i][4]);
-          a[i][5] = fmaf(wb.y, v, a[i][5]);
-          a[i][6] = fmaf(wb.z, v, a[i][6]);
-          a[i][7] = fmaf(wb.w, v, a[i][7]);
-        }
-      }
-    }
-    if (u0 < DP) {  // zero past D4: b1s is zero there
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          hc1[(u0 + j) * CB_LDM + q0 + 32 * i] = fmaxf(a[i][j] + b1s[u0 + j], 0.f);
-      }
-    }
-  }
+  relu_layer<false>(w1s, LDW, pc, P, b1s, hc1, 8 * ug, D4, DP, q0);
   __syncthreads();  // h1
-  {
-    const int e0 = 8 * ug;
-    float a[4][8] = {};
-    if (e0 < D4) {
-      for (int f = 0; f < D4; ++f) {
-        const float4 wa = *reinterpret_cast<const float4*>(w2s + f * LDW + e0);
-        const float4 wb = *reinterpret_cast<const float4*>(w2s + f * LDW + e0 + 4);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float v = rnd_if(BF16, hc1[f * CB_LDM + q0 + 32 * i]);
-          a[i][0] = fmaf(wa.x, v, a[i][0]);
-          a[i][1] = fmaf(wa.y, v, a[i][1]);
-          a[i][2] = fmaf(wa.z, v, a[i][2]);
-          a[i][3] = fmaf(wa.w, v, a[i][3]);
-          a[i][4] = fmaf(wb.x, v, a[i][4]);
-          a[i][5] = fmaf(wb.y, v, a[i][5]);
-          a[i][6] = fmaf(wb.z, v, a[i][6]);
-          a[i][7] = fmaf(wb.w, v, a[i][7]);
-        }
-      }
-    }
-    if (e0 < DP) {
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          hc2[(e0 + j) * CB_LDM + q0 + 32 * i] = fmaxf(a[i][j] + b2s[e0 + j], 0.f);
-      }
-    }
-  }
+  relu_layer<BF16>(w2s, LDW, hc1, D4, b2s, hc2, 8 * ug, D4, DP, q0);
   __syncthreads();  // h2
   // dx for channels 4 ug .. 4 ug + 3, then the clamp, life and mask
   // adjoints: g <- g_xn in place, g_dx column (zero past C).
   {
     const int c0 = 4 * ug;
-    float dx[4][4] = {};
-    if (c0 < C4) {
-      for (int e = 0; e < D4; ++e) {
-        const float4 w = *reinterpret_cast<const float4*>(w3s + e * CB_LD3 + c0);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          const float v = rnd_if(BF16, hc2[e * CB_LDM + q0 + 32 * i]);
-          dx[i][0] = fmaf(w.x, v, dx[i][0]);
-          dx[i][1] = fmaf(w.y, v, dx[i][1]);
-          dx[i][2] = fmaf(w.z, v, dx[i][2]);
-          dx[i][3] = fmaf(w.w, v, dx[i][3]);
-        }
-      }
-    }
+    float dx[4][4];
+    dx_layer<BF16>(w3s, CB_LD3, hc2, D4, c0, C4, q0, dx);
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       const int q = q0 + 32 * i;
@@ -884,6 +845,15 @@ static bool bad_sizes(int C, int D4) {
   return C < 1 || C > CNCA_C_MAX || D4 < 4 || D4 > CNCA_D_MAX || D4 % 4 != 0;
 }
 
+// The weights go to shared memory by 16-byte copies.
+static bool unaligned(const float* w1, const float* b1, const float* w2, const float* b2,
+                      const float* w3) {
+  const float* ps[] = {w1, b1, w2, b2, w3};
+  for (const float* p : ps)
+    if (reinterpret_cast<uintptr_t>(p) % 16 != 0) return true;
+  return false;
+}
+
 extern "C" {
 
 // Sizes past these limits are refused by the wrapper before launch.
@@ -902,13 +872,11 @@ int cnca_update_launch(const float* x, const float* goal, float* xn, const float
                        int D4, int alive, float athr, int use_life, int bf16,
                        unsigned int seed, unsigned int step, unsigned int fthr,
                        void* stream) {
-  if (bad_sizes(C, D4) || alive < 0 || alive >= C) return (int)cudaErrorInvalidValue;
-  const int P = 3 * C, C4 = (C + 3) & ~3;
-  const size_t smem = sizeof(float) * ((size_t)P * D4 + D4 * D4 + D4 * C4 + 2 * D4 +
-                                       C * 27 + CU_AH * CU_AH + CU_HALO * CU_HALO +
-                                       (size_t)C * CU_HALO * CU_HALO);
-  const dim3 grid((W + CU_TILE - 1) / CU_TILE, (H + CU_TILE - 1) / CU_TILE, B);
-  const dim3 block(CU_TILE, CU_TILE);
+  if (bad_sizes(C, D4) || alive < 0 || alive >= C || unaligned(w1, b1, w2, b2, w3))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (size_t)cu_smem_floats(C, D4);
+  const dim3 grid((W + CB_TX - 1) / CB_TX, (H + CB_TY - 1) / CB_TY, B);
+  const dim3 block(CB_THREADS);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (bf16) {
     cudaFuncSetAttribute(cnca_update_kernel<true>,
@@ -922,6 +890,26 @@ int cnca_update_launch(const float* x, const float* goal, float* xn, const float
     cnca_update_kernel<false><<<grid, block, smem, s>>>(
         x, goal, xn, wcol, w1, b1, w2, b2, w3, C, H, W, D4, alive, athr, use_life, seed,
         step, fthr);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Blocks an SM of cnca_update at these widths (cudaOccupancy...), with its
+// dynamic shared memory in *smem_bytes.
+int cnca_update_occupancy(int C, int D4, int bf16, int* blocks, int* smem_bytes) {
+  if (bad_sizes(C, D4)) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (size_t)cu_smem_floats(C, D4);
+  *smem_bytes = (int)smem;
+  if (bf16) {
+    cudaFuncSetAttribute(cnca_update_kernel<true>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, cnca_update_kernel<true>,
+                                                  CB_THREADS, smem);
+  } else {
+    cudaFuncSetAttribute(cnca_update_kernel<false>,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, cnca_update_kernel<false>,
+                                                  CB_THREADS, smem);
   }
   return (int)cudaGetLastError();
 }
@@ -951,7 +939,8 @@ int cnca_bwd_mlp_launch(const float* x, const float* goal, const unsigned char* 
                         int D4, int alive, float athr, int use_life, float clampv,
                         int bf16, unsigned int seed, unsigned int step,
                         unsigned int fthr, void* stream) {
-  if (bad_sizes(C, D4) || alive < 0 || alive >= C) return (int)cudaErrorInvalidValue;
+  if (bad_sizes(C, D4) || alive < 0 || alive >= C || unaligned(w1, b1, w2, b2, w3))
+    return (int)cudaErrorInvalidValue;
   const int P = 3 * C, PN = (P + 8) & ~7, DP = (D4 + 31) & ~31, LDW = DP + 8;
   const size_t smem =
       sizeof(float) * ((size_t)PN * LDW + (size_t)DP * LDW + (size_t)DP * CB_LD3 + 2 * DP +

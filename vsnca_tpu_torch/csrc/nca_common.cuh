@@ -153,6 +153,27 @@ __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_all;\n" ::);
 }
 
+// A 16-byte asynchronous copy (both addresses 16-byte aligned; cached in L2
+// only, as the block's own shared memory keeps what it reuses), and the
+// groups a double-buffered loop waits on: cp_async_commit closes the copies
+// the thread issued since the last commit into a group; cp_async_wait_group<N>
+// waits until at most N of the thread's groups are still in flight.
+__device__ __forceinline__ void cp_async16(float* dst, const float* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait_group() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 // stage_tile for a float32 state by asynchronous copies (zeros outside the
 // grid are plain stores): the caller waits (cp_async_wait_all) and
 // synchronises before reading the tile.

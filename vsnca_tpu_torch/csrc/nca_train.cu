@@ -36,10 +36,11 @@
 // and its gp is the cotangent of the average. nca_bwd_adjoint_ms is the
 // transpose of down -> half-res stencils -> clamped up, plus the scale-0
 // stencils, averaged 0.5 — in gather form: each block forms U^T gp over W,
-// then H, on its 10 x 10 half-pixel footprint from gp in device memory, the
-// half-resolution stencil adjoint (circular at half resolution) on its 8 x 8
-// half pixels, and adds 0.5 * (scale-0 adjoint + 0.25 * parent's g_h) (D^T
-// of the 2x2 mean) to each of its pixels. No atomics and no scratch buffer.
+// then H, on its 10 x 10 half-pixel footprint from gp staged in shared
+// memory, the half-resolution stencil adjoint (circular at half resolution)
+// on its 8 x 8 half pixels, and adds 0.5 * (scale-0 adjoint + 0.25 *
+// parent's g_h) (D^T of the 2x2 mean) to each of its pixels. No atomics and
+// no scratch buffer.
 // Frame taps: a tap at state t (the input of step t) adds its cotangent in
 // the adjoint launch of step t, right after gx has become the cotangent of
 // that state (an optional gtap pointer of both adjoint kernels), so one
@@ -81,10 +82,17 @@
 // clock64 profile of that block put a quarter of its time in the z1
 // recompute, a third in the weight-gradient products and a sixth each in W2
 // gdx + W1 gz1 and the percept.
-// The multiscale adjoint adds per pixel and channel 4 x 22 x 10 / 256 U_W^T
-// gathers of 4 reads (from L1/L2) and the half-resolution stencils: bytes
-// and latency, not FLOPs; its 9.3 KB of static shared memory leaves room for
-// many blocks an SM.
+// The multiscale adjoint moves 6C floats a pixel (gp in, gx in and out), so
+// bytes bound it (0.0225 ms at 256^2 b3 c16). Its first design walked the
+// channels one at a time with four barriers a channel, re-read gp from
+// device memory twice a channel (the scale-0 halo, then 4 strided loads for
+// each value of U^T over W: about 4.4 load instructions for each value the
+// block owns), overlapped no channel's loads with another's arithmetic, and
+// ran the half-resolution stencils on 64 of 256 threads: latency, not bytes.
+// The design now stages each channel's footprint once by cp.async (16-byte
+// copies where the rows are aligned), double-buffered across passes of
+// ADJ_CP = 2 channels, and computes every phase from shared memory (about
+// 53 KB a block: four blocks an SM); see nca_bwd_adjoint_ms_kernel.
 //
 // bf16 mode rounds where the TPU kernel casts to its compute dtype
 // (:1232-1238): the percept (with the conditioning rows), hid, gdx and gz1;
@@ -510,7 +518,31 @@ __device__ __forceinline__ float upsample2_t(float a, float b, float l,
                    __fadd_rn(__fmul_rn(l, 0.25f), __fmul_rn(r, 0.25f)));
 }
 
-#define ADJ_WROWS (2 * NCA_HFOOT + 2)  // full rows a footprint's U^T reads
+// nca_bwd_adjoint_ms's geometry. A block's 16 x 16 pixels read gp on one
+// full-resolution footprint a plane: 22 rows from 16 by - 3 (U^T over H of
+// the 10 half rows hb - 1 .. hb + 8 reads their children and the 0.25 taps'
+// rows, 2 hb - 3 .. 2 hb + 18) and 24 columns from 16 bx - 4 (the 22 that
+// U^T over W reads, widened to six aligned float4s), wrapped circularly at
+// full resolution; it holds the scale-0 halo (rows 2 .. 19, columns 3 .. 20)
+// too. ADJ_CP channels go through a pass, so that every phase keeps at least
+// half the block busy.
+#define ADJ_FR (2 * NCA_HFOOT + 2)  // footprint rows
+#define ADJ_FC 24                   // footprint columns
+#define ADJ_PLANE (ADJ_FR * ADJ_FC)
+#define ADJ_CP 2                    // channels a pass
+#define ADJ_HP (NCA_TILE / 2)       // half pixels under a block, a side
+// dynamic shared memory of nca_bwd_adjoint_ms, in floats: two footprint
+// buffers [2][CP][4][PLANE], gx and gtap prefetches [2][CP][256] each, U_W^T
+// [CP][4][FR][WS], U^T gp [CP][4][10][10]; then ints: the footprint rows'
+// offsets and columns
+#define ADJ_WS (NCA_HFOOT + 1)  // stride of U_W^T's rows (odd: no bank conflicts)
+// a thread's 16-byte footprint copies a pass: of [CP][4][FR][6] float4s,
+// ADJ_CP * ADJ_PLANE in all
+#define ADJ_NV ((ADJ_CP * ADJ_PLANE + NT_THREADS - 1) / NT_THREADS)
+#define ADJ_SMEM_FLOATS                                   \
+  (2 * ADJ_CP * 4 * ADJ_PLANE + 4 * ADJ_CP * NT_THREADS + \
+   ADJ_CP * 4 * ADJ_FR * ADJ_WS + ADJ_CP * 4 * NCA_HFOOT * NCA_HFOOT)
+#define ADJ_SMEM_BYTES (sizeof(float) * ADJ_SMEM_FLOATS + sizeof(int) * (ADJ_FR + ADJ_FC))
 
 // The multiscale (scales (0, 1)) state cotangent of one step, in gather
 // form: for the block's 16 x 16 pixels and each channel c,
@@ -522,78 +554,202 @@ __device__ __forceinline__ float upsample2_t(float a, float b, float l,
 //         (0.25 g_h[parent] is D^T g_h, the 2x2 mean's transpose), and
 //         gtap's value when gtap is not null.
 // Every value is computed where it is used: no atomics, no scratch in
-// device memory.
-__global__ void __launch_bounds__(NT_THREADS)
+// device memory. Each channel's 4 gp planes are staged once, on the
+// footprint above, by cp.async (16-byte copies when W is a multiple of 4 and
+// gp is 16-byte aligned, `vec`; 4-byte ones otherwise), with the circular
+// wrap resolved once per footprint row and column; the block's gx and gtap
+// values come the same way. Two buffers: pass p + 1's copies fly while pass
+// p computes, ADJ_CP channels a pass. Every phase then reads shared memory:
+// the scale-0 adjoint (a thread two pixels of a column, of one channel, from
+// a 4 x 3 window of each stencil plane in registers) and U^T over W (a
+// thread a footprint row: six float4 reads, ten outputs; 176 threads), U^T
+// over H (a thread five half rows of a half column; 160 threads), then the
+// half-resolution stencil adjoint at the parent half pixel of a thread's two
+// pixels (each half pixel formed by the two threads that need it, which
+// saves a barrier) and the combine. Three barriers a pass.
+// The terms and their order are the first design's (upsample2_t,
+// stencil_adjoint, __fadd_rn/__fmul_rn), on the same values, so the result
+// is that design's bit for bit.
+__global__ void __launch_bounds__(NT_THREADS, 4)
 nca_bwd_adjoint_ms_kernel(const float* __restrict__ gp, float* __restrict__ gx,
-                          const float* __restrict__ gtap, int C, int H,
-                          int W) {
-  __shared__ float tile[3][NCA_HALO * NCA_HALO];
-  __shared__ float wt[4][ADJ_WROWS * NCA_HFOOT];  // U_W^T of 22 full rows
-  __shared__ float gph[4][NCA_HFOOT * NCA_HFOOT];  // U^T gp on the footprint
-  __shared__ float gh[(NCA_TILE / 2) * (NCA_TILE / 2)];
-  const int tid = threadIdx.y * NCA_TILE + threadIdx.x;
+                          const float* __restrict__ gtap, int C, int H, int W,
+                          int vec) {
+  extern __shared__ __align__(16) float smem[];
+  const int nf = NCA_HFOOT * NCA_HFOOT;
+  float* fp = smem;                                // [2][CP][4][PLANE]
+  float* gxs = fp + 2 * ADJ_CP * 4 * ADJ_PLANE;    // [2][CP][256]
+  float* gts = gxs + 2 * ADJ_CP * NT_THREADS;      // [2][CP][256]
+  float* wt = gts + 2 * ADJ_CP * NT_THREADS;       // [CP][4][FR][WS]
+  float* gph = wt + ADJ_CP * 4 * ADJ_FR * ADJ_WS;  // [CP][4][10][10]
+  int* rows = reinterpret_cast<int*>(gph + ADJ_CP * 4 * nf);  // [FR]
+  int* cols = rows + ADJ_FR;                                          // [FC]
+  const int tid = threadIdx.x;
   const int b = blockIdx.z;
   const int HW = H * W, H2 = H / 2, W2 = W / 2;
-  const int y0 = blockIdx.y * NCA_TILE - 1, x0 = blockIdx.x * NCA_TILE - 1;
-  const int hb = blockIdx.y * (NCA_TILE / 2), wb = blockIdx.x * (NCA_TILE / 2);
-  const int fr0 = 2 * (hb - 1) - 1;  // full row of wt's first row, mod H
-  const int px = blockIdx.x * NCA_TILE + threadIdx.x;
-  const int py = blockIdx.y * NCA_TILE + threadIdx.y;
-  const bool valid = px < W && py < H;
-  const int pix = py * W + px;
+  const int hb = blockIdx.y * ADJ_HP, wb = blockIdx.x * ADJ_HP;
+  const int y0 = blockIdx.y * NCA_TILE, x0 = blockIdx.x * NCA_TILE;
   const float* gpb = gp + (size_t)b * 4 * C * HW;
-  const int o = threadIdx.y * NCA_HALO + threadIdx.x;
-  const int nf = NCA_HFOOT * NCA_HFOOT;
 
-  for (int c = 0; c < C; ++c) {
-    __syncthreads();  // the previous channel's shared arrays are consumed
-    for (int i = tid; i < 3 * NCA_HALO * NCA_HALO; i += NT_THREADS) {
-      const int k = i / (NCA_HALO * NCA_HALO);
-      const int r = (i / NCA_HALO) % NCA_HALO, q = i % NCA_HALO;
-      const int row = pad_index(y0 + r, H, 0), col = pad_index(x0 + q, W, 0);
-      tile[k][r * NCA_HALO + q] =
-          gpb[(size_t)((k + 1) * C + c) * HW + row * W + col];
+  if (tid < ADJ_FR)
+    rows[tid] = pad_index(y0 - 3 + tid, H, 0) * W;
+  else if (tid < ADJ_FR + ADJ_FC)
+    cols[tid - ADJ_FR] = pad_index(x0 - 4 + tid - ADJ_FR, W, 0);
+  // the footprint's half rows (columns) q whose wrapped index is the first
+  // or the last: the clamped upsample's edges, as bit q of these masks
+  int rfirst = 0, rlast = 0, cfirst = 0, clast = 0;
+#pragma unroll
+  for (int q = 0; q < NCA_HFOOT; ++q) {
+    const int i = pad_index(hb - 1 + q, H2, 0), j = pad_index(wb - 1 + q, W2, 0);
+    rfirst |= (i == 0) << q;
+    rlast |= (i == H2 - 1) << q;
+    cfirst |= (j == 0) << q;
+    clast |= (j == W2 - 1) << q;
+  }
+  __syncthreads();  // the footprint's rows and columns
+
+  // The 16-byte copies of the footprint: a thread's copies are the same in
+  // every pass, copy j being float4 i = tid + 256 j of the pass's [CP][4][FR]
+  // [6] (its shared-memory offset 4 i), so their offsets in a plane pair
+  // (plane k, channel c0 + ch of gp, less c0's planes) are computed once.
+  int soff[ADJ_NV];
+#pragma unroll
+  for (int j = 0; j < ADJ_NV; ++j) {
+    const int i = tid + j * NT_THREADS;
+    const int m = i % (ADJ_FC / 4), r = (i / (ADJ_FC / 4)) % ADJ_FR;
+    const int kk = i / (ADJ_FR * (ADJ_FC / 4));
+    soff[j] = i < ADJ_CP * ADJ_PLANE ? ((kk & 3) * C + (kk >> 2)) * HW + rows[r] + cols[4 * m]
+                                     : 0;
+  }
+  // the thread's pixel for gx and gtap (entry (ty & 1) * 128 + (ty >> 1) * 16
+  // + tx of a channel's 256: row pairs apart)
+  const int sy = tid / NCA_TILE, sx = tid % NCA_TILE;
+  const bool svalid = y0 + sy < H && x0 + sx < W;
+  const int spix = svalid ? (y0 + sy) * W + x0 + sx : 0;
+  const int sslot = (sy & 1) * 128 + (sy >> 1) * NCA_TILE + sx;
+
+  // Pass `pass`'s copies into buffer `buf`: ADJ_CP channels' 4 gp planes on
+  // the footprint, then gx and gtap at the block's pixels.
+  auto stage = [&](int pass, int buf) {
+    const int c0 = pass * ADJ_CP;
+    float* dst = fp + buf * ADJ_CP * 4 * ADJ_PLANE;
+    const float* src = gpb + (size_t)c0 * HW;
+    if (vec) {
+#pragma unroll
+      for (int j = 0; j < ADJ_NV; ++j) {
+        const int i = tid + j * NT_THREADS;
+        if (i < ADJ_CP * ADJ_PLANE && c0 + i / ADJ_PLANE < C)
+          cp_async16(dst + 4 * i, src + soff[j]);
+      }
+    } else {
+      for (int i = tid; i < ADJ_CP * 4 * ADJ_PLANE; i += NT_THREADS) {
+        const int q = i % ADJ_FC, r = (i / ADJ_FC) % ADJ_FR, kk = i / ADJ_PLANE;
+        if (c0 + (kk >> 2) < C)
+          cp_async4(dst + i, src + ((kk & 3) * C + (kk >> 2)) * HW + rows[r] + cols[q]);
+      }
     }
-    for (int i = tid; i < 4 * ADJ_WROWS * NCA_HFOOT; i += NT_THREADS) {
-      const int k = i / (ADJ_WROWS * NCA_HFOOT);
-      const int lr = (i / NCA_HFOOT) % ADJ_WROWS, q = i % NCA_HFOOT;
-      const int row = pad_index(fr0 + lr, H, 0);
-      const int j = pad_index(wb - 1 + q, W2, 0);
-      const float* g = gpb + (size_t)(k * C + c) * HW + (size_t)row * W;
-      wt[k][lr * NCA_HFOOT + q] =
-          upsample2_t(g[2 * j], g[2 * j + 1], g[j >= 1 ? 2 * j - 1 : 2 * j],
-                      g[j <= W2 - 2 ? 2 * j + 2 : 2 * j + 1]);
+#pragma unroll
+    for (int e = 0; e < ADJ_CP; ++e) {
+      if (svalid && c0 + e < C) {
+        const size_t at = ((size_t)b * C + c0 + e) * HW + spix;
+        const int o = (buf * ADJ_CP + e) * NT_THREADS + sslot;
+        cp_async4(gxs + o, gx + at);
+        if (gtap != nullptr) cp_async4(gts + o, gtap + at);
+      }
     }
-    __syncthreads();
-    for (int i = tid; i < 4 * nf; i += NT_THREADS) {
-      const int k = i / nf, r = (i / NCA_HFOOT) % NCA_HFOOT, q = i % NCA_HFOOT;
-      const int hi = pad_index(hb - 1 + r, H2, 0);
-      const float* col = &wt[k][q];
-      gph[k][r * NCA_HFOOT + q] = upsample2_t(
-          col[(2 * r + 1) * NCA_HFOOT], col[(2 * r + 2) * NCA_HFOOT],
-          col[(hi >= 1 ? 2 * r : 2 * r + 1) * NCA_HFOOT],
-          col[(hi <= H2 - 2 ? 2 * r + 3 : 2 * r + 2) * NCA_HFOOT]);
+    cp_async_commit();
+  };
+
+  // the scale-0 adjoint and the combine: channel dch of the pass, column dx,
+  // pixel rows 2 dy2 and 2 dy2 + 1 (one parent half row)
+  const int dch = tid / (NT_THREADS / ADJ_CP), dx = tid % NCA_TILE;
+  const int dy2 = (tid / NCA_TILE) % ADJ_HP;
+  // U^T over W: footprint row ar of plane ak (ch * 4 + k) of the pass
+  const int ak = tid / ADJ_FR, ar = tid % ADJ_FR;
+  // U^T over H: half column bq, half rows 5 bh .. 5 bh + 4, plane bk
+  const int bq = tid % NCA_HFOOT, bh = (tid / NCA_HFOOT) & 1, bk = tid / (2 * NCA_HFOOT);
+  const int npass = (C + ADJ_CP - 1) / ADJ_CP;
+  stage(0, 0);
+  for (int pass = 0; pass < npass; ++pass) {
+    const int buf = pass & 1, c0 = pass * ADJ_CP;
+    cp_async_wait_group<0>();
+    __syncthreads();  // staging: this pass's footprint is in, the last pass's arrays are read
+    if (pass + 1 < npass) stage(pass + 1, buf ^ 1);
+    // phase: issue the next pass's copies
+    const float* f = fp + buf * ADJ_CP * 4 * ADJ_PLANE;
+    // the scale-0 adjoint of the thread's two pixels: the 4 x 3 window of
+    // each stencil plane from footprint (2 dy2 + 2, dx + 3), the raw values
+    // at (2 dy2 + 3 + e, dx + 4)
+    float adj0[2] = {0.f, 0.f};
+    const bool dvalid = c0 + dch < C;
+    if (dvalid) {
+      const float* fk = f + dch * 4 * ADJ_PLANE + (2 * dy2 + 2) * ADJ_FC + dx + 3;
+      float win[3][4][3];
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+#pragma unroll
+        for (int r = 0; r < 4; ++r)
+#pragma unroll
+          for (int q = 0; q < 3; ++q) win[k][r][q] = fk[(k + 1) * ADJ_PLANE + r * ADJ_FC + q];
+#pragma unroll
+      for (int e = 0; e < 2; ++e)
+        adj0[e] = stencil_adjoint<3>(fk[(e + 1) * ADJ_FC + 1], &win[0][e][0], &win[1][e][0],
+                                     &win[2][e][0]);
     }
-    __syncthreads();
-    if (tid < (NCA_TILE / 2) * (NCA_TILE / 2)) {
-      const int r = tid / (NCA_TILE / 2), q = tid % (NCA_TILE / 2);
-      const int w0 = r * NCA_HFOOT + q;  // the 3x3 window's top-left
-      gh[tid] = stencil_adjoint<NCA_HFOOT>(gph[0][w0 + NCA_HFOOT + 1],
-                                          &gph[1][w0], &gph[2][w0],
-                                          &gph[3][w0]);
+    // U^T over W: half column q (half index wb - 1 + q) reads footprint
+    // columns 2q + 1 .. 2q + 4 of the row
+    if (tid < ADJ_CP * 4 * ADJ_FR && c0 + (ak >> 2) < C) {
+      const float4* t4 = reinterpret_cast<const float4*>(f + ak * ADJ_PLANE + ar * ADJ_FC);
+      float t[ADJ_FC];
+#pragma unroll
+      for (int m = 0; m < ADJ_FC / 4; ++m) {
+        const float4 v = t4[m];
+        t[4 * m] = v.x;
+        t[4 * m + 1] = v.y;
+        t[4 * m + 2] = v.z;
+        t[4 * m + 3] = v.w;
+      }
+      float* o = wt + tid * ADJ_WS;
+#pragma unroll
+      for (int q = 0; q < NCA_HFOOT; ++q)
+        o[q] = upsample2_t(t[2 * q + 2], t[2 * q + 3],
+                           (cfirst >> q) & 1 ? t[2 * q + 2] : t[2 * q + 1],
+                           (clast >> q) & 1 ? t[2 * q + 3] : t[2 * q + 4]);
     }
-    __syncthreads();
-    if (valid) {
-      const float adj0 = stencil_adjoint(gpb[(size_t)c * HW + pix], &tile[0][o],
-                                         &tile[1][o], &tile[2][o]);
-      const float h =
-          gh[(threadIdx.y >> 1) * (NCA_TILE / 2) + (threadIdx.x >> 1)];
-      const size_t at = ((size_t)b * C + c) * HW + pix;
-      float v = __fadd_rn(
-          gx[at], __fmul_rn(__fadd_rn(adj0, __fmul_rn(h, 0.25f)), 0.5f));
-      if (gtap != nullptr) v = __fadd_rn(v, gtap[at]);
-      gx[at] = v;
+    __syncthreads();  // the scale-0 adjoint (registers) and U^T over W
+    // U^T over H: half row r = 5 bh + i reads U_W^T rows 2r .. 2r + 3
+    if (tid < ADJ_CP * 4 * 2 * NCA_HFOOT && c0 + (bk >> 2) < C) {
+      const float* col = wt + (bk * ADJ_FR + 10 * bh) * ADJ_WS + bq;
+      float v[12];
+#pragma unroll
+      for (int j = 0; j < 12; ++j) v[j] = col[j * ADJ_WS];
+#pragma unroll
+      for (int i = 0; i < 5; ++i) {
+        const int r = 5 * bh + i;
+        gph[bk * nf + r * NCA_HFOOT + bq] =
+            upsample2_t(v[2 * i + 1], v[2 * i + 2], (rfirst >> r) & 1 ? v[2 * i + 1] : v[2 * i],
+                        (rlast >> r) & 1 ? v[2 * i + 2] : v[2 * i + 3]);
+      }
     }
+    __syncthreads();  // U^T over H
+    if (dvalid) {
+      // the half-resolution stencil adjoint at the pixels' parent half pixel
+      // (the two threads of a parent pair each form it)
+      const float* sh = gph + dch * 4 * nf;
+      const int w0 = dy2 * NCA_HFOOT + (dx >> 1);  // the 3x3 window's top-left
+      const float h = stencil_adjoint<NCA_HFOOT>(sh[w0 + NCA_HFOOT + 1], sh + nf + w0,
+                                                 sh + 2 * nf + w0, sh + 3 * nf + w0);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int py = y0 + 2 * dy2 + e, px = x0 + dx;
+        if (py < H && px < W) {
+          const int s = (buf * ADJ_CP + dch) * NT_THREADS + e * 128 + dy2 * NCA_TILE + dx;
+          float v = __fadd_rn(gxs[s], __fmul_rn(__fadd_rn(adj0[e], __fmul_rn(h, 0.25f)), 0.5f));
+          if (gtap != nullptr) v = __fadd_rn(v, gts[s]);
+          gx[((size_t)b * C + c0 + dch) * HW + (size_t)py * W + px] = v;
+        }
+      }
+    }
+    // phase: the half-resolution stencil adjoint, the combine and the store
   }
 }
 
@@ -676,16 +832,33 @@ int nca_bwd_mlp_launch(const float* x, const float* cond, const float* gx,
 // not null. Returns cudaGetLastError().
 int nca_bwd_adjoint_launch(const float* gp, float* gx, const float* gtap,
                            int B, int C, int H, int W, int ms, void* stream) {
-  if (C < 1 || C > NCA_C_MAX || (ms && (H % 2 || W % 2)))
+  // (the MS kernel's offsets within a batch item's gp are 32-bit)
+  if (C < 1 || C > NCA_C_MAX || (ms && (H % 2 || W % 2 || 4LL * C * H * W >= (1LL << 31))))
     return (int)cudaErrorInvalidValue;
   const dim3 grid((W + NCA_TILE - 1) / NCA_TILE, (H + NCA_TILE - 1) / NCA_TILE,
                   B);
   const dim3 block(NCA_TILE, NCA_TILE);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (ms)
-    nca_bwd_adjoint_ms_kernel<<<grid, block, 0, s>>>(gp, gx, gtap, C, H, W);
-  else
+  if (ms) {
+    const int vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(gp) % 16 == 0;
+    cudaFuncSetAttribute(nca_bwd_adjoint_ms_kernel,
+                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ADJ_SMEM_BYTES);
+    nca_bwd_adjoint_ms_kernel<<<grid, dim3(NT_THREADS), ADJ_SMEM_BYTES, s>>>(gp, gx, gtap, C,
+                                                                            H, W, vec);
+  } else {
     nca_bwd_adjoint_kernel<<<grid, block, 0, s>>>(gp, gx, gtap, C, H, W);
+  }
+  return (int)cudaGetLastError();
+}
+
+// Blocks an SM of nca_bwd_adjoint_ms (cudaOccupancy...), with its dynamic
+// shared memory in *smem_bytes.
+int nca_bwd_adjoint_ms_occupancy(int* blocks, int* smem_bytes) {
+  *smem_bytes = (int)ADJ_SMEM_BYTES;
+  cudaFuncSetAttribute(nca_bwd_adjoint_ms_kernel,
+                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ADJ_SMEM_BYTES);
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, nca_bwd_adjoint_ms_kernel,
+                                                NT_THREADS, ADJ_SMEM_BYTES);
   return (int)cudaGetLastError();
 }
 

@@ -63,7 +63,7 @@ KERNEL_LAUNCHES: Dict[str, int] = {
 # against the built library): the reference's 20 channels and 64 hidden
 # units, with room for 24 channels.
 C_MAX, D_MAX = 24, 64
-MLP_TILE = (16, 8)  # cnca_bwd_mlp's blocks are 16 x 8 pixels
+MLP_TILE = (16, 8)  # cnca_update's and cnca_bwd_mlp's blocks are 16 x 8 pixels
 WEIGHT_KEYS = ("perception_w", "update1.w", "update1.b", "update2.w", "update2.b",
                "update3.w")
 
@@ -560,7 +560,21 @@ def _lib() -> ctypes.CDLL:
                    lib.cnca_bwd_adjoint_launch, lib.cnca_limits):
             fn.restype = ctypes.c_int
         lib.cnca_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        lib.cnca_update_occupancy.argtypes = [i32] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
+        lib.cnca_update_occupancy.restype = ctypes.c_int
     return lib
+
+
+def update_occupancy(c: int, d: int, compute_dtype: str = "float32") -> Tuple[int, int]:
+    """(blocks an SM, dynamic shared-memory bytes) of ``cnca_update`` at C
+    channels and D hidden units, from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
+    blocks, smem = ctypes.c_int(), ctypes.c_int()
+    err = _lib().cnca_update_occupancy(c, _round4(d), int(compute_dtype == "bfloat16"),
+                                       ctypes.byref(blocks), ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"cnca_update_occupancy failed: CUDA error {err}")
+    return blocks.value, smem.value
 
 
 def kernel_limits() -> Tuple[int, int]:

@@ -629,7 +629,20 @@ def _lib() -> ctypes.CDLL:
         lib.nca_bwd_adjoint_launch.restype = ctypes.c_int
         lib.nca_train_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
         lib.nca_train_limits.restype = ctypes.c_int
+        lib.nca_bwd_adjoint_ms_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
+        lib.nca_bwd_adjoint_ms_occupancy.restype = ctypes.c_int
     return lib
+
+
+def adjoint_ms_occupancy() -> Tuple[int, int]:
+    """(blocks an SM, dynamic shared-memory bytes) of ``nca_bwd_adjoint_ms``
+    (the same at every width), from
+    ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``."""
+    blocks, smem = ctypes.c_int(), ctypes.c_int()
+    err = _lib().nca_bwd_adjoint_ms_occupancy(ctypes.byref(blocks), ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"nca_bwd_adjoint_ms_occupancy failed: CUDA error {err}")
+    return blocks.value, smem.value
 
 
 def train_kernel_limits() -> Tuple[int, int, int]:

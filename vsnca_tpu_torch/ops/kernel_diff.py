@@ -1,0 +1,250 @@
+"""The redesigned ``nca_bwd_adjoint_ms`` and ``cnca_update`` against another
+build of the same C interfaces, bit for bit and in time, on the card.
+
+``python3 -m vsnca_tpu_torch.ops.kernel_diff --ref-csrc DIR`` (a CUDA card
+and ``nvcc`` needed): DIR holds ``nca_train.cu``, ``nca_cnca.cu`` and the
+``*.cuh`` headers of another commit, for example written by
+``git show <commit>:vsnca_tpu_torch/csrc/<file> > DIR/<file>`` into a
+git-ignored directory. Both are built into ``build/kernels/ref/`` with the
+flags of ``ops/_build.py``. Each case launches the kernel of this checkout
+and the one of DIR on the same card tensors and prints whether their outputs
+are the same bits, then each against its plain version (``MS_STATE_TOL``
+1e-6 and ``CNCA_TOL`` 1e-6 / 5e-3 of the largest element, as chip_smoke.py
+holds them); then both kernels' times a launch at the main-path shapes by
+CUDA events, in turns (ref, this, this, ref, twice). Exits 1 if any case differs.
+
+Cases: ``nca_bwd_adjoint_ms`` at 256^2 b3 (the video_motion shape) and at
+16^2, 18^2, 40x72 and 34x66 b2 (footprints that wrap, more than once at
+16^2; 18^2 and 34x66 take the 4-byte staging), C 16 and 5, with a tap and
+without; ``cnca_update`` at 64^2 b8 and b1, 8^2 and 24x40 b2, living channel
+on and off, f32 and bf16, rates 1 and 0.5; and ``cnca_bwd_mlp``, whose
+recompute shares ``cnca_update``'s device functions, at 64^2 b8 and 40x72
+b2, f32 and bf16.
+"""
+
+from __future__ import annotations
+
+import argparse
+import ctypes
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+import torch
+
+from vsnca_tpu_torch.ops import _build
+
+OUT = _build.BUILD_DIR / "ref"
+# the C functions whose argument types the wrappers set, by source
+FUNCS = {
+    "nca_train": ("nca_bwd_mlp_launch", "nca_bwd_adjoint_launch", "nca_train_limits"),
+    "nca_cnca": ("cnca_update_launch", "cnca_gate_launch", "cnca_bwd_mlp_launch",
+                 "cnca_bwd_adjoint_launch", "cnca_limits"),
+}
+MS_STATE_TOL = 1e-6
+CNCA_TOL = {"float32": 1e-6, "bfloat16": 5e-3}
+
+
+def build_ref(csrc: Path, current: dict) -> dict:
+    """Build DIR's two sources (one nvcc each, together) and give each
+    library the argument types of the current one."""
+    OUT.mkdir(parents=True, exist_ok=True)
+    procs = {}
+    for name in FUNCS:
+        so = OUT / f"lib{name}.so"
+        cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(csrc), "-o", str(so),
+               str(csrc / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT),
+                       so)
+    libs = {}
+    for name, (proc, so) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for the reference {name}.cu:\n{out.decode()}")
+        lib = ctypes.CDLL(str(so))
+        for fn in FUNCS[name]:
+            getattr(lib, fn).argtypes = getattr(current[name], fn).argtypes
+            getattr(lib, fn).restype = getattr(current[name], fn).restype
+        libs[name] = lib
+    return libs
+
+
+def _with(name: str, lib, fn):
+    """fn() with ``lib`` standing in for the built library ``name``."""
+    cur = _build._LIBS[name]
+    _build._LIBS[name] = lib
+    try:
+        return fn()
+    finally:
+        _build._LIBS[name] = cur
+
+
+def _scaled(a, b) -> float:
+    return float((a - b).abs().max()) / (float(b.abs().max()) + 1e-30)
+
+
+def _turns(cur_fn, ref_fn, reps: int = 50):
+    """Median ms a launch of each, timed in turns ref, this, this, ref, twice."""
+    times = {"this": [], "ref": []}
+    for which, fn in (("ref", ref_fn), ("this", cur_fn), ("this", cur_fn), ("ref", ref_fn)) * 2:
+        fn()
+        torch.cuda.synchronize()
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times[which].append(e0.elapsed_time(e1) / reps)
+    return statistics.median(times["this"]), statistics.median(times["ref"])
+
+
+def adjoint_cases(ft, ref_lib):
+    ok = True
+    g = torch.Generator().manual_seed(11)
+    for (b, c, h, w) in ((3, 16, 256, 256), (2, 16, 16, 16), (2, 16, 18, 18), (2, 16, 40, 72),
+                         (2, 16, 34, 66), (2, 5, 16, 16), (2, 5, 34, 66)):
+        gp = torch.randn((b, 4 * c, h, w), generator=g).cuda()
+        gx = torch.randn((b, c, h, w), generator=g).cuda()
+        gtap = torch.randn((b, c, h, w), generator=g).cuda()
+        for tap in (None, gtap):
+            got = ft.nca_bwd_adjoint(gp, gx, tap, True)
+            ref = _with("nca_train", ref_lib, lambda: ft.nca_bwd_adjoint(gp, gx, tap, True))
+            want = ft.nca_bwd_adjoint_reference(gp, gx, tap, True)
+            torch.cuda.synchronize()
+            same = torch.equal(got, ref)
+            err = _scaled(got, want)
+            good = same and err <= MS_STATE_TOL
+            ok = ok and good
+            print(f"  nca_bwd_adjoint_ms {h}x{w} b{b} C{c} tap {tap is not None}: same bits as "
+                  f"the reference build {same}; against the plain version {err:.2e} of max "
+                  f"(tol {MS_STATE_TOL:.0e}) {'ok' if good else 'FAIL'}")
+    gp = torch.randn((3, 64, 256, 256), generator=g).cuda()
+    gx = torch.randn((3, 16, 256, 256), generator=g).cuda()
+    this_ms, ref_ms = _turns(lambda: ft._launch_adjoint(gp, gx, None, True),
+                             lambda: _with("nca_train", ref_lib,
+                                           lambda: ft._launch_adjoint(gp, gx, None, True)))
+    print(f"  nca_bwd_adjoint_ms 256^2 b3 f32: this {this_ms:.4f} ms a launch, the reference "
+          f"build {ref_ms:.4f} (CUDA events, turns ref, this, this, ref, twice)")
+    return ok
+
+
+def update_cases(fc, cn, ConditionedNCAConfig, ref_lib):
+    ok = True
+    for shape in ((8, 64, 64), (1, 64, 64), (2, 8, 8), (2, 24, 40)):
+        for use_life in (True, False):
+            for rate in (1.0, 0.5):
+                b, h, w = shape
+                cfg = ConditionedNCAConfig(image_size=w, cell_fire_rate=rate,
+                                           use_living_channel=use_life)
+                params = cn.conditioned_nca_init(torch.Generator().manual_seed(0), cfg,
+                                                 device="cuda")
+                gen = torch.Generator().manual_seed(1)
+                c = cfg.num_channels
+                x = torch.zeros((b, c, h, w))
+                x[:, cfg.alive_channel:, h // 2, w // 2] = 1.0
+                x = (x + 0.3 * torch.randn((b, c, h, w), generator=gen)).cuda()
+                goal = (0.3 * torch.randn((b, c, h, w), generator=gen)).cuda()
+                thr = fc.fs.uniform_threshold(rate)
+                for cdt in ("float32", "bfloat16"):
+                    packed = fc.pack_weights(params, cfg, cdt)
+                    got, ref = torch.empty_like(x), torch.empty_like(x)
+                    fc.launch_update(x, goal, got, packed, cfg, cdt, 3, 5, thr)
+                    _with("nca_cnca", ref_lib,
+                          lambda: fc.launch_update(x, goal, ref, packed, cfg, cdt, 3, 5, thr))
+                    want = fc.cnca_update_reference(x, goal, packed, cfg, cdt, 3, 5, rate)
+                    torch.cuda.synchronize()
+                    same = torch.equal(got, ref)
+                    err = _scaled(got, want)
+                    good = same and err <= CNCA_TOL[cdt]
+                    ok = ok and good
+                    print(f"  cnca_update {h}x{w} b{b} living {use_life} rate {rate} {cdt}: same "
+                          f"bits as the reference build {same}; against the plain version "
+                          f"{err:.2e} of max (tol {CNCA_TOL[cdt]:.0e}) {'ok' if good else 'FAIL'}")
+    for b in (8, 1):
+        cfg = ConditionedNCAConfig(image_size=64)
+        params = cn.conditioned_nca_init(torch.Generator().manual_seed(0), cfg, device="cuda")
+        gen = torch.Generator().manual_seed(1)
+        x = (0.3 * torch.randn((b, 20, 64, 64), generator=gen)).cuda()
+        goal = (0.3 * torch.randn((b, 20, 64, 64), generator=gen)).cuda()
+        packed = fc.pack_weights(params, cfg, "float32")
+        xn = torch.empty_like(x)
+        thr = fc.fs.uniform_threshold(0.5)
+        run = lambda: fc.launch_update(x, goal, xn, packed, cfg, "float32", 3, 5, thr)  # noqa
+        this_ms, ref_ms = _turns(run, lambda: _with("nca_cnca", ref_lib, run))
+        print(f"  cnca_update 64^2 b{b} f32: this {this_ms:.4f} ms a launch, the reference "
+              f"build {ref_ms:.4f} (CUDA events, turns ref, this, this, ref, twice)")
+    return ok
+
+
+def bwd_mlp_cases(fc, cn, ConditionedNCAConfig, ref_lib):
+    """cnca_bwd_mlp, whose recompute now runs on cnca_update's device
+    functions: the same bits as the reference build (g_xn, gp and the
+    weight-gradient sums) and its time a launch at 64^2 b8 f32."""
+    ok = True
+    for shape in ((8, 64, 64), (2, 40, 72)):
+        b, h, w = shape
+        cfg = ConditionedNCAConfig(image_size=w, cell_fire_rate=0.5)
+        params = cn.conditioned_nca_init(torch.Generator().manual_seed(0), cfg, device="cuda")
+        gen = torch.Generator().manual_seed(1)
+        x = (0.3 * torch.randn((b, 20, h, w), generator=gen)).cuda()
+        goal = (0.3 * torch.randn((b, 20, h, w), generator=gen)).cuda()
+        gy = torch.randn((b, 20, h, w), generator=gen).cuda()
+        for cdt in ("float32", "bfloat16"):
+            packed = fc.pack_weights(params, cfg, cdt)
+            _, life = fc.cnca_step_reference(x, goal, packed, cfg, cdt, 3, 5, 0.5)
+            args = (packed, x, goal, life, gy, cfg, cdt, 3, 5, 0.5)
+            got = fc.cnca_bwd_mlp(*args)
+            ref = _with("nca_cnca", ref_lib, lambda: fc.cnca_bwd_mlp(*args))
+            torch.cuda.synchronize()
+            flat = lambda r: [r[0], r[1], *r[2]]  # noqa: E731
+            same = all(torch.equal(a, c) for a, c in zip(flat(got), flat(ref)))
+            ok = ok and same
+            print(f"  cnca_bwd_mlp {h}x{w} b{b} {cdt}: same bits as the reference build {same} "
+                  f"{'ok' if same else 'FAIL'}")
+    cfg = ConditionedNCAConfig(image_size=64, cell_fire_rate=0.5)
+    params = cn.conditioned_nca_init(torch.Generator().manual_seed(0), cfg, device="cuda")
+    gen = torch.Generator().manual_seed(1)
+    x = (0.3 * torch.randn((8, 20, 64, 64), generator=gen)).cuda()
+    goal = (0.3 * torch.randn((8, 20, 64, 64), generator=gen)).cuda()
+    g = torch.randn((8, 20, 64, 64), generator=gen).cuda()
+    packed = fc.pack_weights(params, cfg, "float32")
+    _, life = fc.cnca_step_reference(x, goal, packed, cfg, "float32", 3, 5, 0.5)
+    gp = torch.empty((8, 60, 64, 64), device="cuda")
+    slots = fc._zero_slots(8, 64, 64, packed)
+    thr = fc.fs.uniform_threshold(0.5)
+    run = lambda: fc._launch_bwd_mlp(x, goal, life, g, gp, slots, packed, cfg,  # noqa: E731
+                                     "float32", 3, 5, thr)
+    this_ms, ref_ms = _turns(run, lambda: _with("nca_cnca", ref_lib, run), reps=20)
+    print(f"  cnca_bwd_mlp 64^2 b8 f32: this {this_ms:.4f} ms a launch, the reference build "
+          f"{ref_ms:.4f} (CUDA events, turns ref, this, this, ref, twice)")
+    return ok
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--ref-csrc", required=True, type=Path)
+    args = ap.parse_args(argv)
+    if not torch.cuda.is_available():
+        print("kernel_diff needs a CUDA device", file=sys.stderr)
+        return 1
+    from vsnca_tpu_torch.config import ConditionedNCAConfig
+    from vsnca_tpu_torch.models import conditioned_nca as cn
+    from vsnca_tpu_torch.ops import fused_cnca as fc
+    from vsnca_tpu_torch.ops import fused_train as ft
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    _build.build(["nca_train", "nca_cnca"])
+    current = {"nca_train": ft._lib(), "nca_cnca": fc._lib()}
+    ref = build_ref(args.ref_csrc.resolve(), current)
+    print(torch.cuda.get_device_name(0))
+    ok = adjoint_cases(ft, ref["nca_train"])
+    ok = update_cases(fc, cn, ConditionedNCAConfig, ref["nca_cnca"]) and ok
+    ok = bwd_mlp_cases(fc, cn, ConditionedNCAConfig, ref["nca_cnca"]) and ok
+    print(f"kernel_diff: {'every case ok' if ok else 'a case FAILED'}")
+    return 0 if ok else 1
+
+
+if __name__ == "__main__":
+    sys.exit(main())

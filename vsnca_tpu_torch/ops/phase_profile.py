@@ -1,21 +1,25 @@
-"""Where the time goes inside the tensor-core kernels: a per-phase clock
+"""Where the time goes inside the redesigned kernels: a per-phase clock
 profile of the rollout step ``nca_step_ms`` (its tensor-core and chain
-forms) and of the training backward's ``nca_bwd_mlp(_ms)`` and
-``cnca_bwd_mlp`` on the card.
+forms), of the training backward's ``nca_bwd_mlp(_ms)`` and
+``nca_bwd_adjoint_ms``, and of ``cnca_update`` and ``cnca_bwd_mlp`` on the
+card.
 
 ``python3 -m vsnca_tpu_torch.ops.phase_profile`` (a CUDA card and ``nvcc``
 needed) writes instrumented copies of ``csrc/nca_step.cu``,
 ``csrc/nca_train.cu`` and ``csrc/nca_cnca.cu`` into
-``build/kernels/profile/``: after every ``__syncthreads()`` of the
-``nca_step_kernel`` and ``*_bwd_mlp_kernel`` bodies, and after every
-``// phase:`` comment, thread 0 of each block adds the ``clock64()`` cycles
-since the previous sample into a device counter for that phase. It builds
-them, launches each kernel at the shapes of PERF.md's kernel table through
-the port's own wrappers (the instrumented library stands in for the built
-one), and prints each phase's mean cycles a block and its share. A phase
-that ends at a barrier includes the wait for the block's slowest warp; one
-that ends at a ``// phase:`` mark (the step's z1 and second layer, a chunk
-of units at a time, and its store) counts thread 0's warp alone. The
+``build/kernels/profile/``: after every ``__syncthreads()`` in the body of
+each kernel of ``KERNELS``, and after every ``// phase:`` comment there,
+thread 0 of each block adds the ``clock64()`` cycles since the previous
+sample into a device counter for that phase. It builds them, launches each
+kernel at the shapes of PERF.md's kernel table through the port's own
+wrappers (the instrumented library stands in for the built one), and prints
+each phase's mean cycles a block and its share. A phase that ends at a
+barrier includes the wait for the block's slowest warp; one that ends at a
+``// phase:`` mark (the step's z1 and second layer, a chunk of units at a
+time, and its store; the staging and the last phase of ``cnca_update``; the
+issue of the next pass's copies and the combine of ``nca_bwd_adjoint_ms``)
+counts thread 0's warp alone. A phase in
+a loop (the adjoint's passes of two channels) sums over its iterations. The
 kernels' results are not checked here: ``chip_smoke.py`` and
 ``tests/test_torch_cuda.py`` hold the uninstrumented kernels to their plain
 versions.
@@ -27,15 +31,16 @@ import ctypes
 import re
 import shutil
 import subprocess
-from typing import Dict, List
+from typing import Dict, List, Tuple
 
 import torch
 
 from vsnca_tpu_torch.ops import _build
 
 OUT = _build.BUILD_DIR / "profile"
-KERNELS = {"nca_step": "nca_step_kernel(", "nca_train": "nca_bwd_mlp_kernel(",
-           "nca_cnca": "cnca_bwd_mlp_kernel("}
+KERNELS = {"nca_step": ("nca_step_kernel(",),
+           "nca_train": ("nca_bwd_mlp_kernel(", "nca_bwd_adjoint_ms_kernel("),
+           "nca_cnca": ("cnca_update_kernel(", "cnca_bwd_mlp_kernel(")}
 MAX_PHASES = 32
 
 _COUNTERS = f"""
@@ -52,34 +57,42 @@ extern "C" int read_phase_clocks(unsigned long long* out) {{
 """
 
 
-def instrument(name: str) -> List[str]:
+def instrument(name: str) -> Dict[str, Tuple[int, List[str]]]:
     """Write the instrumented copy of ``csrc/<name>.cu`` (and the headers)
-    into OUT; returns each phase's label, the comment on its barrier."""
+    into OUT; returns, for each kernel of KERNELS[name], the counter index of
+    its first phase and each phase's label (the comment on its barrier or
+    mark)."""
     OUT.mkdir(parents=True, exist_ok=True)
     for header in _build.CSRC.glob("*.cuh"):
         shutil.copy(header, OUT / header.name)
     src = (_build.CSRC / f"{name}.cu").read_text()
-    start = src.index(KERNELS[name])
-    start = src.index("extern __shared__", start)
-    end = src.index("\n}\n", start)
-    labels, lines = [], []
-    for line in src[start:end].split("\n"):
-        lines.append(line)
-        if "__syncthreads();" in line:
-            lines.append(f"  PHASE({len(labels)});")
-            labels.append(line.split("//", 1)[1].strip() if "//" in line else "")
-        elif "// phase:" in line:
-            lines.append(f"  PHASE({len(labels)});")
-            labels.append(line.split("// phase:", 1)[1].strip())
-    body = "\n".join(lines).replace(
-        "float smem[];", "float smem[];\n  long long t_phase = clock64();", 1)
-    out = src[:start] + body + src[end:]
+    out, n, phases = src, 0, {}
+    for kernel in KERNELS[name]:
+        start = out.index(kernel)
+        start = out.index("extern __shared__", start)
+        end = out.index("\n}\n", start)
+        labels, lines = [], []
+        for line in out[start:end].split("\n"):
+            lines.append(line)
+            if "__syncthreads();" in line:
+                lines.append(f"  PHASE({n + len(labels)});")
+                labels.append(line.split("//", 1)[1].strip() if "//" in line else "")
+            elif "// phase:" in line:
+                lines.append(f"  PHASE({n + len(labels)});")
+                labels.append(line.split("// phase:", 1)[1].strip())
+        body = "\n".join(lines).replace(
+            "float smem[];", "float smem[];\n  long long t_phase = clock64();", 1)
+        out = out[:start] + body + out[end:]
+        phases[kernel.rstrip("(")] = (n, labels)
+        n += len(labels)
+    if n > MAX_PHASES:
+        raise RuntimeError(f"{name}.cu has {n} phases, more than MAX_PHASES = {MAX_PHASES}")
     out = re.sub(r'(#include "nca_mma.cuh"\n)', lambda m: m.group(1) + _COUNTERS, out, count=1)
     (OUT / f"{name}.cu").write_text(out + _READER)
-    return labels
+    return phases
 
 
-def build() -> Dict[str, List[str]]:
+def build() -> Dict[str, Dict[str, Tuple[int, List[str]]]]:
     """Instrument and compile the sources (one nvcc each, together) and put
     the libraries in place of the built ones for this process."""
     labels, procs = {}, {}
@@ -98,13 +111,15 @@ def build() -> Dict[str, List[str]]:
     return labels
 
 
-def _report(lib, labels: List[str], n_blocks: int, reps: int, title: str) -> None:
+def _report(lib, phases: Tuple[int, List[str]], n_blocks: int, reps: int, title: str) -> None:
+    first, labels = phases
     buf = (ctypes.c_ulonglong * MAX_PHASES)()
     lib.read_phase_clocks(buf)
-    total = sum(buf[i] for i in range(len(labels))) or 1
+    clocks = [buf[first + i] for i in range(len(labels))]
+    total = sum(clocks) or 1
     print(f"{title}: mean clocks a block by phase (the barrier that ends it)")
     for i, label in enumerate(labels):
-        print(f"  {i}: {buf[i] / (n_blocks * reps):9.0f} ({100 * buf[i] / total:4.1f}%)  "
+        print(f"  {i}: {clocks[i] / (n_blocks * reps):9.0f} ({100 * clocks[i] / total:4.1f}%)  "
               f"{label or '__syncthreads()'}")
 
 
@@ -138,7 +153,7 @@ def main(reps: int = 10) -> None:
         for _ in range(reps):
             fs.launch_step(x, dst, cond, packed, "circular", cdt, 5, 17, thr, True, chain=chain)
         torch.cuda.synchronize()
-        _report(lib, labels["nca_step"], ft.n_blocks(b, 256, 256), reps,
+        _report(lib, labels["nca_step"]["nca_step_kernel"], ft.n_blocks(b, 256, 256), reps,
                 f"nca_step_ms{'_chain' if chain else ''} c16/fc128 256^2 b{b} {cdt} (the "
                 f"other form's phases read 0)")
     lib = _build._LIBS["nca_train"]
@@ -161,8 +176,19 @@ def main(reps: int = 10) -> None:
         for _ in range(reps):
             ft._launch_mlp(x, cond, gx, gp, None, slots, packed, cdt, 5, 17, thr, ms)
         torch.cuda.synchronize()
-        _report(lib, labels["nca_train"], ft.n_blocks(b, n, n), reps,
+        _report(lib, labels["nca_train"]["nca_bwd_mlp_kernel"], ft.n_blocks(b, n, n), reps,
                 f"{'nca_bwd_mlp_ms' if ms else 'nca_bwd_mlp'} c{c}/fc{f} {n}^2 b{b} {cdt}")
+    g = torch.Generator().manual_seed(4)
+    gp = torch.randn((3, 64, 256, 256), generator=g).cuda()
+    gx = torch.randn((3, 16, 256, 256), generator=g).cuda()
+    ft._launch_adjoint(gp, gx, None, True)  # warm-up
+    torch.cuda.synchronize()
+    lib.read_phase_clocks((ctypes.c_ulonglong * MAX_PHASES)())
+    for _ in range(reps):
+        ft._launch_adjoint(gp, gx, None, True)
+    torch.cuda.synchronize()
+    _report(lib, labels["nca_train"]["nca_bwd_adjoint_ms_kernel"], ft.n_blocks(3, 256, 256), reps,
+            "nca_bwd_adjoint_ms C16 256^2 b3 float32 (8 passes of 2 channels)")
     lib = _build._LIBS["nca_cnca"]
     for b in (8, 1):
         cfg = ConditionedNCAConfig(image_size=64, cell_fire_rate=0.5)
@@ -173,6 +199,15 @@ def main(reps: int = 10) -> None:
         gy = torch.randn((b, 20, 64, 64), generator=g).cuda()
         packed = fc.pack_weights(params, cfg, "float32")
         _, life = fc.cnca_step_reference(x, goal, packed, cfg, "float32", 3, 5, 0.5)
+        xn = torch.empty_like(x)
+        fc.launch_update(x, goal, xn, packed, cfg, "float32", 3, 5, thr)  # warm-up
+        torch.cuda.synchronize()
+        lib.read_phase_clocks((ctypes.c_ulonglong * MAX_PHASES)())
+        for _ in range(reps):
+            fc.launch_update(x, goal, xn, packed, cfg, "float32", 3, 5, thr)
+        torch.cuda.synchronize()
+        _report(lib, labels["nca_cnca"]["cnca_update_kernel"], fc.n_mlp_blocks(b, 64, 64), reps,
+                f"cnca_update C20/D64 64^2 b{b} float32")
         gp = torch.empty((b, 60, 64, 64), device="cuda")
         slots = fc._zero_slots(b, 64, 64, packed)
         fc._launch_bwd_mlp(x, goal, life, gy.clone(), gp, slots, packed, cfg, "float32", 3, 5,
@@ -183,7 +218,7 @@ def main(reps: int = 10) -> None:
             fc._launch_bwd_mlp(x, goal, life, gy.clone(), gp, slots, packed, cfg, "float32", 3,
                                5, thr)
         torch.cuda.synchronize()
-        _report(lib, labels["nca_cnca"], fc.n_mlp_blocks(b, 64, 64), reps,
+        _report(lib, labels["nca_cnca"]["cnca_bwd_mlp_kernel"], fc.n_mlp_blocks(b, 64, 64), reps,
                 f"cnca_bwd_mlp C20/D64 64^2 b{b} float32")
 
 
