@@ -15,11 +15,15 @@ exit and no result line:
    (forward through nca_step, backward through nca_bwd_mlp and
    nca_bwd_adjoint) across conditioning, rates and compute types at 40x72,
    and at the static_texture shape (128^2, batch 4, 32 steps), with each
-   backward kernel alone there; one train step on the card against the CPU;
+   backward kernel alone there, and the redesigned nca_bwd_adjoint alone at
+   128^2 b4 and at 8^2, 18^2, 34x66 (the 4-byte staging) and 40x72 b2, C 12
+   and 5, tap on and off; one train step on the card against the CPU;
    the ConditionedNCA kernels (cnca_update, cnca_gate, cnca_bwd_mlp,
    cnca_bwd_adjoint): the rollout at 64^2 b1 and b8 and 40x72 b2, rates 1
    and 0.5, living channel on and off, f32 and bf16, the training pair's
-   state, dx0, dgoal and weight gradients, and each kernel alone at 64^2 b8;
+   state, dx0, dgoal and weight gradients, and each kernel alone at 64^2 b8,
+   the redesigned cnca_bwd_adjoint alone at 64^2 b8 and at 8^2, 24x40 and
+   34x66 b2, C 20 and 7, living channel on (a sparse alpha plane) and off;
    the multiscale kernels of the video_motion cell (c16/fc128, perception
    scales (0, 1)): nca_step_ms at 40x72 b2 under the three paddings, pos_emb
    on and off, rates 1 and 0.5, f32 and bf16, and at 256^2 b3; the
@@ -108,7 +112,11 @@ exit and no result line:
    float32 and tensor-core bounds, with ptxas' registers and spills, blocks
    an SM, and two launches checked for the same bits; the same for the
    redesigned CUDA-core kernels, nca_bwd_adjoint_ms at 256^2 b3 and
-   cnca_update at 64^2 b8 and b1, beside their float32 bounds; VGG16's loss
+   cnca_update at 64^2 b8 and b1, beside their float32 bounds, and the
+   redesigned single-scale adjoints, nca_bwd_adjoint at 128^2 b4 and
+   cnca_bwd_adjoint at 64^2 b8, with their blocks and blocks an SM, beside
+   row 12's library yardstick F.conv_transpose2d (cnca_bwd_adjoint's g_xg
+   alone, TF32 off); VGG16's loss
    forward and backward with the equality-mask pool and with F.max_pool2d,
    in turns.
 
@@ -445,6 +453,15 @@ def scaled_err(got, want) -> float:
     return float((got - want).abs().max()) / (float(want.abs().max()) + 1e-30)
 
 
+# (b, h, w) of the redesigned single-scale adjoints' cases: nca_bwd_adjoint
+# at the static_texture shape and at 8^2 (the footprint wraps more than
+# once), 18^2 and 34x66 (rows not a multiple of 4 floats: the 4-byte
+# staging) and 40x72 (ragged against 32 x 16 tiles); cnca_bwd_adjoint at the
+# encoder trainer's shape and at 8^2, 24x40 and 34x66 (zero padding)
+SA_SHAPES = ((4, 128, 128), (2, 8, 8), (2, 18, 18), (2, 34, 66), (2, 40, 72))
+CA_SHAPES = ((8, 64, 64), (2, 8, 8), (2, 24, 40), (2, 34, 66))
+
+
 def phase_compare_train(torch, ft, NCAConfig, dynca_init):
     """The training pair (forward through nca_step, backward through
     nca_bwd_mlp and nca_bwd_adjoint) against its plain version on the same
@@ -520,6 +537,28 @@ def phase_compare_train(torch, ft, NCAConfig, dynca_init):
           f"{worst['nca_bwd_adjoint']:.3e} ({adj_err:.2e}) {'ok' if ok else 'FAIL'}")
     if not ok:
         raise SystemExit("a backward kernel disagrees with its plain version")
+
+    # the redesigned nca_bwd_adjoint alone at SA_SHAPES, C 12 and 5, with a
+    # tap and without
+    rel, n = 0.0, 0
+    for b, h, w in SA_SHAPES:
+        for c in (12, 5):
+            gp = torch.randn((b, 4 * c, h, w), generator=g).to(dev)
+            gx = torch.randn((b, c, h, w), generator=g).to(dev)
+            gtap = torch.randn((b, c, h, w), generator=g).to(dev)
+            for tap in (None, gtap):
+                got = ft.nca_bwd_adjoint(gp, gx, tap)
+                want = ft.nca_bwd_adjoint_reference(gp, gx, tap)
+                torch.cuda.synchronize()
+                err, r = float((got - want).abs().max()), scaled_err(got, want)
+                worst["nca_bwd_adjoint"] = max(worst["nca_bwd_adjoint"], err)
+                rel, n = max(rel, r), n + 1
+                if not (r <= TRAIN_TOL["float32"] and bool(torch.isfinite(got).all())):
+                    raise SystemExit(f"nca_bwd_adjoint disagrees with its plain version at "
+                                     f"{h}x{w} b{b} C{c}, tap {tap is not None}: {r:.2e} of max")
+    print(f"  nca_bwd_adjoint alone: {n} cases (128^2 b4, 8^2, 18^2, 34x66, 40x72 b2 x C 12/5 x "
+          f"tap on/off): max|kernel-plain|/max|plain| {rel:.2e} (tol "
+          f"{TRAIN_TOL['float32']:.0e}), max|kernel-plain| {worst['nca_bwd_adjoint']:.3e} ok")
     return worst
 
 
@@ -858,6 +897,40 @@ def phase_compare_cnca(torch, fc, cn, ConditionedNCAConfig):
               f"({rel:.2e} of max|plain|)")
     if not ok:
         raise SystemExit("a cnca kernel disagrees with its plain version")
+
+    # the redesigned cnca_bwd_adjoint alone at CA_SHAPES, C 20 and 7 (a
+    # channel pair's tail), living channel on (a sparse alpha plane, so that
+    # the mask has holes) and off
+    rel, n = 0.0, 0
+    for b, h, w in CA_SHAPES:
+        for hidden in (16, 3):
+            for use_life in (True, False):
+                cfg = ConditionedNCAConfig(image_size=w, num_hidden_channels=hidden,
+                                           use_living_channel=use_life)
+                c = cfg.num_channels
+                params = cn.conditioned_nca_init(torch.Generator().manual_seed(0), cfg,
+                                                 device="cuda")
+                g = torch.Generator().manual_seed(h + c)
+                x = torch.randn((b, c, h, w), generator=g) * 0.3
+                x[:, cfg.alive_channel] *= 0.15
+                x = x.cuda()
+                gp = torch.randn((b, 3 * c, h, w), generator=g).cuda()
+                g_xn = torch.randn((b, c, h, w), generator=g).cuda()
+                wcol = fc.pack_weights(params, cfg, "float32")[0]
+                got = fc.cnca_bwd_adjoint(x, gp, g_xn, wcol, cfg)
+                want = fc.cnca_bwd_adjoint_reference(x, gp, g_xn, wcol, cfg)
+                torch.cuda.synchronize()
+                err = max(float((a - r).abs().max()) for a, r in zip(got, want))
+                rc = max(scaled_err(a, r) for a, r in zip(got, want))
+                worst["cnca_bwd_adjoint"] = max(worst["cnca_bwd_adjoint"], err)
+                rel, n = max(rel, rc), n + 1
+                if not (rc <= CNCA_TOL["float32"]
+                        and all(bool(torch.isfinite(a).all()) for a in got)):
+                    raise SystemExit(f"cnca_bwd_adjoint disagrees with its plain version at "
+                                     f"{h}x{w} b{b} C{c} living {use_life}: {rc:.2e} of max")
+    print(f"  cnca_bwd_adjoint alone: {n} cases (64^2 b8, 8^2, 24x40, 34x66 b2 x C 20/7 x "
+          f"living on/off): max|kernel-plain|/max|plain| {rel:.2e} (tol "
+          f"{CNCA_TOL['float32']:.0e}), max|kernel-plain| {worst['cnca_bwd_adjoint']:.3e} ok")
     return worst
 
 
@@ -2269,13 +2342,13 @@ def time_redesigned(torch, ft, fc, cn, ConditionedNCAConfig, _build):
     """nca_bwd_adjoint_ms at 256^2 b3 f32 (c16) and cnca_update at 64^2 b8
     and b1 f32 (C 20 / D 64): ms a launch by CUDA events and by the
     profiler's device time, beside the float32 bound; blocks an SM; ptxas'
-    registers and spills; two launches on the same inputs checked for the
-    same bits. Returns {(name, label): (ms, device ms, f32
+    registers and spills (of every adjoint kernel too); two launches on the
+    same inputs checked for the same bits. Returns {(name, label): (ms, device ms, f32
     bound, blocks an SM)}."""
     want = False
     for line in (_build.build_log("nca_train") + _build.build_log("nca_cnca")).splitlines():
         if "Compiling entry function" in line or "Function properties" in line:
-            want = any(k in line for k in ("nca_bwd_adjoint_ms", "cnca_update"))
+            want = any(k in line for k in ("nca_bwd_adjoint", "cnca_update"))
             if want and "Compiling" in line:
                 print(f"    ptxas: {line.split('function', 1)[1].strip()}")
         elif want and ("registers" in line or "spill" in line):
@@ -2323,6 +2396,71 @@ def time_redesigned(torch, ft, fc, cn, ConditionedNCAConfig, _build):
         if not same:
             raise SystemExit("cnca_update: two launches on the same inputs differ")
     return out
+
+
+def time_adjoints(torch, ft, fc, cn, ConditionedNCAConfig, F):
+    """The redesigned single-scale adjoints, nca_bwd_adjoint at 128^2 b4
+    C 12 and cnca_bwd_adjoint at 64^2 b8 C 20, f32: ms a launch by CUDA
+    events and by the profiler's device time, beside the float32 bound; the
+    launch's blocks and blocks an SM; two launches on the same inputs
+    checked for the same bits. Then row 12's library yardstick, one PyTorch
+    call that computes cnca_bwd_adjoint's g_xg (not its g and dgoal
+    updates): F.conv_transpose2d(gp, wcol.view(3C, 1, 3, 3), padding=1,
+    groups=C) on the same gp (cuDNN, TF32 off), by the same two clocks, its
+    output held to the plain version's g_xg. Returns {name: (ms, device ms,
+    f32 bound, blocks, blocks an SM)} and the call's (ms, device ms)."""
+    out = {}
+    g = torch.Generator().manual_seed(9)
+    gp = torch.randn((4, 48, 128, 128), generator=g).cuda()
+    gx = torch.randn((4, 12, 128, 128), generator=g).cuda()
+    runs = [gx.clone() for _ in range(2)]
+    for r in runs:
+        ft._launch_adjoint(gp, r)
+    torch.cuda.synchronize()
+    same = torch.equal(runs[0], runs[1])
+    launch = lambda: ft._launch_adjoint(gp, runs[0])  # noqa: E731
+    k_ms, dev = cuda_ms(launch, 50), device_ms(torch, launch, 50)
+    bound, by = train_bound_ms("nca_bwd_adjoint", 12, 2, 96, 4 * 128 * 128)
+    n_blocks, blocks, smem = ft.adjoint_geometry(4, 12, 128, 128)
+    out["nca_bwd_adjoint"] = (k_ms, dev, bound, n_blocks, blocks)
+    print(f"  nca_bwd_adjoint 128^2 b4 C12 f32: kernel {k_ms:.4f} ms/launch (CUDA events), "
+          f"{dev:.4f} device (profiler); float32 bound {bound:.5f} ms ({by}, {dev / bound:.1f}x); "
+          f"{n_blocks} blocks, {blocks} an SM ({smem / 1000:.1f} KB of shared memory); two "
+          f"launches bit-identical: {same}")
+    if not same:
+        raise SystemExit("nca_bwd_adjoint: two launches on the same inputs differ")
+    cfg, params, x, _ = cnca_case(torch, cn, ConditionedNCAConfig, (8, 64, 64))
+    wcol = fc.pack_weights(params, cfg, "float32")[0]
+    gp = torch.randn((8, 60, 64, 64), generator=g).cuda()
+    g0 = torch.randn(x.shape, generator=g).cuda()
+    runs = [(g0.clone(), torch.zeros_like(x)) for _ in range(2)]
+    for gr, dr in runs:
+        fc._launch_bwd_adjoint(x, gp, wcol, gr, dr, cfg)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(runs[0], runs[1]))
+    launch = lambda: fc._launch_bwd_adjoint(x, gp, wcol, *runs[0], cfg)  # noqa: E731
+    k_ms, dev = cuda_ms(launch, 50), device_ms(torch, launch, 50)
+    bound, by = cnca_bound_ms("cnca_bwd_adjoint", 20, 64, 8 * 64 * 64)
+    n_blocks, blocks, smem = fc.bwd_adjoint_geometry(8, 20, 64, 64)
+    out["cnca_bwd_adjoint"] = (k_ms, dev, bound, n_blocks, blocks)
+    print(f"  cnca_bwd_adjoint 64^2 b8 C20 f32: kernel {k_ms:.4f} ms/launch (CUDA events), "
+          f"{dev:.4f} device (profiler); float32 bound {bound:.5f} ms ({by}, {dev / bound:.1f}x); "
+          f"{n_blocks} blocks, {blocks} an SM ({smem / 1000:.1f} KB of shared memory); two "
+          f"launches bit-identical: {same}")
+    if not same:
+        raise SystemExit("cnca_bwd_adjoint: two launches on the same inputs differ")
+    weight = wcol.view(60, 1, 3, 3)
+    call = lambda: F.conv_transpose2d(gp, weight, padding=1, groups=20)  # noqa: E731
+    want = fc.cnca_bwd_adjoint_reference(x, gp, torch.zeros_like(x), wcol, cfg)[0]
+    err = scaled_err(call(), want)
+    lib_ms, lib_dev = cuda_ms(call, 50), device_ms(torch, call, 50)
+    print(f"  library yardstick for cnca_bwd_adjoint (g_xg alone): F.conv_transpose2d(gp, "
+          f"wcol.view(60, 1, 3, 3), padding=1, groups=20) 64^2 b8 f32: {lib_ms:.4f} ms/call (CUDA "
+          f"events), {lib_dev:.4f} device (profiler); its g_xg against the plain version's "
+          f"{err:.2e} of max; the kernel {dev / lib_dev:.2f}x its device time")
+    if err > 1e-5:
+        raise SystemExit("F.conv_transpose2d does not compute cnca_bwd_adjoint's g_xg")
+    return out, (lib_ms, lib_dev)
 
 
 def time_vgg_pool(torch, vgg_mod, F):
@@ -2709,6 +2847,9 @@ def main() -> int:
     tc_times = time_tc_kernels(torch, fs, ft, fc, cn, ConditionedNCAConfig, _build)
     print("  the redesigned CUDA-core kernels (PERF.md rows 10 and 11):")
     redesigned = time_redesigned(torch, ft, fc, cn, ConditionedNCAConfig, _build)
+    print("  the redesigned single-scale adjoints (PERF.md rows 6, 9 and 12):")
+    adj_times, conv_t_ms = time_adjoints(torch, ft, fc, cn, ConditionedNCAConfig,
+                                         torch.nn.functional)
     vgg_pool_ms = time_vgg_pool(torch, vgg_mod, torch.nn.functional)
     print(f"  card during timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
@@ -2777,6 +2918,10 @@ def main() -> int:
         **{f"redesigned_{name}_{label.replace('^', '').replace(' ', '_')}_{what}": v
            for (name, label), t in redesigned.items()
            for what, v in zip(("ms", "device_ms", "f32_bound_ms", "blocks_per_sm"), t)},
+        **{f"adjoint_{name}_{what}": v for name, t in adj_times.items()
+           for what, v in zip(("ms", "device_ms", "f32_bound_ms", "blocks", "blocks_per_sm"), t)},
+        "cnca_bwd_adjoint_library_conv_transpose2d_ms": conv_t_ms[0],
+        "cnca_bwd_adjoint_library_conv_transpose2d_device_ms": conv_t_ms[1],
         "cnca_gate_stress_near_zero_h1_h2": list(stress_near),
         "cnca_gate_stress_max_scaled_err": stress_err,
         **{f"vgg_loss_fwd_bwd_{label.replace('^', '').replace(' ', '_')}_{which}_ms": v
@@ -2845,6 +2990,8 @@ def main() -> int:
         "library_ms": None,
         **({"tc_bound_ms": tc_times[(name, "128^2 b4 float32")][2]}
            if name == "nca_bwd_mlp" else {}),
+        **({"device_ms": adj_times[name][1], "blocks": adj_times[name][3],
+            "blocks_per_sm": adj_times[name][4]} if name in adj_times else {}),
     } for name, (k, p, b, by) in tk.items()] + [{
         "name": name,
         "route": "cuda",
@@ -2856,9 +3003,12 @@ def main() -> int:
         "plain_ms": cnca_times[(name, 8)][1],
         "bound_ms": cnca_times[(name, 8)][2],
         "bound_by": cnca_times[(name, 8)][3],
-        "library_ms": None,
+        "library_ms": conv_t_ms[0] if name == "cnca_bwd_adjoint" else None,
         **({"tc_bound_ms": tc_times[(name, "64^2 b8 float32")][2]}
            if name == "cnca_bwd_mlp" else {}),
+        **({"device_ms": adj_times[name][1], "blocks": adj_times[name][3],
+            "blocks_per_sm": adj_times[name][4], "library_device_ms": conv_t_ms[1]}
+           if name == "cnca_bwd_adjoint" else {}),
         **({"device_ms": redesigned[(name, "64^2 b8 float32")][1],
             "blocks_per_sm": redesigned[(name, "64^2 b8 float32")][3]}
            if name == "cnca_update" else {}),

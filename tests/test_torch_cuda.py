@@ -934,3 +934,66 @@ def test_cnca_gate_stress_pair_matches_plain(cuda):
     _close(gr.grad, dgoal, 1e-6)
     for k in fc.WEIGHT_KEYS:
         _close(pr[k].grad, grads[k], 1e-6)
+
+
+# ------------------------- the redesigned single-scale stencil adjoints
+
+# nca_bwd_adjoint's grids: 8^2 (the footprint wraps more than once), 18^2 and
+# 34 x 66 (rows not a multiple of 4 floats: the 4-byte staging), 40 x 72
+# (ragged against 32 x 16 tiles), b2; 128^2 b4 the static_texture shape
+SA_GRIDS = [(2, 8, 8), (2, 18, 18), (2, 34, 66), (2, 40, 72), (4, 128, 128)]
+# cnca_bwd_adjoint's: 8^2, 24 x 40 and 34 x 66 b2 (ragged, zero padding),
+# 64^2 b8 the encoder trainer's shape
+CA_GRIDS = [(2, 8, 8), (2, 24, 40), (2, 34, 66), (8, 64, 64)]
+
+
+@pytest.mark.parametrize("c", [5, 12])
+def test_adjoint_kernel_grids_and_widths(cuda, c):
+    """The scales-(0,) nca_bwd_adjoint at C 5 and 12 on SA_GRIDS, with a tap
+    and without, and once on gp, gx and gtap that are not 16-byte aligned:
+    within TRAIN_TOL (f32) of the plain version, and two launches on the
+    same inputs give the same bits."""
+    from vsnca_tpu_torch.ops import fused_train as ft
+
+    g = torch.Generator().manual_seed(c)
+    for b, h, w in SA_GRIDS:
+        gp = torch.randn((b, 4 * c, h, w), generator=g).to(cuda)
+        gx = torch.randn((b, c, h, w), generator=g).to(cuda)
+        gtap = torch.randn((b, c, h, w), generator=g).to(cuda)
+        for tap in (None, gtap):
+            got = ft.nca_bwd_adjoint(gp, gx, tap)
+            again = ft.nca_bwd_adjoint(gp, gx, tap)
+            _close(got, ft.nca_bwd_adjoint_reference(gp, gx, tap), TRAIN_TOL["float32"])
+            assert torch.equal(got, again)
+    shape = (2, c, 40, 72)
+    gp = torch.randn(2 * 4 * c * 40 * 72 + 1, generator=g).to(cuda)[1:].view(2, 4 * c, 40, 72)
+    gtap = torch.randn(2 * c * 40 * 72 + 1, generator=g).to(cuda)[1:].view(shape)
+    assert gp.data_ptr() % 16 != 0 and gtap.data_ptr() % 16 != 0
+    gx = torch.randn(shape, generator=g).to(cuda)
+    _close(ft.nca_bwd_adjoint(gp, gx, gtap), ft.nca_bwd_adjoint_reference(gp, gx, gtap),
+           TRAIN_TOL["float32"])
+
+
+@pytest.mark.parametrize("hidden", [3, 16])
+def test_cnca_adjoint_kernel_grids_and_widths(cuda, hidden):
+    """cnca_bwd_adjoint at C 7 (a channel pair's tail) and 20 on CA_GRIDS,
+    living channel on (a sparse alpha plane) and off: g + g_xg and
+    g_xg * pre within 1e-6 of the largest element of the plain version's,
+    and two launches on the same inputs give the same bits."""
+    from vsnca_tpu_torch.ops import fused_cnca as fc
+
+    for shape in CA_GRIDS:
+        for use_life in (True, False):
+            cfg, params, x, goal = _cnca_case(cuda, 0.5, use_life, shape=shape, hidden=hidden)
+            c = cfg.num_channels
+            x[:, cfg.alive_channel] *= 0.15  # a sparse living channel: the mask has holes
+            g = torch.Generator().manual_seed(shape[1] + c)
+            gp = torch.randn((shape[0], 3 * c, *shape[1:]), generator=g).to(cuda)
+            g_xn = torch.randn(x.shape, generator=g).to(cuda)
+            wcol = params["perception_w"].reshape(c, 27).contiguous()
+            got = fc.cnca_bwd_adjoint(x, gp, g_xn, wcol, cfg)
+            again = fc.cnca_bwd_adjoint(x, gp, g_xn, wcol, cfg)
+            want = fc.cnca_bwd_adjoint_reference(x, gp, g_xn, wcol, cfg)
+            for a, r, s in zip(got, want, again):
+                _close(a, r, 1e-6)
+                assert torch.equal(a, s)

@@ -41,7 +41,15 @@
 // does the three transposed products and the three weight-gradient
 // products: about 3x the update's FLOPs, of which the recompute (the relu
 // and clamp gates must be the forward's bits) is a third. cnca_gate and
-// cnca_bwd_adjoint are bound by their bytes.
+// cnca_bwd_adjoint are bound by their bytes: cnca_bwd_adjoint reads gp (3C
+// floats a pixel), alpha, g and dgoal and writes g and dgoal, 18.5 MB at
+// 64^2 b8 C 20, 5.5 us at 3.35 TB/s. Its first design walked the C
+// channels one at a time in a 16 x 16 block, two barriers and a scalar,
+// bounds-checked load of a 3 x 18 x 18 gp tile a channel, in a grid of 128
+// blocks at 64^2 b8 (fewer than the SMs): latency, not bytes. The design
+// now spreads channel pairs over the grid (640 blocks there), stages each
+// channel's planes once by cp.async and takes pre from a staged alpha
+// plane once a block; see cnca_bwd_adjoint_kernel.
 //
 // What the design does about it: cnca_update and cnca_bwd_mlp's recompute
 // are one code path (stage_mat_async, stage_pre, stage_xg_async,
@@ -92,10 +100,6 @@
 #define CNCA_C_MAX 24
 #define CNCA_D_MAX 64
 #define CNCA_P_MAX (3 * CNCA_C_MAX)
-
-#define CU_TILE 16               // cnca_bwd_adjoint: 16 x 16
-#define CU_THREADS (CU_TILE * CU_TILE)
-#define CU_HALO (CU_TILE + 2)    // gp tile side
 
 #define CB_TX 16                 // cnca_update, cnca_bwd_mlp: 16 wide, 8 tall
 #define CB_TY 8
@@ -785,60 +789,125 @@ cnca_bwd_mlp_kernel(const float* __restrict__ x, const float* __restrict__ goal,
   }
 }
 
+// cnca_bwd_adjoint: channels a block. Both channels' planes are staged at
+// once, so the second's copies fly while the first's adjoint runs; the
+// block's pre mask serves both.
+#define CA_CG 2
+// dynamic shared memory, floats: gp planes [CG][3][SA_PLANE], the alpha
+// plane [SA_PLANE], the channels' weights [CG][27]
+#define CA_SMEM_BYTES (sizeof(float) * ((CA_CG * 3 + 1) * SA_PLANE + CA_CG * 27))
+
 // g += g_xg and dgoal += g_xg * pre, where g_xg is the adjoint of the
 // depthwise percept: sum over (slot, kh, kw) of wcol * g_p shifted back.
-__global__ void __launch_bounds__(CU_THREADS)
+// A block is a 32 x 16 tile (nca_common.cuh's SA_ geometry) of CA_CG
+// channels of one batch item, a thread 4 pixels of a row: ceil(W/32) *
+// ceil(H/16) * B * ceil(C/2) blocks (640 at 64^2 b8 C 20). Each channel's
+// three slot planes of gp (contiguous: rows c*3 + s) are staged once by
+// cp.async on the tile's 18 x 40 footprint (16-byte copies when vec: W % 4
+// == 0 and x, gp, g and dgoal 16-byte aligned; 4-byte ones otherwise), zero
+// outside the grid by plain stores, the padding resolved once a block in
+// the thread's copy offsets. The alpha plane is staged once a block on the
+// same footprint, -inf outside the grid, and pre = maxpool3x3(alpha) > thr
+// taken from it with cnca_gate_kernel's fmaxf over the same in-bounds
+// neighbours (the -inf fill takes no part), so the mask's bits are the
+// gate's. g and dgoal come to registers, a float4 a thread where vec. The
+// 27 terms are summed from term 0 in (slot, kh, kw) order, unfused, from
+// 3x3 windows in registers: the first design's bits. Each thread reads and
+// writes only its own pixels of g and dgoal: in place, no atomics.
+__global__ void __launch_bounds__(SA_THREADS)
 cnca_bwd_adjoint_kernel(const float* __restrict__ x, const float* __restrict__ gp,
                         const float* __restrict__ wcol, float* __restrict__ g,
                         float* __restrict__ dgoal, int C, int H, int W, int alive,
-                        float athr, int use_life) {
-  __shared__ float tile[3][CU_HALO * CU_HALO];
-  const int tid = threadIdx.y * CU_TILE + threadIdx.x;
-  const int b = blockIdx.z;
+                        float athr, int use_life, int vec) {
+  extern __shared__ __align__(16) float smem[];
+  float* apl = smem + CA_CG * 3 * SA_PLANE;  // the alpha plane
+  float* ws = apl + SA_PLANE;                // the channels' 27 weights each
+  const int tid = threadIdx.x;
+  const int ng = (C + CA_CG - 1) / CA_CG;
+  const int b = blockIdx.z / ng, c0 = (blockIdx.z - b * ng) * CA_CG;
   const int HW = H * W;
-  const int y0 = blockIdx.y * CU_TILE - 1, x0 = blockIdx.x * CU_TILE - 1;
-  const int px = blockIdx.x * CU_TILE + threadIdx.x;
-  const int py = blockIdx.y * CU_TILE + threadIdx.y;
-  const bool valid = px < W && py < H;
-  const int pix = py * W + px;
-
-  float pre = 1.f;
-  if (use_life && valid) {
-    const float* xa = x + ((size_t)b * C + alive) * HW;
-    float m = -INFINITY;
-    for (int dy = -1; dy <= 1; ++dy)
-      for (int dq = -1; dq <= 1; ++dq) {
-        const int yy = py + dy, xx = px + dq;
-        if (yy >= 0 && yy < H && xx >= 0 && xx < W) m = fmaxf(m, xa[yy * W + xx]);
-      }
-    pre = m > athr ? 1.f : 0.f;
-  }
+  const int y0 = blockIdx.y * SA_TH, x0 = blockIdx.x * SA_TW;
   const float* gpb = gp + (size_t)b * 3 * C * HW;
-  for (int c = 0; c < C; ++c) {
-    __syncthreads();  // the previous channel's tiles are consumed
-    for (int i = tid; i < 3 * CU_HALO * CU_HALO; i += CU_THREADS) {
-      const int s = i / (CU_HALO * CU_HALO), rq = i % (CU_HALO * CU_HALO);
-      const int gy = y0 + rq / CU_HALO, gx = x0 + rq % CU_HALO;
-      tile[s][rq] = (gy >= 0 && gy < H && gx >= 0 && gx < W)
-                        ? gpb[(size_t)(3 * c + s) * HW + gy * W + gx]
-                        : 0.f;
-    }
-    __syncthreads();
-    if (valid) {
-      const float* wc = wcol + c * 27;
-      float acc = 0.f;
+  int off[SA_SLOTS];
+  plane_slots(off, y0, x0, H, W, false, vec, tid);
+  if (use_life) stage_plane(apl, x + ((size_t)b * C + alive) * HW, off, -INFINITY, vec, tid);
 #pragma unroll
-      for (int k = 0; k < 27; ++k) {
-        const int s = k / 9, di = (k % 9) / 3, dj = k % 3;
-        const float term = __fmul_rn(
-            tile[s][(threadIdx.y + 2 - di) * CU_HALO + threadIdx.x + 2 - dj], wc[k]);
-        acc = k == 0 ? term : __fadd_rn(acc, term);
-      }
-      const size_t o = ((size_t)b * C + c) * HW + pix;
-      g[o] = __fadd_rn(g[o], acc);
-      dgoal[o] = __fadd_rn(dgoal[o], __fmul_rn(acc, pre));
+  for (int e = 0; e < CA_CG; ++e) {
+    if (c0 + e < C) {
+#pragma unroll
+      for (int s = 0; s < 3; ++s)
+        stage_plane(smem + (e * 3 + s) * SA_PLANE, gpb + (size_t)(3 * (c0 + e) + s) * HW,
+                    off, 0.f, vec, tid);
     }
+    cp_async_commit();
   }
+  if (tid < CA_CG * 27 && c0 * 27 + tid < C * 27) ws[tid] = wcol[c0 * 27 + tid];
+  // the thread's 4 pixels: tile row r, columns 4j .. 4j + 3
+  const int j = tid % (SA_TW / 4), r = tid / (SA_TW / 4);
+  const int py = y0 + r, px = x0 + 4 * j;
+  const int n = py < H ? max(0, min(4, W - px)) : 0;
+  const size_t pix = (size_t)py * W + px;
+  float gv[CA_CG][4], dv[CA_CG][4];
+#pragma unroll
+  for (int e = 0; e < CA_CG; ++e) {
+    const int ne = c0 + e < C ? n : 0;
+    const size_t at = ((size_t)b * C + c0 + e) * HW + pix;
+    load_px4(gv[e], g + at, ne, vec);
+    load_px4(dv[e], dgoal + at, ne, vec);
+  }
+  // phase: staging (the copy offsets, the copies' issue and the registers' loads)
+  float pre[4] = {1.f, 1.f, 1.f, 1.f};
+#pragma unroll
+  for (int e = 0; e < CA_CG; ++e) {
+    cp_async_wait_upto(CA_CG - 1 - e);
+    __syncthreads();  // waiting: channel e's planes (and with the first, alpha) are in
+    if (c0 + e < C && n > 0) {
+      if (e == 0 && use_life) {
+        float aw[3][6];
+        plane_window(aw, apl, r, j);
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          float m = -INFINITY;
+#pragma unroll
+          for (int dy = 0; dy < 3; ++dy)
+#pragma unroll
+            for (int dq = 0; dq < 3; ++dq) m = fmaxf(m, aw[dy][q + dq]);
+          pre[q] = m > athr ? 1.f : 0.f;
+        }
+      }
+      const float* wc = ws + e * 27;
+      float acc[4] = {};
+#pragma unroll
+      for (int s = 0; s < 3; ++s) {
+        float w[3][6];
+        plane_window(w, smem + (e * 3 + s) * SA_PLANE, r, j);
+#pragma unroll
+        for (int k = 0; k < 9; ++k) {
+          const int di = k / 3, dj = k % 3;
+          const float wk = wc[s * 9 + k];
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const float term = __fmul_rn(w[2 - di][q + 2 - dj], wk);
+            acc[q] = s == 0 && k == 0 ? term : __fadd_rn(acc[q], term);
+          }
+        }
+      }
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        gv[e][q] = __fadd_rn(gv[e][q], acc[q]);
+        dv[e][q] = __fadd_rn(dv[e][q], __fmul_rn(acc[q], pre[q]));
+      }
+      // phase: adjoint
+      const size_t at = ((size_t)b * C + c0 + e) * HW + pix;
+      store_px4(g + at, gv[e], n, vec);
+      store_px4(dgoal + at, dv[e], n, vec);
+    }
+    // phase: store
+  }
+}
+
+static dim3 cnca_adjoint_grid(int B, int C, int H, int W) {
+  return dim3((W + SA_TW - 1) / SA_TW, (H + SA_TH - 1) / SA_TH, B * ((C + CA_CG - 1) / CA_CG));
 }
 
 static bool bad_sizes(int C, int D4) {
@@ -971,11 +1040,27 @@ int cnca_bwd_mlp_launch(const float* x, const float* goal, const unsigned char* 
 int cnca_bwd_adjoint_launch(const float* x, const float* gp, const float* wcol, float* g,
                             float* dgoal, int B, int C, int H, int W, int alive,
                             float athr, int use_life, void* stream) {
-  if (C < 1 || C > CNCA_C_MAX || alive < 0 || alive >= C) return (int)cudaErrorInvalidValue;
-  const dim3 grid((W + CU_TILE - 1) / CU_TILE, (H + CU_TILE - 1) / CU_TILE, B);
-  const dim3 block(CU_TILE, CU_TILE);
-  cnca_bwd_adjoint_kernel<<<grid, block, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, gp, wcol, g, dgoal, C, H, W, alive, athr, use_life);
+  const dim3 grid = cnca_adjoint_grid(B, C, H, W);
+  if (C < 1 || C > CNCA_C_MAX || alive < 0 || alive >= C || grid.z > 65535)
+    return (int)cudaErrorInvalidValue;
+  const auto a16 = [](const float* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const int vec = W % 4 == 0 && a16(x) && a16(gp) && a16(g) && a16(dgoal);
+  cnca_bwd_adjoint_kernel<<<grid, SA_THREADS, CA_SMEM_BYTES,
+                            static_cast<cudaStream_t>(stream)>>>(
+      x, gp, wcol, g, dgoal, C, H, W, alive, athr, use_life, vec);
+  return (int)cudaGetLastError();
+}
+
+// cnca_bwd_adjoint's launch at [B, C, H, W]: its blocks in *n_blocks, blocks
+// an SM (cudaOccupancy...) in *blocks, its dynamic shared memory in
+// *smem_bytes.
+int cnca_bwd_adjoint_geometry(int B, int C, int H, int W, int* n_blocks, int* blocks,
+                              int* smem_bytes) {
+  const dim3 grid = cnca_adjoint_grid(B, C, H, W);
+  *n_blocks = (int)(grid.x * grid.y * grid.z);
+  *smem_bytes = (int)CA_SMEM_BYTES;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, cnca_bwd_adjoint_kernel, SA_THREADS,
+                                                CA_SMEM_BYTES);
   return (int)cudaGetLastError();
 }
 

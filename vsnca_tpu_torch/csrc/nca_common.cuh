@@ -1,9 +1,9 @@
-// Pieces shared by the DyNCA kernels (nca_step.cu, nca_train.cu): the tile
-// geometry, the size limits, the update-mask hash, bf16 rounding and the
-// state's storage types, the padding rule, the perception stencils and the
-// multiscale (scales (0, 1)) percept. Every kernel that includes this draws
-// the same masks, rounds the same way and forms the same percept bit for
-// bit.
+// Pieces shared by the kernels (nca_step.cu, nca_train.cu, nca_cnca.cu): the
+// tile geometry, the size limits, the update-mask hash, bf16 rounding and
+// the state's storage types, the padding rule, the perception stencils, the
+// multiscale (scales (0, 1)) percept, cp.async, and the staging of the two
+// single-scale stencil adjoints. Every kernel that includes this draws the
+// same masks, rounds the same way and forms the same percept bit for bit.
 
 #pragma once
 
@@ -263,4 +263,118 @@ __device__ __forceinline__ float ms_average(const float* s, int fi, int fin,
                              __fmul_rn(s[fin * NCA_HFOOT + fjn], 0.25f));
   const float p1 = __fadd_rn(__fmul_rn(ua, 0.75f), __fmul_rn(ub, 0.25f));
   return __fmul_rn(__fadd_rn(p0, p1), 0.5f);
+}
+
+// The single-scale stencil adjoints (nca_train.cu::nca_bwd_adjoint,
+// nca_cnca.cu::cnca_bwd_adjoint): a block's tile is SA_TW pixels wide (one
+// 128-byte line of a row) and SA_TH tall, a thread 4 pixels of one row. A
+// staged plane holds the tile's footprint, SA_FR rows from y0 - 1 and SA_FC
+// columns from x0 - 4 (the 34 that the 3x3 windows read, widened to ten
+// aligned float4s), rows SA_FC floats apart.
+#define SA_TW 32
+#define SA_TH 16
+#define SA_THREADS (SA_TW / 4 * SA_TH)
+#define SA_FR (SA_TH + 2)
+#define SA_FC (SA_TW + 8)
+#define SA_PLANE (SA_FR * SA_FC)
+#define SA_SLOTS ((SA_PLANE + SA_THREADS - 1) / SA_THREADS)
+
+// A thread's copies of one staged plane, the same for every plane of its
+// block: slot j is unit i = tid + j * SA_THREADS of the footprint (a float4
+// when vec, a float otherwise), off[j] its source offset within a plane, -1
+// where the padding puts a constant (zero padding outside the grid), -2 past
+// the footprint. The circular wrap (wrap) or the zero padding is resolved
+// here, once a block; with vec, W is a multiple of 4, so a float4 of the
+// footprint wraps, or lies outside the grid, as a whole.
+__device__ __forceinline__ void plane_slots(int off[SA_SLOTS], int y0, int x0, int H, int W,
+                                            bool wrap, bool vec, int tid) {
+  const int units = vec ? SA_PLANE / 4 : SA_PLANE;
+#pragma unroll
+  for (int j = 0; j < SA_SLOTS; ++j) {
+    const int i = tid + j * SA_THREADS;
+    const int r = vec ? i / (SA_FC / 4) : i / SA_FC;
+    const int q = vec ? 4 * (i - r * (SA_FC / 4)) : i - r * SA_FC;
+    int gy = y0 - 1 + r, gx = x0 - 4 + q;
+    if (wrap) {
+      gy = pad_index(gy, H, 0);
+      gx = pad_index(gx, W, 0);
+    }
+    off[j] = i >= units ? -2 : (gy >= 0 && gy < H && gx >= 0 && gx < W) ? gy * W + gx : -1;
+  }
+}
+
+// Stage one plane (src, a [H, W] plane of device memory) into dst [SA_FR,
+// SA_FC] by the thread's slots: asynchronous copies (16-byte ones when vec),
+// `fill` by plain stores where off is -1. The caller commits, waits and
+// synchronises before reading dst.
+__device__ __forceinline__ void stage_plane(float* dst, const float* src,
+                                            const int off[SA_SLOTS], float fill, bool vec,
+                                            int tid) {
+#pragma unroll
+  for (int j = 0; j < SA_SLOTS; ++j) {
+    const int i = tid + j * SA_THREADS;
+    if (vec && off[j] >= 0)
+      cp_async16(dst + 4 * i, src + off[j]);
+    else if (vec && off[j] == -1)
+      *reinterpret_cast<float4*>(dst + 4 * i) = make_float4(fill, fill, fill, fill);
+    else if (off[j] >= 0)
+      cp_async4(dst + i, src + off[j]);
+    else if (off[j] == -1)
+      dst[i] = fill;
+  }
+}
+
+// The 3 x 6 window of a staged plane under a thread's 4 pixels (row r,
+// columns 4j .. 4j + 3 of the tile): footprint rows r .. r + 2, columns
+// 4j + 3 .. 4j + 8; pixel q's 3x3 window starts at w[0][q].
+__device__ __forceinline__ void plane_window(float w[3][6], const float* plane, int r, int j) {
+#pragma unroll
+  for (int rr = 0; rr < 3; ++rr) {
+    const float* row = plane + (r + rr) * SA_FC + 4 * j;
+    const float4 v = *reinterpret_cast<const float4*>(row + 4);
+    w[rr][0] = row[3];
+    w[rr][1] = v.x;
+    w[rr][2] = v.y;
+    w[rr][3] = v.z;
+    w[rr][4] = v.w;
+    w[rr][5] = row[8];
+  }
+}
+
+// A thread's 4 pixels of a row in device memory, p at the first, n of them
+// in the grid (0 .. 4): one float4 when vec and all 4 are (p 16-byte
+// aligned), else one float at a time; zeros past the grid.
+__device__ __forceinline__ void load_px4(float v[4], const float* p, int n, bool vec) {
+  if (vec && n == 4) {
+    const float4 t = *reinterpret_cast<const float4*>(p);
+    v[0] = t.x;
+    v[1] = t.y;
+    v[2] = t.z;
+    v[3] = t.w;
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) v[q] = q < n ? p[q] : 0.f;
+  }
+}
+
+__device__ __forceinline__ void store_px4(float* p, const float v[4], int n, bool vec) {
+  if (vec && n == 4) {
+    *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+  } else {
+#pragma unroll
+    for (int q = 0; q < 4; ++q)
+      if (q < n) p[q] = v[q];
+  }
+}
+
+// cp_async_wait_group<n> for a count known at run time (n <= 3).
+__device__ __forceinline__ void cp_async_wait_upto(int n) {
+  if (n >= 3)
+    cp_async_wait_group<3>();
+  else if (n == 2)
+    cp_async_wait_group<2>();
+  else if (n == 1)
+    cp_async_wait_group<1>();
+  else
+    cp_async_wait_group<0>();
 }

@@ -26,10 +26,10 @@
 //     deterministic sum, which the wrapper takes once per call);
 //   nca_bwd_adjoint — gx += gp[raw] + the adjoint Sobel-x, Sobel-y and
 //     Laplacian stencils of gp: correlation with the 180-degree flipped
-//     filters under circular wrap (_flip :68), read from a halo tile of gp.
-//     Each thread reads and writes only its own pixel of gx, so it updates
-//     gx in place; launched after nca_bwd_mlp on the same stream, which has
-//     read gx by then.
+//     filters under circular wrap (_flip :68), read from a staged footprint
+//     of gp. Each thread reads and writes only its own pixels of gx, so it
+//     updates gx in place; launched after nca_bwd_mlp on the same stream,
+//     which has read gx by then.
 // Scales (0, 1): nca_bwd_mlp's MS form recomputes the averaged percept
 // through nca_step's own device functions (nca_common.cuh::half_percept,
 // ms_average), so the percept and the relu gates agree with the forward,
@@ -93,6 +93,11 @@
 // copies where the rows are aligned), double-buffered across passes of
 // ADJ_CP = 2 channels, and computes every phase from shared memory (about
 // 53 KB a block: four blocks an SM); see nca_bwd_adjoint_ms_kernel.
+// The single-scale adjoint moves 6C floats a pixel too (0.0056 ms at 128^2
+// b4 c12). Its first design had the multiscale one's faults, with a grid of
+// 256 blocks at that shape (two an SM) and a pad_index a staged value; it
+// now spreads channel pairs over the grid (768 blocks there) and stages
+// each channel's planes once by cp.async; see nca_bwd_adjoint_kernel.
 //
 // bf16 mode rounds where the TPU kernel casts to its compute dtype
 // (:1232-1238): the percept (with the conditioning rows), hid, gdx and gz1;
@@ -468,42 +473,84 @@ nca_bwd_mlp_kernel(const float* __restrict__ x, const float* __restrict__ cond,
   }
 }
 
+// nca_bwd_adjoint: channels a block. Both channels' planes are staged at
+// once, so the second's copies fly while the first's adjoint runs.
+#define ADJ1_CG 2
+#define ADJ1_SMEM_BYTES (sizeof(float) * ADJ1_CG * 3 * SA_PLANE)
+
 // gx [B, C, H, W] += gp[:, :C] + adjoint stencils of gp[:, C:4C], circular;
 // then, when gtap is not null, += gtap [B, C, H, W] (a frame tap's
 // cotangent: gx has just become the cotangent of the state it taps).
-__global__ void __launch_bounds__(NT_THREADS)
+// A block is a 32 x 16 tile (nca_common.cuh's SA_ geometry) of ADJ1_CG
+// channels of one batch item, a thread 4 pixels of a row, so the grid holds
+// ceil(W/32) * ceil(H/16) * B * ceil(C/2) blocks (768 at 128^2 b4 C 12).
+// Each channel's three stencil planes of gp are staged once by cp.async on
+// the tile's 18 x 40 footprint (16-byte copies when vec: W % 4 == 0 and gp,
+// gx and gtap 16-byte aligned; 4-byte ones otherwise), the circular wrap
+// resolved once a block in the thread's copy offsets; its raw plane, gx and
+// gtap come straight to registers, a float4 a thread where vec. The adjoint
+// of a pixel is stencil_adjoint on its 3x3 windows (registers, from three
+// loads a staged row), in the first design's term order, so the result is
+// that design's bit for bit. Each thread reads and writes only its own
+// pixels of gx: in place, no atomics.
+__global__ void __launch_bounds__(SA_THREADS)
 nca_bwd_adjoint_kernel(const float* __restrict__ gp, float* __restrict__ gx,
-                       const float* __restrict__ gtap, int C, int H, int W) {
-  __shared__ float tile[3][NCA_HALO * NCA_HALO];
-  const int tid = threadIdx.y * NCA_TILE + threadIdx.x;
-  const int b = blockIdx.z;
+                       const float* __restrict__ gtap, int C, int H, int W, int vec) {
+  extern __shared__ __align__(16) float smem[];  // [ADJ1_CG][3][SA_PLANE]
+  const int tid = threadIdx.x;
+  const int ng = (C + ADJ1_CG - 1) / ADJ1_CG;
+  const int b = blockIdx.z / ng, c0 = (blockIdx.z - b * ng) * ADJ1_CG;
   const int HW = H * W;
-  const int y0 = blockIdx.y * NCA_TILE - 1, x0 = blockIdx.x * NCA_TILE - 1;
-  const int px = blockIdx.x * NCA_TILE + threadIdx.x;
-  const int py = blockIdx.y * NCA_TILE + threadIdx.y;
-  const bool valid = px < W && py < H;
-  const int pix = py * W + px;
+  const int y0 = blockIdx.y * SA_TH, x0 = blockIdx.x * SA_TW;
   const float* gpb = gp + (size_t)b * 4 * C * HW;
-  const int o = threadIdx.y * NCA_HALO + threadIdx.x;
-
-  for (int c = 0; c < C; ++c) {
-    __syncthreads();  // the previous channel's tiles are consumed
-    for (int i = tid; i < 3 * NCA_HALO * NCA_HALO; i += NT_THREADS) {
-      const int k = i / (NCA_HALO * NCA_HALO);
-      const int r = (i / NCA_HALO) % NCA_HALO, q = i % NCA_HALO;
-      const int row = pad_index(y0 + r, H, 0), col = pad_index(x0 + q, W, 0);
-      tile[k][r * NCA_HALO + q] =
-          gpb[(size_t)((k + 1) * C + c) * HW + row * W + col];
+  int off[SA_SLOTS];
+  plane_slots(off, y0, x0, H, W, true, vec, tid);
+#pragma unroll
+  for (int e = 0; e < ADJ1_CG; ++e) {
+    if (c0 + e < C) {
+#pragma unroll
+      for (int k = 0; k < 3; ++k)
+        stage_plane(smem + (e * 3 + k) * SA_PLANE, gpb + (size_t)((k + 1) * C + c0 + e) * HW,
+                    off, 0.f, vec, tid);
     }
-    __syncthreads();
-    if (valid) {
-      const float adj = stencil_adjoint(gpb[(size_t)c * HW + pix], &tile[0][o],
-                                        &tile[1][o], &tile[2][o]);
-      const size_t at = ((size_t)b * C + c) * HW + pix;
-      float v = __fadd_rn(gx[at], adj);
-      if (gtap != nullptr) v = __fadd_rn(v, gtap[at]);
-      gx[at] = v;
+    cp_async_commit();
+  }
+  // the thread's 4 pixels: tile row r, columns 4j .. 4j + 3
+  const int j = tid % (SA_TW / 4), r = tid / (SA_TW / 4);
+  const int py = y0 + r, px = x0 + 4 * j;
+  const int n = py < H ? max(0, min(4, W - px)) : 0;
+  const size_t pix = (size_t)py * W + px;
+  float raw[ADJ1_CG][4], g[ADJ1_CG][4], tap[ADJ1_CG][4];
+#pragma unroll
+  for (int e = 0; e < ADJ1_CG; ++e) {
+    const int ne = c0 + e < C ? n : 0;
+    const size_t at = ((size_t)b * C + c0 + e) * HW + pix;
+    load_px4(raw[e], gpb + (size_t)(c0 + e) * HW + pix, ne, vec);
+    load_px4(g[e], gx + at, ne, vec);
+    if (gtap != nullptr) load_px4(tap[e], gtap + at, ne, vec);
+  }
+  // phase: staging (the copy offsets, the copies' issue and the registers' loads)
+#pragma unroll
+  for (int e = 0; e < ADJ1_CG; ++e) {
+    cp_async_wait_upto(ADJ1_CG - 1 - e);
+    __syncthreads();  // waiting: channel e's planes are in
+    if (c0 + e < C && n > 0) {
+      const float* f = smem + e * 3 * SA_PLANE;
+      float wx[3][6], wy[3][6], wl[3][6];
+      plane_window(wx, f, r, j);
+      plane_window(wy, f + SA_PLANE, r, j);
+      plane_window(wl, f + 2 * SA_PLANE, r, j);
+      float v[4];
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        v[q] = __fadd_rn(g[e][q], stencil_adjoint<6>(raw[e][q], &wx[0][q], &wy[0][q],
+                                                     &wl[0][q]));
+        if (gtap != nullptr) v[q] = __fadd_rn(v[q], tap[e][q]);
+      }
+      // phase: adjoint
+      store_px4(gx + ((size_t)b * C + c0 + e) * HW + pix, v, n, vec);
     }
+    // phase: store
   }
 }
 
@@ -753,6 +800,11 @@ nca_bwd_adjoint_ms_kernel(const float* __restrict__ gp, float* __restrict__ gx,
   }
 }
 
+static dim3 adjoint_grid(int B, int C, int H, int W) {
+  return dim3((W + SA_TW - 1) / SA_TW, (H + SA_TH - 1) / SA_TH,
+              B * ((C + ADJ1_CG - 1) / ADJ1_CG));
+}
+
 template <bool BF16, bool MS>
 static void launch_mlp(dim3 grid, dim3 block, size_t smem, cudaStream_t s,
                        const float* x, const float* cond, const float* gx,
@@ -835,19 +887,35 @@ int nca_bwd_adjoint_launch(const float* gp, float* gx, const float* gtap,
   // (the MS kernel's offsets within a batch item's gp are 32-bit)
   if (C < 1 || C > NCA_C_MAX || (ms && (H % 2 || W % 2 || 4LL * C * H * W >= (1LL << 31))))
     return (int)cudaErrorInvalidValue;
-  const dim3 grid((W + NCA_TILE - 1) / NCA_TILE, (H + NCA_TILE - 1) / NCA_TILE,
-                  B);
-  const dim3 block(NCA_TILE, NCA_TILE);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (ms) {
+    const dim3 grid((W + NCA_TILE - 1) / NCA_TILE, (H + NCA_TILE - 1) / NCA_TILE, B);
     const int vec = W % 4 == 0 && reinterpret_cast<uintptr_t>(gp) % 16 == 0;
     cudaFuncSetAttribute(nca_bwd_adjoint_ms_kernel,
                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)ADJ_SMEM_BYTES);
     nca_bwd_adjoint_ms_kernel<<<grid, dim3(NT_THREADS), ADJ_SMEM_BYTES, s>>>(gp, gx, gtap, C,
                                                                             H, W, vec);
   } else {
-    nca_bwd_adjoint_kernel<<<grid, block, 0, s>>>(gp, gx, gtap, C, H, W);
+    const dim3 grid = adjoint_grid(B, C, H, W);
+    if (grid.z > 65535) return (int)cudaErrorInvalidValue;
+    const auto a16 = [](const float* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+    const int vec = W % 4 == 0 && a16(gp) && a16(gx) && (gtap == nullptr || a16(gtap));
+    nca_bwd_adjoint_kernel<<<grid, SA_THREADS, ADJ1_SMEM_BYTES, s>>>(gp, gx, gtap, C, H, W,
+                                                                     vec);
   }
+  return (int)cudaGetLastError();
+}
+
+// nca_bwd_adjoint's launch at [B, C, H, W]: its blocks in *n_blocks, blocks
+// an SM (cudaOccupancy...) in *blocks, its dynamic shared memory in
+// *smem_bytes.
+int nca_bwd_adjoint_geometry(int B, int C, int H, int W, int* n_blocks, int* blocks,
+                             int* smem_bytes) {
+  const dim3 grid = adjoint_grid(B, C, H, W);
+  *n_blocks = (int)(grid.x * grid.y * grid.z);
+  *smem_bytes = (int)ADJ1_SMEM_BYTES;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, nca_bwd_adjoint_kernel, SA_THREADS,
+                                                ADJ1_SMEM_BYTES);
   return (int)cudaGetLastError();
 }
 

@@ -562,6 +562,8 @@ def _lib() -> ctypes.CDLL:
         lib.cnca_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
         lib.cnca_update_occupancy.argtypes = [i32] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
         lib.cnca_update_occupancy.restype = ctypes.c_int
+        lib.cnca_bwd_adjoint_geometry.argtypes = [i32] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3
+        lib.cnca_bwd_adjoint_geometry.restype = ctypes.c_int
     return lib
 
 
@@ -575,6 +577,18 @@ def update_occupancy(c: int, d: int, compute_dtype: str = "float32") -> Tuple[in
     if err != 0:
         raise RuntimeError(f"cnca_update_occupancy failed: CUDA error {err}")
     return blocks.value, smem.value
+
+
+def bwd_adjoint_geometry(b: int, c: int, h: int, w: int) -> Tuple[int, int, int]:
+    """(blocks of the launch, blocks an SM, dynamic shared-memory bytes) of
+    ``cnca_bwd_adjoint`` at [b, c, h, w], from the built library
+    (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    n, blocks, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = _lib().cnca_bwd_adjoint_geometry(b, c, h, w, ctypes.byref(n), ctypes.byref(blocks),
+                                           ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"cnca_bwd_adjoint_geometry failed: CUDA error {err}")
+    return n.value, blocks.value, smem.value
 
 
 def kernel_limits() -> Tuple[int, int]:

@@ -561,7 +561,9 @@ def _check_even(x: torch.Tensor, multiscale: bool) -> None:
 
 
 def n_blocks(b: int, h: int, w: int) -> int:
-    """Blocks of one backward launch: ceil(W/16) x ceil(H/16) x B."""
+    """Blocks of one ``nca_bwd_mlp(_ms)`` or ``nca_bwd_adjoint_ms`` launch:
+    ceil(W/16) x ceil(H/16) x B (``adjoint_geometry`` gives the scales-(0,)
+    adjoint's)."""
     return -(-w // TILE) * -(-h // TILE) * b
 
 
@@ -631,6 +633,8 @@ def _lib() -> ctypes.CDLL:
         lib.nca_train_limits.restype = ctypes.c_int
         lib.nca_bwd_adjoint_ms_occupancy.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
         lib.nca_bwd_adjoint_ms_occupancy.restype = ctypes.c_int
+        lib.nca_bwd_adjoint_geometry.argtypes = [i32] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3
+        lib.nca_bwd_adjoint_geometry.restype = ctypes.c_int
     return lib
 
 
@@ -643,6 +647,18 @@ def adjoint_ms_occupancy() -> Tuple[int, int]:
     if err != 0:
         raise RuntimeError(f"nca_bwd_adjoint_ms_occupancy failed: CUDA error {err}")
     return blocks.value, smem.value
+
+
+def adjoint_geometry(b: int, c: int, h: int, w: int) -> Tuple[int, int, int]:
+    """(blocks of the launch, blocks an SM, dynamic shared-memory bytes) of
+    the scales-(0,) ``nca_bwd_adjoint`` at [b, c, h, w], from the built
+    library (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    n, blocks, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
+    err = _lib().nca_bwd_adjoint_geometry(b, c, h, w, ctypes.byref(n), ctypes.byref(blocks),
+                                          ctypes.byref(smem))
+    if err != 0:
+        raise RuntimeError(f"nca_bwd_adjoint_geometry failed: CUDA error {err}")
+    return n.value, blocks.value, smem.value
 
 
 def train_kernel_limits() -> Tuple[int, int, int]:

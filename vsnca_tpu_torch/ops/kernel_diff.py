@@ -1,5 +1,5 @@
-"""The redesigned ``nca_bwd_adjoint_ms`` and ``cnca_update`` against another
-build of the same C interfaces, bit for bit and in time, on the card.
+"""The redesigned kernels against another build of the same C interfaces,
+bit for bit and in time, on the card.
 
 ``python3 -m vsnca_tpu_torch.ops.kernel_diff --ref-csrc DIR`` (a CUDA card
 and ``nvcc`` needed): DIR holds ``nca_train.cu``, ``nca_cnca.cu`` and the
@@ -9,15 +9,24 @@ git-ignored directory. Both are built into ``build/kernels/ref/`` with the
 flags of ``ops/_build.py``. Each case launches the kernel of this checkout
 and the one of DIR on the same card tensors and prints whether their outputs
 are the same bits, then each against its plain version (``MS_STATE_TOL``
-1e-6 and ``CNCA_TOL`` 1e-6 / 5e-3 of the largest element, as chip_smoke.py
-holds them); then both kernels' times a launch at the main-path shapes by
-CUDA events, in turns (ref, this, this, ref, twice). Exits 1 if any case differs.
+1e-6, ``TRAIN_TOL`` 1e-4 and ``CNCA_TOL`` 1e-6 / 5e-3 of the largest
+element, as chip_smoke.py holds them); then both kernels' times a launch at
+the main-path shapes by CUDA events, in turns (ref, this, this, ref,
+twice), and for the single-scale adjoints by the profiler's device time too,
+in the same turns (CUDA events over back-to-back launches read the host's
+pace when a launch's host work outlasts its kernel). Exits 1 if any case
+differs.
 
 Cases: ``nca_bwd_adjoint_ms`` at 256^2 b3 (the video_motion shape) and at
 16^2, 18^2, 40x72 and 34x66 b2 (footprints that wrap, more than once at
 16^2; 18^2 and 34x66 take the 4-byte staging), C 16 and 5, with a tap and
-without; ``cnca_update`` at 64^2 b8 and b1, 8^2 and 24x40 b2, living channel
-on and off, f32 and bf16, rates 1 and 0.5; and ``cnca_bwd_mlp``, whose
+without; the scales-(0,) ``nca_bwd_adjoint`` at 128^2 b4 (the
+static_texture shape) and at 8^2, 18^2, 34x66 and 40x72 b2, C 12 and 5, with
+a tap and without; ``cnca_bwd_adjoint`` at 64^2 b8 (the encoder trainer's
+shape) and at 8^2, 24x40 and 34x66 b2, C 20 and 7, living channel on (a
+sparse alpha plane) and off; ``cnca_update`` at 64^2 b8 and b1, 8^2 and
+24x40 b2, living channel on and off, f32 and bf16, rates 1 and 0.5; and
+``cnca_bwd_mlp``, whose
 recompute shares ``cnca_update``'s device functions, at 64^2 b8 and 40x72
 b2, f32 and bf16.
 """
@@ -43,6 +52,7 @@ FUNCS = {
                  "cnca_bwd_adjoint_launch", "cnca_limits"),
 }
 MS_STATE_TOL = 1e-6
+TRAIN_TOL = 1e-4
 CNCA_TOL = {"float32": 1e-6, "bfloat16": 5e-3}
 
 
@@ -98,6 +108,112 @@ def _turns(cur_fn, ref_fn, reps: int = 50):
         torch.cuda.synchronize()
         times[which].append(e0.elapsed_time(e1) / reps)
     return statistics.median(times["this"]), statistics.median(times["ref"])
+
+
+def _device_turns(cur_fn, ref_fn, reps: int = 50):
+    """Median device ms a launch of each (the profiler's CUDA time of
+    ``reps`` launches), in turns ref, this, this, ref, twice."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    times = {"this": [], "ref": []}
+    for which, fn in (("ref", ref_fn), ("this", cur_fn), ("this", cur_fn), ("ref", ref_fn)) * 2:
+        fn()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        us = sum(e.device_time_total for e in prof.events() if e.device_type == DeviceType.CUDA)
+        times[which].append(us / 1e3 / reps)
+    return statistics.median(times["this"]), statistics.median(times["ref"])
+
+
+def _print_times(name: str, cur_fn, ref_fn) -> None:
+    this_ms, ref_ms = _turns(cur_fn, ref_fn)
+    this_dev, ref_dev = _device_turns(cur_fn, ref_fn)
+    print(f"  {name}: this {this_ms:.4f} ms a launch, the reference build {ref_ms:.4f} (CUDA "
+          f"events); device this {this_dev:.4f}, the reference build {ref_dev:.4f} (profiler; "
+          f"turns ref, this, this, ref, twice)")
+
+
+def adjoint0_cases(ft, ref_lib):
+    """The scales-(0,) nca_bwd_adjoint: the same bits as the reference build
+    at every shape, within TRAIN_TOL of its plain version; times at 128^2
+    b4 C 12."""
+    ok = True
+    g = torch.Generator().manual_seed(12)
+    for (b, c, h, w) in ((4, 12, 128, 128), (2, 12, 8, 8), (2, 12, 18, 18), (2, 12, 34, 66),
+                         (2, 12, 40, 72), (2, 5, 8, 8), (2, 5, 18, 18), (2, 5, 34, 66),
+                         (2, 5, 40, 72)):
+        gp = torch.randn((b, 4 * c, h, w), generator=g).cuda()
+        gx = torch.randn((b, c, h, w), generator=g).cuda()
+        gtap = torch.randn((b, c, h, w), generator=g).cuda()
+        for tap in (None, gtap):
+            got = ft.nca_bwd_adjoint(gp, gx, tap)
+            ref = _with("nca_train", ref_lib, lambda: ft.nca_bwd_adjoint(gp, gx, tap))
+            want = ft.nca_bwd_adjoint_reference(gp, gx, tap)
+            torch.cuda.synchronize()
+            same = torch.equal(got, ref)
+            err = _scaled(got, want)
+            good = same and err <= TRAIN_TOL
+            ok = ok and good
+            print(f"  nca_bwd_adjoint {h}x{w} b{b} C{c} tap {tap is not None}: same bits as "
+                  f"the reference build {same}; against the plain version {err:.2e} of max "
+                  f"(tol {TRAIN_TOL:.0e}) {'ok' if good else 'FAIL'}")
+    gp = torch.randn((4, 48, 128, 128), generator=g).cuda()
+    gx = torch.randn((4, 12, 128, 128), generator=g).cuda()
+    run = lambda: ft._launch_adjoint(gp, gx)  # noqa: E731
+    _print_times("nca_bwd_adjoint 128^2 b4 C12 f32", run,
+                 lambda: _with("nca_train", ref_lib, run))
+    return ok
+
+
+def cnca_adjoint_cases(fc, cn, ConditionedNCAConfig, ref_lib):
+    """cnca_bwd_adjoint: the same bits as the reference build (g and dgoal)
+    at every shape, within CNCA_TOL of its plain version; times at 64^2 b8
+    C 20."""
+    ok = True
+    for (b, h, w) in ((8, 64, 64), (2, 8, 8), (2, 24, 40), (2, 34, 66)):
+        for hidden in (16, 3):
+            for use_life in (True, False):
+                cfg = ConditionedNCAConfig(image_size=w, num_hidden_channels=hidden,
+                                           use_living_channel=use_life)
+                c = cfg.num_channels
+                params = cn.conditioned_nca_init(torch.Generator().manual_seed(0), cfg,
+                                                 device="cuda")
+                gen = torch.Generator().manual_seed(1)
+                x = torch.zeros((b, c, h, w))
+                x[:, cfg.alive_channel:, h // 2, w // 2] = 1.0
+                x = x + 0.3 * torch.randn((b, c, h, w), generator=gen)
+                x[:, cfg.alive_channel] *= 0.15  # a sparse living channel: the mask has holes
+                x = x.cuda()
+                gp = torch.randn((b, 3 * c, h, w), generator=gen).cuda()
+                g_xn = torch.randn((b, c, h, w), generator=gen).cuda()
+                wcol = fc.pack_weights(params, cfg, "float32")[0]
+                got = fc.cnca_bwd_adjoint(x, gp, g_xn, wcol, cfg)
+                ref = _with("nca_cnca", ref_lib,
+                            lambda: fc.cnca_bwd_adjoint(x, gp, g_xn, wcol, cfg))
+                want = fc.cnca_bwd_adjoint_reference(x, gp, g_xn, wcol, cfg)
+                torch.cuda.synchronize()
+                same = all(torch.equal(a, r) for a, r in zip(got, ref))
+                err = max(_scaled(a, r) for a, r in zip(got, want))
+                good = same and err <= CNCA_TOL["float32"]
+                ok = ok and good
+                print(f"  cnca_bwd_adjoint {h}x{w} b{b} C{c} living {use_life}: same bits as "
+                      f"the reference build {same}; against the plain version {err:.2e} of "
+                      f"max (tol {CNCA_TOL['float32']:.0e}) {'ok' if good else 'FAIL'}")
+    cfg = ConditionedNCAConfig(image_size=64)
+    params = cn.conditioned_nca_init(torch.Generator().manual_seed(0), cfg, device="cuda")
+    gen = torch.Generator().manual_seed(2)
+    x = (0.3 * torch.randn((8, 20, 64, 64), generator=gen)).cuda()
+    gp = torch.randn((8, 60, 64, 64), generator=gen).cuda()
+    g, dgoal = torch.randn((8, 20, 64, 64), generator=gen).cuda(), torch.zeros_like(x)
+    wcol = fc.pack_weights(params, cfg, "float32")[0]
+    run = lambda: fc._launch_bwd_adjoint(x, gp, wcol, g, dgoal, cfg)  # noqa: E731
+    _print_times("cnca_bwd_adjoint 64^2 b8 C20 f32", run,
+                 lambda: _with("nca_cnca", ref_lib, run))
+    return ok
 
 
 def adjoint_cases(ft, ref_lib):
@@ -240,6 +356,8 @@ def main(argv=None) -> int:
     ref = build_ref(args.ref_csrc.resolve(), current)
     print(torch.cuda.get_device_name(0))
     ok = adjoint_cases(ft, ref["nca_train"])
+    ok = adjoint0_cases(ft, ref["nca_train"]) and ok
+    ok = cnca_adjoint_cases(fc, cn, ConditionedNCAConfig, ref["nca_cnca"]) and ok
     ok = update_cases(fc, cn, ConditionedNCAConfig, ref["nca_cnca"]) and ok
     ok = bwd_mlp_cases(fc, cn, ConditionedNCAConfig, ref["nca_cnca"]) and ok
     print(f"kernel_diff: {'every case ok' if ok else 'a case FAILED'}")

@@ -1,8 +1,8 @@
 """Where the time goes inside the redesigned kernels: a per-phase clock
 profile of the rollout step ``nca_step_ms`` (its tensor-core and chain
-forms), of the training backward's ``nca_bwd_mlp(_ms)`` and
-``nca_bwd_adjoint_ms``, and of ``cnca_update`` and ``cnca_bwd_mlp`` on the
-card.
+forms), of the training backward's ``nca_bwd_mlp(_ms)``, ``nca_bwd_adjoint``
+and ``nca_bwd_adjoint_ms``, and of ``cnca_update``, ``cnca_bwd_mlp`` and
+``cnca_bwd_adjoint`` on the card.
 
 ``python3 -m vsnca_tpu_torch.ops.phase_profile`` (a CUDA card and ``nvcc``
 needed) writes instrumented copies of ``csrc/nca_step.cu``,
@@ -18,8 +18,10 @@ barrier includes the wait for the block's slowest warp; one that ends at a
 ``// phase:`` mark (the step's z1 and second layer, a chunk of units at a
 time, and its store; the staging and the last phase of ``cnca_update``; the
 issue of the next pass's copies and the combine of ``nca_bwd_adjoint_ms``)
-counts thread 0's warp alone. A phase in
-a loop (the adjoint's passes of two channels) sums over its iterations. The
+counts thread 0's warp alone; so do the
+staging, adjoint and store marks of the single-scale adjoints, whose
+waiting phase ends at the barrier after a channel's copies. A phase in a
+loop (the adjoints' passes or channels) sums over its iterations. The
 kernels' results are not checked here: ``chip_smoke.py`` and
 ``tests/test_torch_cuda.py`` hold the uninstrumented kernels to their plain
 versions.
@@ -39,8 +41,9 @@ from vsnca_tpu_torch.ops import _build
 
 OUT = _build.BUILD_DIR / "profile"
 KERNELS = {"nca_step": ("nca_step_kernel(",),
-           "nca_train": ("nca_bwd_mlp_kernel(", "nca_bwd_adjoint_ms_kernel("),
-           "nca_cnca": ("cnca_update_kernel(", "cnca_bwd_mlp_kernel(")}
+           "nca_train": ("nca_bwd_mlp_kernel(", "nca_bwd_adjoint_kernel(",
+                         "nca_bwd_adjoint_ms_kernel("),
+           "nca_cnca": ("cnca_update_kernel(", "cnca_bwd_mlp_kernel(", "cnca_bwd_adjoint_kernel(")}
 MAX_PHASES = 32
 
 _COUNTERS = f"""
@@ -189,6 +192,17 @@ def main(reps: int = 10) -> None:
     torch.cuda.synchronize()
     _report(lib, labels["nca_train"]["nca_bwd_adjoint_ms_kernel"], ft.n_blocks(3, 256, 256), reps,
             "nca_bwd_adjoint_ms C16 256^2 b3 float32 (8 passes of 2 channels)")
+    gp = torch.randn((4, 48, 128, 128), generator=g).cuda()
+    gx = torch.randn((4, 12, 128, 128), generator=g).cuda()
+    ft._launch_adjoint(gp, gx)  # warm-up
+    torch.cuda.synchronize()
+    lib.read_phase_clocks((ctypes.c_ulonglong * MAX_PHASES)())
+    for _ in range(reps):
+        ft._launch_adjoint(gp, gx)
+    torch.cuda.synchronize()
+    _report(lib, labels["nca_train"]["nca_bwd_adjoint_kernel"],
+            ft.adjoint_geometry(4, 12, 128, 128)[0], reps,
+            "nca_bwd_adjoint C12 128^2 b4 float32 (2 channels a block)")
     lib = _build._LIBS["nca_cnca"]
     for b in (8, 1):
         cfg = ConditionedNCAConfig(image_size=64, cell_fire_rate=0.5)
@@ -220,6 +234,16 @@ def main(reps: int = 10) -> None:
         torch.cuda.synchronize()
         _report(lib, labels["nca_cnca"]["cnca_bwd_mlp_kernel"], fc.n_mlp_blocks(b, 64, 64), reps,
                 f"cnca_bwd_mlp C20/D64 64^2 b{b} float32")
+        dgoal = torch.zeros_like(x)
+        fc._launch_bwd_adjoint(x, gp, packed[0], gy, dgoal, cfg)  # warm-up
+        torch.cuda.synchronize()
+        lib.read_phase_clocks((ctypes.c_ulonglong * MAX_PHASES)())
+        for _ in range(reps):
+            fc._launch_bwd_adjoint(x, gp, packed[0], gy, dgoal, cfg)
+        torch.cuda.synchronize()
+        _report(lib, labels["nca_cnca"]["cnca_bwd_adjoint_kernel"],
+                fc.bwd_adjoint_geometry(b, 20, 64, 64)[0], reps,
+                f"cnca_bwd_adjoint C20 64^2 b{b} float32 (2 channels a block)")
 
 
 if __name__ == "__main__":
