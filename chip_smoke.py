@@ -33,10 +33,13 @@ exit and no result line:
    static_texture and video_motion shapes, the
    tapped pair at scales (0,) and (0, 1), each multiscale backward kernel
    alone at 256^2 b3; one video_motion train step on the card against the
-   CPU at 32^2; the TPU-layout forms: nca_step_mat (algo 'mat') and the
+   CPU at 32^2; the TPU-layout forms: nca_step_mat (algo 'mat': its
+   tensor-core form under f32 compute, its chain form under bf16) and the
    bf16-state nca_step (algo 'padded', state_dtype 'bfloat16') at 40x72 b2 x 4
    steps and 256^2 b1 x 24 steps under the three paddings, conditioning none /
-   pos_emb / edges, rates 1 and 0.5, f32 and bf16 compute; the streaming entry
+   pos_emb / edges, rates 1 and 0.5, f32 and bf16 compute, and the 24-step
+   drift of nca_step_mat's tensor-core form under bf16 (printed, not held:
+   no entry launches it); the streaming entry
    at 1024^2 b1 x 4 steps; the segment-checkpointed CHW pair at the
    static_texture cell (128^2 b4 x 128 steps, K = 16) against K = 1 and
    against its plain segment walk; the redesigned nca_bwd_adjoint_ms at
@@ -75,8 +78,8 @@ exit and no result line:
    multiscale cell stylizes 12 frames at 256^2, 24 nca_step_ms launches a
    frame. The TPU-layout entries: bench.py's cell through
    ``ROLLOUT_KERNELS[select_rollout_kernel(...)]``, the edge_conditioned
-   cell through ``fused_rollout_chw`` with algo 'mat' and with a bf16 state
-   (24 steps each), ``fused_rollout_stream_chw`` at 1024^2, and the
+   cell through ``fused_rollout_chw`` with algo 'mat' (bf16 and f32
+   compute) and with a bf16 state (24 steps each), ``fused_rollout_stream_chw`` at 1024^2, and the
    static_texture cell through ``fused_rollout_train_nhwc`` (K = 16) with a
    backward, each kernel's launches counted exactly;
 4. times with CUDA events (median of repeats after warm-up): kernel and plain
@@ -97,8 +100,9 @@ exit and no result line:
    parts and its two loss forwards (VGG16 + OT, MSOE + MotionOT) alone,
    video_motion iterations/s, peak memory and a profiler window over one
    iteration, the multiscale stylizer's frames/s and a profiler window over
-   its frames; nca_step_mat and the bf16-state nca_step per launch at 256^2
-   b1 bf16 beside nca_step, their bounds and plain versions, every registry
+   its frames; nca_step_mat (f32: tensor cores; bf16: chain) and the
+   bf16-state nca_step per launch at 256^2 b1 beside nca_step, their bounds
+   and plain versions, every registry
    entry per step at 256^2 and 1024^2, the segment trade-off (forward +
    backward time and added peak memory at K = 1 and 16, for static_texture
    and the video_motion pair), the benchmark harness
@@ -116,7 +120,10 @@ exit and no result line:
    redesigned single-scale adjoints, nca_bwd_adjoint at 128^2 b4 and
    cnca_bwd_adjoint at 64^2 b8, with their blocks and blocks an SM, beside
    row 12's library yardstick F.conv_transpose2d (cnca_bwd_adjoint's g_xg
-   alone, TF32 off); VGG16's loss
+   alone, TF32 off); the redesigned nca_step_mat (256^2 b1 edges, both
+   compute types) and cnca_gate (64^2 b8 and b1) by CUDA events and device
+   time, beside their bounds (nca_step_mat's float32 and tensor-core bounds
+   too), with blocks an SM and ptxas' registers; VGG16's loss
    forward and backward with the equality-mask pool and with F.max_pool2d,
    in turns.
 
@@ -1669,7 +1676,7 @@ def form_bound_ms(form: str, c: int, cc: int, f: int, hw: int, compute_dtype: st
     bf16-state form) plus the weights, over the memory rate, against the
     MLP's FLOPs over the peak for the operand type. The folded step's first
     layer is (9C + cc) x F: 2 ((9C + cc) F + F C) FLOP a pixel."""
-    p = (9 * c if form == "nca_step_mat" else 4 * c) + cc
+    p = (9 * c if form.startswith("nca_step_mat") else 4 * c) + cc
     sb = 2 if form == "nca_step_bf16_state" else 4
     n_bytes = (2 * c + cc) * hw * sb + (p * f + f + f * c + c) * 4
     flops = 2 * hw * (p * f + f * c)
@@ -1678,15 +1685,37 @@ def form_bound_ms(form: str, c: int, cc: int, f: int, hw: int, compute_dtype: st
     return 1e3 * max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
+def mat_tc_rollout(fs, params, x, cond, cfg, n_steps, rate, cdt):
+    """``n_steps`` launches of nca_step_mat's tensor-core form, whatever
+    fused_step.chain_form picks for ``cdt`` (the steps of
+    ``fused_rollout_chw(algo="mat")`` otherwise)."""
+    import torch
+
+    packed = fs.pack_weights(params, cfg.c_in, cond.shape[1] if cond is not None else 0, cdt,
+                             True)
+    src, thr = x, fs.uniform_threshold(rate)
+    for i in range(n_steps):
+        dst = torch.empty_like(x)
+        fs.launch_step(src, dst, cond, packed, cfg.padding_mode, cdt, 7, i, thr, mat=True)
+        src = dst
+    return src
+
+
 def phase_compare_forms(torch, fs, NCAConfig, dynca_init):
-    """nca_step_mat (algo 'mat') and the bf16-state nca_step (algo 'padded',
-    state_dtype 'bfloat16') against their plain versions on the card, at
-    40x72 b2 x 4 steps and 256^2 b1 x 24 steps: three paddings, conditioning
-    none / pos_emb / edges, rates 1 and 0.5, f32 and bf16 compute. One line
-    per form, shape and padding (the worst of its 12 cases). Returns the
-    largest absolute difference of each form."""
+    """nca_step_mat (algo 'mat': its tensor-core form under f32 compute, its
+    chain form under bf16, fused_step.chain_form) and the bf16-state nca_step
+    (algo 'padded', state_dtype 'bfloat16') against their plain versions on
+    the card, at 40x72 b2 x 4 steps and 256^2 b1 x 24 steps: three paddings,
+    conditioning none / pos_emb / edges, rates 1 and 0.5, f32 and bf16
+    compute. One line per form, shape and padding (the worst of its 12
+    cases). Then the drift of nca_step_mat's tensor-core form under bf16
+    compute, which no entry launches, on the 18 bf16 cases at 256^2 x 24
+    steps: printed beside TOL['bfloat16'], not held to it. Returns the
+    largest absolute difference of each form that ran (nca_step_mat_chain
+    the chain form), and that drift's (worst, cases past TOL, cases)."""
     dev = "cuda"
     worst = {form: 0.0 for form in FORMS}
+    drift = []
     for form, opts in FORMS.items():
         for shape, n_steps in (((2, 12, 40, 72), 4), ((1, 12, 256, 256), STEPS)):
             b, _, h, w = shape
@@ -1703,12 +1732,17 @@ def phase_compare_forms(torch, fs, NCAConfig, dynca_init):
                         cond = (torch.rand((b, cfg.c_cond, h, w), generator=g) - 0.5).to(dev)
                     for rate in (1.0, 0.5):
                         for cdt in ("float32", "bfloat16"):
-                            before = fs.KERNEL_LAUNCHES[form]
+                            keys = [k for k in (form, form + "_chain") if k in fs.KERNEL_LAUNCHES]
+                            before = sum(fs.KERNEL_LAUNCHES[k] for k in keys)
                             got = fs.fused_rollout_chw(params, x, 7, cfg, n_steps, cond, rate,
                                                        cdt, **opts)
-                            launched = fs.KERNEL_LAUNCHES[form] - before
+                            launched = sum(fs.KERNEL_LAUNCHES[k] for k in keys) - before
                             want = fs.fused_rollout_chw_reference(params, x, 7, cfg, n_steps,
                                                                   cond, rate, cdt, **opts)
+                            if form == "nca_step_mat" and cdt == "bfloat16" and h == 256:
+                                tc = mat_tc_rollout(fs, params, x, cond, cfg, n_steps, rate,
+                                                    cdt)
+                                drift.append(float((tc - want).abs().max()))
                             torch.cuda.synchronize()
                             err = float((got.float() - want.float()).abs().max())
                             rel = scaled_err(got.float(), want.float())
@@ -1725,14 +1759,20 @@ def phase_compare_forms(torch, fs, NCAConfig, dynca_init):
                                     f"{rel:.2e} of max|plain|, {launched} launches")
                             line_abs, line_rel = max(line_abs, err), max(line_rel, rel)
                             exact += err == 0.0
-                worst[form] = max(worst[form], line_abs)
+                            form_cdt = form + ("_chain" if fs.chain_form(form, cdt) else "")
+                            worst[form_cdt] = max(worst.get(form_cdt, 0.0), err)
                 tol = (f"{BF16_STATE_TOL:.0e} of max|plain|" if form == "nca_step_bf16_state"
                        else f"{TOL['float32']:.0e} f32 / {TOL['bfloat16']:.0e} bf16")
                 print(f"  {form} {h}x{w} b{b} x {n_steps} {pad}: 12 cases (cond none/pos_emb/"
                       f"edges, rates 1/0.5, f32/bf16), max|kernel-plain| {line_abs:.3e} "
                       f"({line_rel:.2e} of max|plain|; {exact} of 12 bit-identical), "
                       f"tol {tol} ok")
-    return worst
+    past = sum(d > TOL["bfloat16"] for d in drift)
+    print(f"  nca_step_mat's tensor-core form under bf16 compute, which no entry launches "
+          f"(fused_step.chain_form): 256^2 b1 x {STEPS} steps, {len(drift)} cases, worst "
+          f"max|kernel-plain| {max(drift):.3e}, {past} past TOL {TOL['bfloat16']:.0e} (the "
+          f"chain form's 0)")
+    return worst, (max(drift), past, len(drift))
 
 
 def phase_compare_stream(torch, fs, cfg, params):
@@ -1824,8 +1864,9 @@ def phase_tpu_layout_path(torch, fs, ft, presets, dynca_init, make_conditioning,
     """This slice's path, through the entries a user calls: bench.py's cell
     through ``ROLLOUT_KERNELS[select_rollout_kernel(...)]`` (96 steps, 256^2,
     bf16), the edge_conditioned cell at 256^2 x 24 steps through
-    ``fused_rollout_chw`` with algo 'mat' and with algo 'padded' and a bf16
-    state, the streaming entries (``fused_rollout_stream_chw`` and
+    ``fused_rollout_chw`` with algo 'mat' (bf16 compute: its chain form; f32:
+    its tensor-core form) and with algo 'padded' and a bf16 state, the
+    streaming entries (``fused_rollout_stream_chw`` and
     ``ROLLOUT_KERNELS['stream_flat']``) at 1024^2 x 4 steps each, and the
     static_texture cell through the NHWC CHW pair (``fused_rollout_train_nhwc``, 128 steps,
     K = 16) with a backward. The counts are set to 0 just before and read
@@ -1850,6 +1891,8 @@ def phase_tpu_layout_path(torch, fs, ft, presets, dynca_init, make_conditioning,
             bench_params, xb, 0, bench_cfg, 96, compute_dtype="bfloat16"),
         "algo mat": fs.fused_rollout_chw(params, x, 1, cfg, STEPS, cond,
                                          compute_dtype="bfloat16", algo="mat"),
+        "algo mat, f32": fs.fused_rollout_chw(params, x, 1, cfg, STEPS, cond,
+                                              compute_dtype="float32", algo="mat"),
         "algo padded, bf16 state": fs.fused_rollout_chw(
             params, x, 1, cfg, STEPS, cond, compute_dtype="bfloat16",
             state_dtype="bfloat16", algo="padded"),
@@ -1868,7 +1911,7 @@ def phase_tpu_layout_path(torch, fs, ft, presets, dynca_init, make_conditioning,
     train_steps = 2 * SEG_STEPS - SEG_STEPS // k  # the forward and the recompute
     want_fs = {"nca_step": 0, "nca_step_ms": 0, "nca_step_mat": STEPS,
                "nca_step_bf16_state": STEPS, "nca_step_chain": 96 + 8 + train_steps,
-               "nca_step_ms_chain": 0}
+               "nca_step_ms_chain": 0, "nca_step_mat_chain": STEPS}
     want_ft = {"nca_step": train_steps, "nca_bwd_mlp": SEG_STEPS,
                "nca_bwd_adjoint": SEG_STEPS}
     checks = {
@@ -1899,13 +1942,23 @@ def phase_tpu_layout_path(torch, fs, ft, presets, dynca_init, make_conditioning,
             "nca_bwd_adjoint": ft_counts["nca_bwd_adjoint"]}
 
 
+# the compute type each step form is timed at by time_forms: the tensor-core
+# nca_step_mat runs float32 compute, its chain form bf16 (fused_step.chain_form)
+SHORT = {"float32": "f32", "bfloat16": "bf16"}
+FORM_CDT = {"nca_step": "bfloat16", "nca_step_mat": "float32",
+            "nca_step_mat_chain": "bfloat16", "nca_step_bf16_state": "bfloat16"}
+
+
 def time_forms(torch, fs, cfg, params):
-    """nca_step_mat and the bf16-state nca_step per launch at 256^2 b1 (the
-    edge_conditioned width, bf16 compute, rate 0.5) beside nca_step in the
-    same call, each beside its bound and its plain version; the streaming
-    entry per step at 1024^2; every registry entry (and 'mat', 'padded')
-    per step at 256^2 and 1024^2. Returns {name: (ms, plain ms, bound ms,
-    bound by)} and {(entry, size): ms per step}."""
+    """nca_step_mat (its tensor-core form at f32 compute, its chain form at
+    bf16) and the bf16-state nca_step per launch at 256^2 b1 (the
+    edge_conditioned width, rate 0.5, FORM_CDT) beside nca_step in the same
+    call, each beside its bound and its plain version; the streaming entry
+    per step at 1024^2; every registry entry (and 'mat', 'padded') per step
+    at 256^2 and 1024^2 (bf16 compute). nca_step_mat's bound is its
+    tensor-core bound (split TF32 under f32, bf16 under bf16), whichever form
+    runs: the card's peak for the folded product. Returns {name: (ms, plain
+    ms, bound ms, bound by)} and {(entry, size): ms per step}."""
     g = torch.Generator().manual_seed(7)
     out, per_step = {}, {}
     thr = fs.uniform_threshold(0.5)
@@ -1913,24 +1966,22 @@ def time_forms(torch, fs, cfg, params):
         x = (torch.rand((1, 12, n, n), generator=g) - 0.5).cuda()
         cond = (torch.rand((1, 3, n, n), generator=g) - 0.5).cuda()
         if n == 256:
-            args = {
-                "nca_step": (x, cond, fs.pack_weights(params, 12, 3, "bfloat16"), False),
-                "nca_step_mat": (x, cond, fs.pack_weights(params, 12, 3, "bfloat16", True),
-                                 True),
-                "nca_step_bf16_state": (x.bfloat16(), cond.bfloat16(),
-                                        fs.pack_weights(params, 12, 3, "bfloat16"), False),
-            }
-            for name, (xi, ci, packed, mat) in args.items():
+            for name, cdt in FORM_CDT.items():
+                mat = name.startswith("nca_step_mat")
+                xi, ci = (x.bfloat16(), cond.bfloat16()) if name == "nca_step_bf16_state" else (
+                    x, cond)
+                packed = fs.pack_weights(params, 12, 3, cdt, mat)
                 dst = torch.empty_like(xi)
-                k_ms = cuda_ms(lambda: fs.launch_step(xi, dst, ci, packed, "circular",
-                                                      "bfloat16", 5, 17, thr, False, mat), 20)
-                p_ms = cuda_ms(lambda: fs.reference_step(xi, ci, packed, "circular",
-                                                         "bfloat16", 5, 17, 0.5, False, mat),
-                               3)
-                bound, by = (step_bound_ms(12, 3, 96, n * n, "bfloat16") if name == "nca_step"
-                             else form_bound_ms(name, 12, 3, 96, n * n, "bfloat16"))
+                chain = name.endswith("_chain")
+                k_ms = cuda_ms(lambda: fs.launch_step(xi, dst, ci, packed, "circular", cdt, 5,
+                                                      17, thr, False, mat, chain), 20)
+                p_ms = cuda_ms(lambda: fs.reference_step(xi, ci, packed, "circular", cdt, 5, 17,
+                                                         0.5, False, mat), 3)
+                bound, by = (step_bound_ms(12, 3, 96, n * n, cdt) if name == "nca_step"
+                             else tc_bound_ms(name, 12, 3, 96, n * n, cdt) if mat
+                             else form_bound_ms(name, 12, 3, 96, n * n, cdt))
                 out[name] = (k_ms, p_ms, bound, by)
-                print(f"  {name} 256^2 b1 edges bf16: kernel {k_ms:.4f} ms/launch, plain "
+                print(f"  {name} 256^2 b1 edges {cdt}: kernel {k_ms:.4f} ms/launch, plain "
                       f"{p_ms:.4f} ms, bound {bound:.5f} ms ({by}); {k_ms / bound:.1f}x the "
                       f"bound")
         entries = {name: (fn, {}) for name, fn in fs.ROLLOUT_KERNELS.items()}
@@ -2042,13 +2093,19 @@ def tc_bound_ms(kernel: str, c: int, k2: int, f: int, hw: int, compute_dtype="fl
     the memory rate. nca_step, its bf16-state form and nca_step_ms (k2 = cc)
     keep the stencils (STENCIL_FLOP a pixel and channel) and the multiscale
     percept (MS_PERCEPT_FLOP) and put the MLP (2 (P*F + F*C)) on the tensor
-    cores; nca_bwd_mlp(_ms) (k2 = cc) keeps the multiscale percept and puts
+    cores; nca_step_mat (k2 = cc) puts all of its MLP (2 ((9C + cc) F + F C))
+    on them; nca_bwd_mlp(_ms) (k2 = cc) keeps the multiscale percept and puts
     z1 = W1^T p, W2 gdx, W1 gz1, dW1 and dW2 (2 (3 P*F + 2 F*C)) on them;
     cnca_bwd_mlp (k2 = D) keeps the recompute (the MLP and the percept) and
     the depthwise weight gradient (2 x 2*27*C) and puts the three transposed
     and three weight-gradient products (2 x the MLP) on them."""
     ms = kernel.startswith("nca_step_ms") or kernel == "nca_bwd_mlp_ms"
-    if kernel.startswith("nca_step"):
+    if kernel.startswith("nca_step_mat"):  # the folded stencil: all on the tensor cores
+        p = 9 * c + k2
+        n_bytes = (2 * c + k2) * hw * 4 + (p * f + f + f * c + c) * 4
+        cuda = 0
+        tc = 2 * hw * (p * f + f * c)
+    elif kernel.startswith("nca_step"):
         p = 4 * c + k2
         state_bytes = 2 if kernel == "nca_step_bf16_state" else 4
         n_bytes = (2 * c + k2) * hw * state_bytes + (p * f + f + f * c + c) * 4
@@ -2085,7 +2142,7 @@ def time_tc_kernels(torch, fs, ft, fc, cn, ConditionedNCAConfig, _build):
     float32 bound and the tensor-core bound, two launches on the same inputs
     checked for the same bits, and ptxas' registers and spills of each
     instantiation. Returns {(name, label): (ms, f32 bound, tensor-core
-    bound or None, device ms or None)}."""
+    bound or None, device ms or None, what bounds the tensor-core bound)}."""
     from vsnca_tpu_torch.models.dynca import dynca_init
     from vsnca_tpu_torch.config import NCAConfig
 
@@ -2132,11 +2189,11 @@ def time_tc_kernels(torch, fs, ft, fc, cn, ConditionedNCAConfig, _build):
         base = name.replace("_chain", "")
         f32b = (ms_bound_ms(base, c, cc, f, hw)[0] if ms
                 else form_bound_ms(base, c, cc, f, hw, "float32")[0])
-        tcb = None if chain else tc_bound_ms(name, c, cc, f, hw, cdt)[0]
+        tcb, tcby = (None, None) if chain else tc_bound_ms(name, c, cc, f, hw, cdt)
         blocks, smem = fs.step_occupancy(
             c, cc, f, cdt, ms, "chain" if chain else "bf16_state" if bstate else "tc")
         label = f"{n}^2 b{b} {cdt}"
-        out[(name, label)] = (k_ms, f32b, tcb, dev)
+        out[(name, label)] = (k_ms, f32b, tcb, dev, tcby)
         tc_text = "" if chain else f", tensor-core bound {tcb:.5f} ms ({dev / tcb:.1f}x)"
         print(f"  {name} {label}: kernel {k_ms:.4f} ms/launch (CUDA events), {dev:.4f} device "
               f"(profiler); float32 bound {f32b:.5f} ms ({dev / f32b:.1f}x){tc_text}; {blocks} "
@@ -2171,9 +2228,9 @@ def time_tc_kernels(torch, fs, ft, fc, cn, ConditionedNCAConfig, _build):
         hw = b * n * n
         f32b = (ms_bound_ms(name, c, 2, f, hw)[0] if ms
                 else train_bound_ms(name, c, 2, f, hw)[0])
-        tcb = tc_bound_ms(name, c, 2, f, hw, cdt)[0]
+        tcb, tcby = tc_bound_ms(name, c, 2, f, hw, cdt)
         label = f"{n}^2 b{b} {cdt}"
-        out[(name, label)] = (k_ms, f32b, tcb, dev)
+        out[(name, label)] = (k_ms, f32b, tcb, dev, tcby)
         print(f"  {name} {label}: kernel {k_ms:.4f} ms/launch (CUDA events), {dev:.4f} device "
               f"(profiler); float32 bound {f32b:.5f} ms ({dev / f32b:.1f}x), tensor-core bound "
               f"{tcb:.5f} ms ({dev / tcb:.1f}x); two launches bit-identical: {same}")
@@ -2202,9 +2259,9 @@ def time_tc_kernels(torch, fs, ft, fc, cn, ConditionedNCAConfig, _build):
                                                   "float32", 3, 5, thr), 20)
         hw = b * 64 * 64
         f32b = cnca_bound_ms("cnca_bwd_mlp", 20, 64, hw)[0]
-        tcb = tc_bound_ms("cnca_bwd_mlp", 20, 64, 64, hw)[0]
+        tcb, tcby = tc_bound_ms("cnca_bwd_mlp", 20, 64, 64, hw)
         label = f"64^2 b{b} float32"
-        out[("cnca_bwd_mlp", label)] = (k_ms, f32b, tcb, None)
+        out[("cnca_bwd_mlp", label)] = (k_ms, f32b, tcb, None, tcby)
         print(f"  cnca_bwd_mlp {label}: kernel {k_ms:.4f} ms/launch; float32 bound {f32b:.5f} "
               f"ms ({k_ms / f32b:.1f}x), tensor-core bound {tcb:.5f} ms ({k_ms / tcb:.1f}x); "
               f"two launches bit-identical: {same}")
@@ -2398,6 +2455,77 @@ def time_redesigned(torch, ft, fc, cn, ConditionedNCAConfig, _build):
     return out
 
 
+def time_mat_gate(torch, fs, fc, cn, ConditionedNCAConfig, _build, cfg, params):
+    """The kernels redesigned last, at their main-path shapes: nca_step_mat
+    at 256^2 b1 edges (c12/fc96) in the form each compute type takes (the
+    tensor cores under f32, the chain under bf16; fused_step.chain_form) and
+    cnca_gate at 64^2 b8 and b1 (C 20): ms a launch by CUDA events and by
+    the profiler's device time, beside the bound (nca_step_mat: its
+    tensor-core bound, the float32 CUDA-core bound beside it); blocks an SM; ptxas' registers
+    and spills; two launches on the same inputs checked for the same bits.
+    Returns {(name, label): (ms, device ms, float32 bound, blocks an SM)}
+    and nca_step_mat's {form: (f32 bound, tc bound)}."""
+    want = False
+    for line in (_build.build_log("nca_step") + _build.build_log("nca_cnca")).splitlines():
+        if "Compiling entry function" in line or "Function properties" in line:
+            # nca_step_kernel's MAT instantiations end their template list in Lb1EE
+            want = "cnca_gate" in line or ("nca_step_kernel" in line and "Lb1EEv" in line)
+            if want and "Compiling" in line:
+                print(f"    ptxas: {line.split('function', 1)[1].strip()}")
+        elif want and ("registers" in line or "spill" in line):
+            print(f"    ptxas:   {line.strip()}")
+    out, bounds = {}, {}
+    g = torch.Generator().manual_seed(8)
+    x = (torch.rand((1, 12, 256, 256), generator=g) - 0.5).cuda()
+    cond = (torch.rand((1, 3, 256, 256), generator=g) - 0.5).cuda()
+    thr = fs.uniform_threshold(0.5)
+    for cdt in ("float32", "bfloat16"):
+        chain = fs.chain_form("nca_step_mat", cdt)
+        name = "nca_step_mat" + ("_chain" if chain else "")
+        packed = fs.pack_weights(params, 12, 3, cdt, True)
+        outs = [torch.empty_like(x) for _ in range(2)]
+        for o in outs:
+            fs.launch_step(x, o, cond, packed, "circular", cdt, 5, 17, thr, mat=True, chain=chain)
+        torch.cuda.synchronize()
+        same = torch.equal(outs[0], outs[1])
+        launch = lambda: fs.launch_step(x, outs[0], cond, packed, "circular", cdt, 5,  # noqa
+                                        17, thr, mat=True, chain=chain)
+        k_ms, dev = cuda_ms(launch, 20), device_ms(torch, launch)
+        tcb, by = tc_bound_ms(name, 12, 3, 96, 256 * 256, cdt)
+        f32b = form_bound_ms(name, 12, 3, 96, 256 * 256, "float32")[0]
+        blocks, smem = fs.step_occupancy(12, 3, 96, cdt, False, "mat")
+        out[(name, f"256^2 b1 edges {cdt}")] = (k_ms, dev, f32b, blocks)
+        bounds[name] = (f32b, tcb)
+        print(f"  {name} 256^2 b1 edges {cdt}: kernel {k_ms:.4f} ms/launch (CUDA events), "
+              f"{dev:.4f} device (profiler); tensor-core bound {tcb:.5f} ms ({by}, "
+              f"{dev / tcb:.1f}x), float32 CUDA-core bound {f32b:.5f} ({dev / f32b:.1f}x); "
+              f"{blocks} blocks an SM ({smem / 1000:.1f} KB of shared memory); two launches "
+              f"bit-identical: {same}")
+        if not same:
+            raise SystemExit(f"{name}: two launches on the same inputs differ")
+    for b in (8, 1):
+        gcfg, _, xg, _ = cnca_case(torch, cn, ConditionedNCAConfig, (b, 64, 64))
+        xn = xg + 0.3 * torch.randn(xg.shape, generator=torch.Generator().manual_seed(b)).cuda()
+        outs = [torch.empty_like(xg) for _ in range(2)]
+        lives = [torch.empty((b, 64, 64), dtype=torch.uint8, device="cuda") for _ in range(2)]
+        for o, li in zip(outs, lives):
+            fc.launch_gate(xg, xn, o, li, gcfg)
+        torch.cuda.synchronize()
+        same = torch.equal(outs[0], outs[1]) and torch.equal(lives[0], lives[1])
+        launch = lambda: fc.launch_gate(xg, xn, outs[0], lives[0], gcfg)  # noqa: E731
+        k_ms, dev = cuda_ms(launch, 50), device_ms(torch, launch, 50)
+        bound, by = cnca_bound_ms("cnca_gate", 20, 64, b * 64 * 64)
+        n_blocks, blocks, smem = fc.gate_geometry(b, 20, 64, 64)
+        out[("cnca_gate", f"64^2 b{b} float32")] = (k_ms, dev, bound, blocks)
+        print(f"  cnca_gate 64^2 b{b} C20 f32: kernel {k_ms:.4f} ms/launch (CUDA events), "
+              f"{dev:.4f} device (profiler); bound {bound:.5f} ms ({by}, {dev / bound:.1f}x); "
+              f"{n_blocks} blocks, {blocks} an SM ({smem / 1000:.1f} KB of shared memory); two "
+              f"launches bit-identical: {same}")
+        if not same:
+            raise SystemExit("cnca_gate: two launches on the same inputs differ")
+    return out, bounds
+
+
 def time_adjoints(torch, ft, fc, cn, ConditionedNCAConfig, F):
     """The redesigned single-scale adjoints, nca_bwd_adjoint at 128^2 b4
     C 12 and cnca_bwd_adjoint at 64^2 b8 C 20, f32: ms a launch by CUDA
@@ -2585,7 +2713,7 @@ def main() -> int:
                          precompute_target_motion_features)
     print("[2] TPU-layout forms (rows 1, 2, 5, 6) vs their plain versions on the card: "
           "nca_step_mat, the bf16-state nca_step, the streaming entry, the CHW pair")
-    forms_err = phase_compare_forms(torch, fs, NCAConfig, dynca_init)
+    forms_err, mat_tc_drift = phase_compare_forms(torch, fs, NCAConfig, dynca_init)
     edge_cfg = edge_conditioned()
     edge_params = dynca_init(torch.Generator().manual_seed(0), edge_cfg, device="cuda")
     stream_err = phase_compare_stream(torch, fs, edge_cfg, edge_params)
@@ -2647,9 +2775,9 @@ def main() -> int:
     k = cuda_ms(lambda: fs.fused_rollout_chw(params, x, 1, cfg, STEPS, cond), 4) / STEPS
     p = cuda_ms(lambda: fs.fused_rollout_chw_reference(params, x, 1, cfg, STEPS, cond), 1) / STEPS
     bound, by = step_bound_ms(12, 3, 96, 256 * 256, "float32")
-    tcb = tc_bound_ms("nca_step", 12, 3, 96, 256 * 256)[0]
+    tcb, tcby = tc_bound_ms("nca_step", 12, 3, 96, 256 * 256)
     timing["f32"] = {"kernel_ms_per_step": k, "plain_ms_per_step": p, "bound_ms_per_step": bound,
-                     "bound_by": by, "tc_bound_ms": tcb}
+                     "bound_by": by, "tc_bound_ms": tcb, "tc_bound_by": tcby}
     print(f"  256^2 edges f32 (tensor cores): kernel {k:.4f} ms/step, plain {p:.4f} ms/step, "
           f"bound {bound:.5f} ms/step ({by}), tensor-core bound {tcb:.5f}; {k / bound:.1f}x "
           f"the bound, {k / tcb:.1f}x the tensor-core bound")
@@ -2847,6 +2975,10 @@ def main() -> int:
     tc_times = time_tc_kernels(torch, fs, ft, fc, cn, ConditionedNCAConfig, _build)
     print("  the redesigned CUDA-core kernels (PERF.md rows 10 and 11):")
     redesigned = time_redesigned(torch, ft, fc, cn, ConditionedNCAConfig, _build)
+    print("  the redesigned nca_step_mat and cnca_gate (PERF.md rows 1, 11 and 12):")
+    mat_gate, mat_bounds = time_mat_gate(torch, fs, fc, cn, ConditionedNCAConfig, _build,
+                                         edge_cfg, edge_params)
+    redesigned.update(mat_gate)
     print("  the redesigned single-scale adjoints (PERF.md rows 6, 9 and 12):")
     adj_times, conv_t_ms = time_adjoints(torch, ft, fc, cn, ConditionedNCAConfig,
                                          torch.nn.functional)
@@ -2858,6 +2990,7 @@ def main() -> int:
         "kernel_ms_per_step_256": timing[256]["kernel_ms_per_step"],
         "kernel_ms_per_step_256_f32": timing["f32"]["kernel_ms_per_step"],
         "tc_bf16_served_drift_24": tc_bf16_drift,
+        "mat_tc_bf16_drift_24_worst_past_cases": list(mat_tc_drift),
         "f32_stylizer_launches": f32_launches,
         "kernel_ms_per_step_512": timing[512]["kernel_ms_per_step"],
         "plain_ms_per_step_256": timing[256]["plain_ms_per_step"],
@@ -2896,8 +3029,8 @@ def main() -> int:
         "ms_stylizer_ms_per_frame_256": ms_frame_ms,
         "ms_stylizer_fps_256": 1e3 / ms_frame_ms,
         "ms_stylizer_launches": ms_styl_launches,
-        **{f"{name}_ms_256_b1_bf16": t[0] for name, t in form_times.items()
-           if name != "stream_1024"},
+        **{f"{name}_ms_256_b1_{SHORT[FORM_CDT[name]]}": t[0]
+           for name, t in form_times.items() if name != "stream_1024"},
         "stream_ms_per_step_1024": form_times["stream_1024"][0],
         **{f"entry_{k.replace(', ', '_').replace(' ', '_')}_ms_per_step_{n}": v
            for (k, n), v in entry_ms.items()},
@@ -2913,7 +3046,7 @@ def main() -> int:
         "segment_max_abs_err_vs_plain": seg_err,
         **{f"tc_{name}_{label.replace('^', '').replace(' ', '_')}_{what}": v
            for (name, label), t in tc_times.items()
-           for what, v in zip(("ms", "f32_bound_ms", "tc_bound_ms", "device_ms"), t)
+           for what, v in zip(("ms", "f32_bound_ms", "tc_bound_ms", "device_ms"), t[:4])
            if v is not None},
         **{f"redesigned_{name}_{label.replace('^', '').replace(' ', '_')}_{what}": v
            for (name, label), t in redesigned.items()
@@ -2946,7 +3079,7 @@ def main() -> int:
                     "vsnca_tpu/ops/pallas_step.py:731 (fused_rollout_chw algo 'roll', "
                     "_make_kernel_roll :175); vsnca_tpu/ops/pallas_step.py:1066 "
                     "(fused_rollout_stream_chw, _make_kernel_stream :845)")
-    print(json.dumps({"kernels": [{
+    kernels = [{
         "name": "nca_step",
         "route": "cuda",
         "source": "vsnca_tpu_torch/csrc/nca_step.cu",
@@ -2960,6 +3093,7 @@ def main() -> int:
         "library_ms": None,
         "f32_bound_ms": timing["f32"]["bound_ms_per_step"],
         "tc_bound_ms": timing["f32"]["tc_bound_ms"],
+        "tc_bound_by": timing["f32"]["tc_bound_by"],
     }, {
         "name": "nca_step_chain",
         "route": "cuda",
@@ -2988,7 +3122,8 @@ def main() -> int:
         "bound_ms": b,
         "bound_by": by,
         "library_ms": None,
-        **({"tc_bound_ms": tc_times[(name, "128^2 b4 float32")][2]}
+        **({"tc_bound_ms": tc_times[(name, "128^2 b4 float32")][2],
+            "tc_bound_by": tc_times[(name, "128^2 b4 float32")][4]}
            if name == "nca_bwd_mlp" else {}),
         **({"device_ms": adj_times[name][1], "blocks": adj_times[name][3],
             "blocks_per_sm": adj_times[name][4]} if name in adj_times else {}),
@@ -3004,14 +3139,16 @@ def main() -> int:
         "bound_ms": cnca_times[(name, 8)][2],
         "bound_by": cnca_times[(name, 8)][3],
         "library_ms": conv_t_ms[0] if name == "cnca_bwd_adjoint" else None,
-        **({"tc_bound_ms": tc_times[(name, "64^2 b8 float32")][2]}
+        **({"tc_bound_ms": tc_times[(name, "64^2 b8 float32")][2],
+            "tc_bound_by": tc_times[(name, "64^2 b8 float32")][4]}
            if name == "cnca_bwd_mlp" else {}),
         **({"device_ms": adj_times[name][1], "blocks": adj_times[name][3],
             "blocks_per_sm": adj_times[name][4], "library_device_ms": conv_t_ms[1]}
            if name == "cnca_bwd_adjoint" else {}),
         **({"device_ms": redesigned[(name, "64^2 b8 float32")][1],
             "blocks_per_sm": redesigned[(name, "64^2 b8 float32")][3]}
-           if name == "cnca_update" else {}),
+           if name in ("cnca_update", "cnca_gate") else {}),
+        **({"blocks": fc.gate_geometry(8, 20, 64, 64)[0]} if name == "cnca_gate" else {}),
     } for name in fc.KERNEL_LAUNCHES] + [{
         "name": name,
         "route": "cuda",
@@ -3024,7 +3161,8 @@ def main() -> int:
         "bound_ms": ms_times[name][2],
         "bound_by": ms_times[name][3],
         "library_ms": None,
-        **({"tc_bound_ms": tc_times[(name, "256^2 b3 float32")][2]}
+        **({"tc_bound_ms": tc_times[(name, "256^2 b3 float32")][2],
+            "tc_bound_by": tc_times[(name, "256^2 b3 float32")][4]}
            if name == "nca_bwd_mlp_ms" else {}),
         **({"device_ms": redesigned[(name, "256^2 b3 float32")][1],
             "blocks_per_sm": redesigned[(name, "256^2 b3 float32")][3]}
@@ -3052,6 +3190,7 @@ def main() -> int:
         "library_ms": None,
         "f32_bound_ms": ms_bound_ms("nca_step_ms", 16, 2, 128, VM_SIZE * VM_SIZE)[0],
         "tc_bound_ms": tc_times[("nca_step_ms", "256^2 b1 bfloat16")][2],
+        "tc_bound_by": tc_times[("nca_step_ms", "256^2 b1 bfloat16")][4],
     }] + [{
         "name": name,
         "route": "cuda",
@@ -3064,12 +3203,28 @@ def main() -> int:
         "bound_ms": form_times[name][2],
         "bound_by": form_times[name][3],
         "library_ms": None,
+        **({"f32_bound_ms": mat_bounds[name][0], "tc_bound_ms": mat_bounds[name][1],
+            "tc_bound_by": form_times[name][3],
+            "device_ms": redesigned[(name, f"256^2 b1 edges {FORM_CDT[name]}")][1],
+            "blocks_per_sm": redesigned[(name, f"256^2 b1 edges {FORM_CDT[name]}")][3]}
+           if name in mat_bounds else {}),
     } for name, rows in (
         ("nca_step_mat", "vsnca_tpu/ops/pallas_step.py:731 (fused_rollout_chw algo 'mat', "
          "_make_kernel_roll(mat_stencil=True) :175 with stencil_folded_w1 :148)"),
+        ("nca_step_mat_chain", "vsnca_tpu/ops/pallas_step.py:731 (fused_rollout_chw algo "
+         "'mat' under bf16 compute, _make_kernel_roll(mat_stencil=True) :175 with "
+         "stencil_folded_w1 :148)"),
         ("nca_step_bf16_state", "vsnca_tpu/ops/pallas_step.py:731 (fused_rollout_chw algo "
          "'padded' and state_dtype 'bfloat16', _make_kernel :498)"),
-    )]}))
+    )]
+    for entry in kernels:
+        # the kernels whose products run on the tensor cores, and nca_step_mat
+        # in either form, are held to the bound at the tensor cores' peak; the
+        # float32 CUDA-core bound stays beside it
+        if "tc_bound_by" in entry:
+            entry.setdefault("f32_bound_ms", entry["bound_ms"])
+            entry["bound_ms"], entry["bound_by"] = entry["tc_bound_ms"], entry.pop("tc_bound_by")
+    print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",
         "kind": torch.cuda.get_device_name(0),

@@ -489,9 +489,12 @@ def _rollout_case(cuda, pad_mode, conditioning, c_in=12, fc_dim=96, shape=(2, 19
 @pytest.mark.parametrize("pad_mode", ["circular", "replicate", "zeros"])
 def test_mat_kernel_matches_plain(cuda, pad_mode, conditioning, compute_dtype):
     cfg, params, x, cond = _rollout_case(cuda, pad_mode, conditioning)
-    before = fs.KERNEL_LAUNCHES["nca_step_mat"]
+    # the tensor-core form under float32 compute, the chain form under bf16
+    # (fused_step.chain_form)
+    name = "nca_step_mat_chain" if compute_dtype == "bfloat16" else "nca_step_mat"
+    before = fs.KERNEL_LAUNCHES[name]
     got = fs.fused_rollout_chw(params, x, 3, cfg, 5, cond, 0.5, compute_dtype, algo="mat")
-    assert fs.KERNEL_LAUNCHES["nca_step_mat"] == before + 5
+    assert fs.KERNEL_LAUNCHES[name] == before + 5
     want = fs.fused_rollout_chw_reference(params, x, 3, cfg, 5, cond, 0.5, compute_dtype,
                                           algo="mat")
     torch.testing.assert_close(got, want, **TOL[compute_dtype])
@@ -997,3 +1000,101 @@ def test_cnca_adjoint_kernel_grids_and_widths(cuda, hidden):
             for a, r, s in zip(got, want, again):
                 _close(a, r, 1e-6)
                 assert torch.equal(a, s)
+
+
+# ------------------------------- the redesigned nca_step_mat and cnca_gate
+
+# the folded-stencil step's grids: 8^2 (the halo wraps), 18^2 and 34 x 66
+# (rows not a multiple of 4 floats), 40 x 72 (ragged against 16 x 16 tiles)
+MAT_GRIDS = [(2, 8, 8), (2, 18, 18), (2, 34, 66), (2, 40, 72)]
+
+
+@pytest.mark.parametrize("conditioning", [None, "edges"])
+@pytest.mark.parametrize("c_in", [5, 12])
+@pytest.mark.parametrize("pad_mode", ["circular", "replicate", "zeros"])
+def test_mat_forms_at_the_staging_grids(cuda, pad_mode, c_in, conditioning):
+    """nca_step_mat, one step at rate 0.5 on MAT_GRIDS: the tensor-core form
+    (float32 compute, and bf16 compute by ``tc``) within TOL of the plain
+    step; the chain form (bf16 compute) the plain step's bits over 2^16
+    pixels (``kernel_diff.plain_over_rows``: the same function with the
+    matrix products of a 256^2 step, where the plain version's bits are the
+    chain's; at a few hundred pixels its products may round otherwise) and
+    within TOL of the plain step at the grid; two launches of each give the
+    same bits."""
+    from vsnca_tpu_torch.ops.kernel_diff import plain_over_rows
+
+    for b, h, w in MAT_GRIDS:
+        cfg, params, x, cond = _rollout_case(cuda, pad_mode, conditioning, c_in, 96, (b, h, w))
+        cc = cond.shape[1] if cond is not None else 0
+        for cdt in ("float32", "bfloat16"):
+            packed = fs.pack_weights(params, c_in, cc, cdt, True)
+            want = fs.reference_step(x, cond, packed, pad_mode, cdt, 3, 4, 0.5, mat=True)
+            for chain in ((False,) if cdt == "float32" else (False, True)):
+                outs = [torch.empty_like(x) for _ in range(2)]
+                for o in outs:
+                    fs.launch_step(x, o, cond, packed, pad_mode, cdt, 3, 4,
+                                   fs.uniform_threshold(0.5), mat=True, chain=chain)
+                assert torch.equal(outs[0], outs[1])
+                torch.testing.assert_close(outs[0], want, **TOL[cdt])
+                if chain:
+                    assert torch.equal(outs[0], plain_over_rows(
+                        fs, x, cond, packed, pad_mode, cdt, 3, 4, 0.5))
+
+
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_mat_forms_fit_two_blocks_an_sm(cuda, compute_dtype):
+    """At the served widths (c12/fc96/edges) nca_step_mat, in the form its
+    compute type takes (fused_step.chain_form), keeps at least two blocks an
+    SM."""
+    blocks, smem = fs.step_occupancy(12, 3, 96, compute_dtype, False, "mat")
+    assert blocks >= 2, (blocks, smem)
+
+
+def _gate_inputs(cuda, shape, hidden, use_life, seed):
+    """A ConditionedNCA config and x, xn whose alpha planes hold values on the
+    threshold and one ulp either side of it (and xn past the clamp)."""
+    from vsnca_tpu_torch.config import ConditionedNCAConfig
+
+    b, h, w = shape
+    cfg = ConditionedNCAConfig(image_size=w, num_hidden_channels=hidden,
+                               use_living_channel=use_life)
+    c, a = cfg.num_channels, cfg.alive_channel
+    thr = np.float32(cfg.alpha_living_threshold)
+    near = np.array([np.nextafter(thr, np.float32(-1)), thr, np.nextafter(thr, np.float32(1)),
+                     np.float32(0.7)], np.float32)
+    rng = np.random.RandomState(seed)
+    x = rng.randn(b, c, h, w).astype(np.float32)
+    xn = (12 * rng.randn(b, c, h, w)).astype(np.float32)
+    for arr in (x, xn):
+        arr[:, a] = np.where(rng.rand(b, h, w) < 0.7, np.float32(-0.2),
+                             near[rng.randint(0, len(near), (b, h, w))])
+    return cfg, torch.from_numpy(x).to(cuda), torch.from_numpy(xn).to(cuda)
+
+
+@pytest.mark.parametrize("use_life", [True, False])
+@pytest.mark.parametrize("hidden", [3, 16])
+def test_cnca_gate_is_the_plain_gate_bit_for_bit(cuda, hidden, use_life):
+    """cnca_gate at C 7 and 20 on CA_GRIDS and 64^2 b1, alpha on and one ulp
+    around the threshold: out and life are the plain version's bits; without
+    the living channel life is not written; once more on x, xn and out that
+    are not 16-byte aligned (the 4-byte path)."""
+    from vsnca_tpu_torch.ops import fused_cnca as fc
+
+    for shape in CA_GRIDS + [(1, 64, 64)]:
+        cfg, x, xn = _gate_inputs(cuda, shape, hidden, use_life, sum(shape) + hidden)
+        out = torch.empty_like(x)
+        life = torch.full((shape[0], *shape[1:]), 7, dtype=torch.uint8, device=cuda)
+        fc.launch_gate(x, xn, out, life, cfg)
+        want, want_life = fc.cnca_gate_reference(x, xn, cfg)
+        assert torch.equal(out, want)
+        if use_life:
+            assert torch.equal(life, want_life)
+        else:
+            assert bool((life == 7).all())
+    b, c, h, w = x.shape
+    xs = torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape).copy_(x)
+    ns = torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape).copy_(xn)
+    out = torch.empty(x.numel() + 1, device=cuda)[1:].view(x.shape)
+    assert xs.data_ptr() % 16 != 0
+    fc.launch_gate(xs, ns, out, None, cfg)
+    assert torch.equal(out, fc.cnca_gate_reference(x, xn, cfg)[0])

@@ -394,39 +394,106 @@ cnca_update_kernel(const float* __restrict__ x, const float* __restrict__ goal,
   // phase: dx and the store
 }
 
-// One thread a pixel: pre from x, post from xn, out = clamp(xn * life).
-__global__ void __launch_bounds__(256)
+// cnca_gate: channels a block (20 channels: 5 groups, 320 blocks at 64^2
+// b8)
+#define CG_CG 4
+
+// The 3 x 6 window of an alpha plane a [H, W] under a thread's 4 pixels (row
+// py, columns px .. px + 3): rows py - 1 .. py + 1, columns px - 1 .. px + 4,
+// -inf outside the grid (it takes no part in a max); the middle 4 of a row
+// as one float4 where vec (W % 4 == 0, a 16-byte aligned) and all 4 lie in
+// the grid.
+__device__ __forceinline__ void alpha_window(float w[3][6], const float* __restrict__ a,
+                                             int py, int px, int H, int W, bool vec) {
+#pragma unroll
+  for (int rr = 0; rr < 3; ++rr) {
+    const int y = py - 1 + rr;
+    const bool in = y >= 0 && y < H;
+    const float* row = a + (size_t)(in ? y : 0) * W;
+    w[rr][0] = in && px >= 1 ? row[px - 1] : -INFINITY;
+    if (in && vec && px + 4 <= W) {
+      const float4 v = *reinterpret_cast<const float4*>(row + px);
+      w[rr][1] = v.x;
+      w[rr][2] = v.y;
+      w[rr][3] = v.z;
+      w[rr][4] = v.w;
+    } else {
+#pragma unroll
+      for (int q = 0; q < 4; ++q) w[rr][1 + q] = in && px + q < W ? row[px + q] : -INFINITY;
+    }
+    w[rr][5] = in && px + 4 < W ? row[px + 4] : -INFINITY;
+  }
+}
+
+// out = clamp(xn * life), life = pre & post, pre = maxpool3x3(x alpha) >
+// thr and post = maxpool3x3(xn alpha) > thr. A block is a 32 x 16 tile
+// (nca_common.cuh's SA_ geometry) of CG_CG channels of one batch item, a
+// thread 4 pixels of a row. A thread issues all of its loads before it uses
+// any: its channels of xn (a float4 a channel where vec: W % 4 == 0 and x,
+// xn, out 16-byte aligned) and, with the living channel, its 3 x 6 windows
+// of the alpha planes of x and xn (alpha_window; the neighbours' rows come
+// from L1): one round trip to L2, no shared memory, no barrier. pre and
+// post are an fmaxf over the in-bounds neighbours (the
+// -inf outside takes no part: the reference's zero fill under thr > 0,
+// pallas_cnca.py:23); the group of channel 0 writes life. out is
+// __fmul_rn(xn, life), then fmaxf / fminf against the clamp. Bound by its
+// bytes (xn and the alpha of x in, out and life out: 5.4 MB at 64^2 b8
+// C 20, 1.6 us).
+__global__ void __launch_bounds__(SA_THREADS)
 cnca_gate_kernel(const float* __restrict__ x, const float* __restrict__ xn,
                  float* __restrict__ out, unsigned char* __restrict__ life, int C, int H,
-                 int W, int alive, float athr, int use_life, float clampv, int total) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= total) return;
+                 int W, int alive, float athr, int use_life, float clampv, int vec) {
+  const int tid = threadIdx.x;
+  const int ng = (C + CG_CG - 1) / CG_CG;
+  const int b = blockIdx.z / ng, c0 = (blockIdx.z - b * ng) * CG_CG;
   const int HW = H * W;
-  const int b = i / HW, q = i % HW;
-  const int y = q / W, xq = q % W;
-  float lf = 1.f;
+  // the thread's 4 pixels: tile row r, columns 4j .. 4j + 3
+  const int j = tid % (SA_TW / 4), r = tid / (SA_TW / 4);
+  const int py = blockIdx.y * SA_TH + r, px = blockIdx.x * SA_TW + 4 * j;
+  const int n = py < H ? max(0, min(4, W - px)) : 0;
+  if (n == 0) return;
+  const size_t pix = (size_t)py * W + px;
+  float v[CG_CG][4];
+#pragma unroll
+  for (int e = 0; e < CG_CG; ++e)
+    load_px4(v[e], xn + ((size_t)b * C + c0 + e) * HW + pix, c0 + e < C ? n : 0, vec);
+  float lf[4] = {1.f, 1.f, 1.f, 1.f};
   if (use_life) {
-    const float* xa = x + ((size_t)b * C + alive) * HW;
-    const float* na = xn + ((size_t)b * C + alive) * HW;
-    float m1 = -INFINITY, m2 = -INFINITY;
-    for (int dy = -1; dy <= 1; ++dy) {
-      const int yy = y + dy;
-      if (yy < 0 || yy >= H) continue;
-      for (int dq = -1; dq <= 1; ++dq) {
-        const int xx = xq + dq;
-        if (xx < 0 || xx >= W) continue;
-        m1 = fmaxf(m1, xa[yy * W + xx]);
-        m2 = fmaxf(m2, na[yy * W + xx]);
+    float aw[3][6], nw[3][6];
+    alpha_window(aw, x + ((size_t)b * C + alive) * HW, py, px, H, W, vec);
+    alpha_window(nw, xn + ((size_t)b * C + alive) * HW, py, px, H, W, vec);
+    // phase: the loads' issue
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      float m1 = -INFINITY, m2 = -INFINITY;
+#pragma unroll
+      for (int dy = 0; dy < 3; ++dy) {
+#pragma unroll
+        for (int dq = 0; dq < 3; ++dq) {
+          m1 = fmaxf(m1, aw[dy][q + dq]);
+          m2 = fmaxf(m2, nw[dy][q + dq]);
+        }
       }
+      const bool l = m1 > athr && m2 > athr;
+      lf[q] = l ? 1.f : 0.f;
+      if (c0 == 0 && life != nullptr && q < n) life[(size_t)b * HW + pix + q] = l ? 1 : 0;
     }
-    const bool l = m1 > athr && m2 > athr;
-    lf = l ? 1.f : 0.f;
-    if (life != nullptr) life[i] = l ? 1 : 0;
+    // phase: the life mask (its wait for the loads included)
   }
-  for (int c = 0; c < C; ++c) {
-    const size_t o = ((size_t)b * C + c) * HW + q;
-    out[o] = fminf(fmaxf(__fmul_rn(xn[o], lf), -clampv), clampv);
+#pragma unroll
+  for (int e = 0; e < CG_CG; ++e) {
+    if (c0 + e < C) {
+#pragma unroll
+      for (int q = 0; q < 4; ++q)
+        v[e][q] = fminf(fmaxf(__fmul_rn(v[e][q], lf[q]), -clampv), clampv);
+      store_px4(out + ((size_t)b * C + c0 + e) * HW + pix, v[e], n, vec);
+    }
   }
+  // phase: the gate and the store
+}
+
+static dim3 cnca_gate_grid(int B, int C, int H, int W) {
+  return dim3((W + SA_TW - 1) / SA_TW, (H + SA_TH - 1) / SA_TH, B * ((C + CG_CG - 1) / CG_CG));
 }
 
 // Shared memory of cnca_bwd_mlp, float32, in this order:
@@ -988,10 +1055,24 @@ int cnca_update_occupancy(int C, int D4, int bf16, int* blocks, int* smem_bytes)
 int cnca_gate_launch(const float* x, const float* xn, float* out, unsigned char* life,
                      int B, int C, int H, int W, int alive, float athr, int use_life,
                      float clampv, void* stream) {
-  if (C < 1 || C > CNCA_C_MAX || alive < 0 || alive >= C) return (int)cudaErrorInvalidValue;
-  const int total = B * H * W;
-  cnca_gate_kernel<<<(total + 255) / 256, 256, 0, static_cast<cudaStream_t>(stream)>>>(
-      x, xn, out, life, C, H, W, alive, athr, use_life, clampv, total);
+  const dim3 grid = cnca_gate_grid(B, C, H, W);
+  if (C < 1 || C > CNCA_C_MAX || alive < 0 || alive >= C || grid.z > 65535)
+    return (int)cudaErrorInvalidValue;
+  const auto a16 = [](const void* p) { return reinterpret_cast<uintptr_t>(p) % 16 == 0; };
+  const int vec = W % 4 == 0 && a16(x) && a16(xn) && a16(out);
+  cnca_gate_kernel<<<grid, SA_THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      x, xn, out, life, C, H, W, alive, athr, use_life, clampv, vec);
+  return (int)cudaGetLastError();
+}
+
+// cnca_gate's launch at [B, C, H, W]: its blocks in *n_blocks, blocks an SM
+// (cudaOccupancy...) in *blocks, its shared memory (none) in *smem_bytes.
+int cnca_gate_geometry(int B, int C, int H, int W, int* n_blocks, int* blocks,
+                       int* smem_bytes) {
+  const dim3 grid = cnca_gate_grid(B, C, H, W);
+  *n_blocks = (int)(grid.x * grid.y * grid.z);
+  *smem_bytes = 0;
+  cudaOccupancyMaxActiveBlocksPerMultiprocessor(blocks, cnca_gate_kernel, SA_THREADS, 0);
   return (int)cudaGetLastError();
 }
 

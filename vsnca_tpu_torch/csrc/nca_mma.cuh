@@ -232,9 +232,24 @@ struct Cols {
   __device__ __forceinline__ float at(int k, int m) const { return p[idx(k, m)]; }
 };
 
+// The folded-stencil step's depth rows read in place (nca_step.cu's mat
+// form): entry (k, m) is t[koff[k] + (m / 16) * ld + m % 16], a 16-pixel-wide
+// block's pixel m in a row-major tile whose rows are ld floats apart; koff[k]
+// puts depth row k on its channel's plane and 3x3 tap (or on a conditioning
+// plane's centre). z1_block reads any type with this at().
+struct Taps {
+  const float* t;
+  const int* koff;
+  int ld;
+  __device__ __forceinline__ float at(int k, int m) const {
+    return t[koff[k] + (m >> 4) * ld + (m & 15)];
+  }
+};
+
 // One depth block of z1_mma from row k0: rows past P read as zeros (TAIL).
-template <bool BF16, int MT, int NT, bool TAIL>
-__device__ __forceinline__ void z1_block(float d[MT][NT][4], Cols ps, const float* w1s,
+// A is the accessor of the depth rows (Cols, Taps).
+template <bool BF16, int MT, int NT, bool TAIL, typename A>
+__device__ __forceinline__ void z1_block(float d[MT][NT][4], A ps, const float* w1s,
                                          int ldw, int P, int m0, int u0, int k0, int g,
                                          int t) {
   const int k = k0 + 2 * t;
@@ -273,8 +288,8 @@ __device__ __forceinline__ void z1_block(float d[MT][NT][4], Cols ps, const floa
 // in shared memory, ldw = 4 mod 32 for conflict-free reads (8 mod 32 costs a
 // two-way conflict). Every (pixel, unit) gets the same bits whichever warp,
 // MT or NT computes it.
-template <bool BF16, int MT, int NT>
-__device__ __forceinline__ void z1_mma(float d[MT][NT][4], Cols ps, const float* w1s, int ldw,
+template <bool BF16, int MT, int NT, typename A>
+__device__ __forceinline__ void z1_mma(float d[MT][NT][4], A ps, const float* w1s, int ldw,
                                        int P, int m0, int u0, int g, int t) {
 #pragma unroll
   for (int i = 0; i < MT; ++i) {
@@ -284,8 +299,23 @@ __device__ __forceinline__ void z1_mma(float d[MT][NT][4], Cols ps, const float*
   const int kf = P & ~15;
 #pragma unroll 1
   for (int k0 = 0; k0 < kf; k0 += 16)
-    z1_block<BF16, MT, NT, false>(d, ps, w1s, ldw, P, m0, u0, k0, g, t);
-  if (kf < P) z1_block<BF16, MT, NT, true>(d, ps, w1s, ldw, P, m0, u0, kf, g, t);
+    z1_block<BF16, MT, NT, false, A>(d, ps, w1s, ldw, P, m0, u0, k0, g, t);
+  if (kf < P) z1_block<BF16, MT, NT, true, A>(d, ps, w1s, ldw, P, m0, u0, kf, g, t);
+}
+
+// d = z1 + b1 in place, without the certificate: the folded-stencil step
+// (nca_step.cu's mat form), which no backward recomputes.
+template <int MT, int NT>
+__device__ __forceinline__ void z1_bias(float d[MT][NT][4], const float* b1s, int u0,
+                                        int t) {
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+#pragma unroll
+    for (int j = 0; j < NT; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) d[i][j][e] += b1s[u0 + 8 * j + 2 * t + (e & 1)];
+    }
+  }
 }
 
 // z1 of pixel m and unit u as the FMA chain over the percept rows in

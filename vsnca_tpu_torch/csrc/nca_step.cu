@@ -122,21 +122,33 @@
 // computes them on a bf16 array, the residual add is float32, and the new
 // state is rounded to bf16 on store.
 //
-// nca_step_mat replaces _make_kernel_roll(mat_stencil=True) (pallas_step.py
-// :175, algo "mat"): the stencils are folded into the first layer
-// (stencil_folded_w1 :148), z1 = W_eff^T [the 3x3 taps of every channel, 9C
-// values | cond] + b1, then the same ReLU, second layer, mask and residual.
-// Per pixel that is 2*((9C + cc)*F + F*C) FLOP (c12/fc96/cc3: 23.6 kFLOP,
-// about twice nca_step's), as float32 FMAs on the CUDA cores; the TPU
-// kernel moved the stencil arithmetic onto its matrix unit, and a
-// tensor-core (implicit-GEMM) form of this kernel is where that pays here.
-// It reuses nca_step's C x 18 x 18 halo tile and padding rule and reads the
-// taps from that shared tile (not registers: 9C taps would not fit beside
-// the accumulators). W_eff is up to 148 x 128 floats, 75.8 KB, past the
-// 48 KB default of shared memory: the launch raises the block's dynamic
-// shared-memory limit with cudaFuncSetAttribute. Under bf16 compute it
-// rounds where JAX does: W_eff after the float32 fold (by the wrapper), the
-// raw taps (not a percept) and the hidden activations.
+// nca_step_mat — nca_step_kernel<BF16, false, float, CHAIN, true> —
+// replaces _make_kernel_roll(mat_stencil=True) (pallas_step.py :175, algo
+// "mat"): the stencils are folded into the first layer (stencil_folded_w1
+// :148), z1 = W_eff^T [the 3x3 taps of every channel, 9C values | cond] +
+// b1, then the same ReLU, second layer, mask and residual. Per pixel that is
+// 2*((9C + cc)*F + F*C) FLOP (c12/fc96/cc3: 23.6 kFLOP, about twice
+// nca_step's; 1.548 GFLOP a 256^2 step): 23 us at the float32 CUDA-core
+// rate, while the bytes bound the step at 2.1 us and the products take
+// 1.6 us in bf16 and 9.4 us in split TF32 on the tensor cores. The form
+// follows the compute type (fused_step.py::chain_form says why):
+//   * float32 compute, the tensor-core form, an implicit GEMM: the block
+//     stages nca_step's C x 18 x 18 halo tile (padding rule and cp.async as
+//     nca_step's), the conditioning's tile and W_eff, and z1_mma reads the A
+//     fragments straight from the tiles through a tap view
+//     (nca_mma.cuh::Taps; no column buffer), then the bias, the relu and
+//     the second layer, mask and residual as in the tensor-core nca_step;
+//   * bf16 compute, the chain form (CHAIN, BF16 only): the plain version's
+//     order (z1 over W_eff's rows in order, then the bias; dx over the units
+//     in order), a thread 8 units x 4 pixels, 6 shared-memory reads a row
+//     feeding 32 FMAs. It rounds where JAX does: W_eff after the float32
+//     fold (by the wrapper), the raw taps (not a percept, in place in the
+//     tile) and the hidden activations.
+// nca_step_mat_launch's tc takes the tensor-core form under bf16 compute as
+// well (its drift against the plain version is reported, not served).
+// Shared memory at c12/fc96/cc3: W_eff 44.4 KB + W2, biases 8.1 KB +
+// offsets and tiles 19.9 KB = 72.4 KB, and the chain form's chunk 32.8 KB
+// more; two blocks an SM.
 
 #include "nca_common.cuh"
 #include "nca_mma.cuh"
@@ -148,23 +160,33 @@
 // 228 KB less 1 KB reserved a block) / 2.
 #define NS_SMEM_TWO ((233472 / 2) - 1024)
 
+// The depth rows of a step: the percept [4C + cc], or with mat the folded
+// stencil's taps [9C + cc].
+__host__ __device__ inline int step_rows(int C, int cc, bool mat) {
+  return (mat ? 9 : 4) * C + cc;
+}
+
 // nca_step_kernel's shared memory in floats (see its layout): the chain
 // form adds hs, and keeps W1 out of it when two blocks would not fit with
 // it (chain_w1_staged).
 __host__ __device__ inline size_t step_floats(int C, int cc, int F4, bool ms, bool chain,
-                                              bool w1) {
-  const size_t P = 4 * C + cc, FP = (F4 + NS_FC - 1) / NS_FC * NS_FC;
+                                              bool w1, bool mat = false) {
+  const size_t P = step_rows(C, cc, mat), FP = (F4 + NS_FC - 1) / NS_FC * NS_FC;
   size_t tiles = (size_t)C * NCA_HALO * NCA_HALO;
   if (ms) tiles += (size_t)C * (NCA_HHALO * NCA_HHALO + 4 * NCA_HFOOT * NCA_HFOOT);
   const size_t cols = P * NS_THREADS;  // > tiles: 4C x 256 against <= 868 C
-  return (w1 ? P * (FP + 4) : 0) + FP * NS_LDW2 + 2 * FP + NCA_C_MAX + NS_THREADS +
-         (cols > tiles ? cols : tiles) + (chain ? NS_FC * NS_THREADS : 0);
+  // mat: koff [P] (ints, rounded up to 4) and the tile [C + cc, 18, 18]
+  const size_t rows = mat ? ((P + 3) & ~(size_t)3) + (size_t)(C + cc) * NCA_HALO * NCA_HALO
+                          : (cols > tiles ? cols : tiles);
+  return (w1 ? P * (FP + 4) : 0) + FP * NS_LDW2 + 2 * FP + NCA_C_MAX + NS_THREADS + rows +
+         (chain ? NS_FC * NS_THREADS : 0);
 }
 
 // Whether the chain form stages W1 in shared memory (two blocks an SM
 // still fit) or reads it through L1.
-__host__ __device__ inline bool chain_w1_staged(int C, int cc, int F4, bool ms) {
-  return step_floats(C, cc, F4, ms, true, true) * sizeof(float) <= NS_SMEM_TWO;
+__host__ __device__ inline bool chain_w1_staged(int C, int cc, int F4, bool ms,
+                                                bool mat = false) {
+  return step_floats(C, cc, F4, ms, true, true, mat) * sizeof(float) <= NS_SMEM_TWO;
 }
 
 // One pixel's percept in registers: pc[k][c] is block k (raw, sx, sy, lap)
@@ -237,7 +259,19 @@ __device__ __forceinline__ void pixel_percept(float pc[4][NCA_C_MAX],
 // T is the state's (and the conditioning's) storage type: float, or
 // __nv_bfloat16 for the bf16-state form (MS only with float; CHAIN only
 // with float).
-template <bool BF16, bool MS, typename T = float, bool CHAIN = false>
+//
+// MAT (nca_step_mat, see the file header): W1 is W_eff [9C + cc, F4], and
+// in place of ps the block keeps koff [9C + cc] (ints; rounded up to 4) and
+// tile [C + cc, 18, 18]: the state's halo tile, then the conditioning's
+// 16 x 16 pixels at the centre of each 18 x 18 plane (zeros around them),
+// rounded to bf16 in place under bf16 compute. Depth row k of pixel m is
+// tile[koff[k] + (m / 16) * 18 + m % 16] (nca_mma.cuh::Taps): koff[k] is
+// c * 324 + di * 18 + dj for k = (di * 3 + dj) * C + c, and the centre of
+// conditioning plane j for k = 9C + j. The MLP then runs on those rows where
+// the other forms read percept columns; w1n and pmx go unused (no
+// certificate: no backward recomputes this step). MAT with float only,
+// neither MS nor BSTATE; MAT with CHAIN only with BF16.
+template <bool BF16, bool MS, typename T = float, bool CHAIN = false, bool MAT = false>
 __global__ void __launch_bounds__(NS_THREADS, 2)
 nca_step_kernel(const T* __restrict__ x, T* __restrict__ out,
                 const T* __restrict__ cond, const float* __restrict__ w1,
@@ -246,10 +280,12 @@ nca_step_kernel(const T* __restrict__ x, T* __restrict__ out,
                 int F4, int pad_mode, uint32_t seed, uint32_t step,
                 uint32_t thr) {
   constexpr bool BSTATE = sizeof(T) == 2;
+  static_assert(!MAT || (!MS && !BSTATE), "the folded-stencil form: scales (0,), f32 state");
+  static_assert(!(MAT && CHAIN) || BF16, "the folded-stencil chain form: bf16 compute");
   extern __shared__ __align__(16) float smem[];
-  const int P = 4 * C + cc;
+  const int P = step_rows(C, cc, MAT);
   const int FP = (F4 + NS_FC - 1) / NS_FC * NS_FC, LDW = FP + 4;
-  const bool staged = !CHAIN || chain_w1_staged(C, cc, F4, MS);
+  const bool staged = !CHAIN || chain_w1_staged(C, cc, F4, MS, MAT);
   float* w1s = smem;
   float* w2s = w1s + (staged ? P * LDW : 0);
   float* b1s = w2s + FP * NS_LDW2;
@@ -257,7 +293,8 @@ nca_step_kernel(const T* __restrict__ x, T* __restrict__ out,
   float* b2s = w1n + FP;
   float* pmx = b2s + NCA_C_MAX;
   float* ps = pmx + NS_THREADS;
-  float* tile = ps;
+  int* koff = reinterpret_cast<int*>(ps);
+  float* tile = MAT ? ps + ((P + 3) & ~3) : ps;
   float* htile = tile + C * NCA_HALO * NCA_HALO;
   float* hp = htile + C * NCA_HHALO * NCA_HHALO;
 
@@ -306,49 +343,76 @@ nca_step_kernel(const T* __restrict__ x, T* __restrict__ out,
     if constexpr (MS)  // its loads overlap the tile's copies
       half_percept(htile, hp, xb, C, H, W, blockIdx.y, blockIdx.x, pad_mode, tid,
                    NS_THREADS);
-  }
-  cp_async_wait_all();
-  __syncthreads();  // the weights, the state tile and the half percept
-
-  if constexpr (!CHAIN) z1_norms(w1n, w1s, LDW, P, FP, tid, NS_THREADS);
-  const int px = blockIdx.x * NCA_TILE + tx;
-  const int py = blockIdx.y * NCA_TILE + ty;
-  const bool valid = px < W && py < H;
-  float pc[4][NCA_C_MAX];
-  float pcond[NCA_CC_MAX];
-  if (valid) {
-    pixel_percept<BF16, MS, BSTATE>(pc, pcond, tile, hp,
-                                    cc ? cond + (size_t)b * cc * HW : cond, C, cc, H, W,
-                                    ty, tx, py * W + px);
-  } else {  // zeros: the pixel is computed and never stored
-#pragma unroll
-    for (int c = 0; c < NCA_C_MAX; ++c) pc[0][c] = pc[1][c] = pc[2][c] = pc[3][c] = 0.f;
-#pragma unroll
-    for (int j = 0; j < NCA_CC_MAX; ++j) pcond[j] = 0.f;
-  }
-  __syncthreads();  // every read of the tiles is done: the percept takes their memory
-
-  const Cols cols{ps, NS_THREADS, -1};
-  float pm = 0.f;
-#pragma unroll
-  for (int k = 0; k < 4; ++k) {
-#pragma unroll
-    for (int c = 0; c < NCA_C_MAX; ++c) {
-      if (c < C) {
-        ps[cols.idx(k * C + c, tid)] = pc[k][c];
-        pm = fmaxf(pm, fabsf(pc[k][c]));
+    if constexpr (MAT) {
+      // the conditioning at the centre of its planes, and the tap offsets
+      float* ct = tile + C * NCA_HALO * NCA_HALO;
+      for (int i = tid; i < cc * NCA_HALO * NCA_HALO; i += NS_THREADS) {
+        const int j = i / (NCA_HALO * NCA_HALO);
+        const int r = (i / NCA_HALO) % NCA_HALO, q = i % NCA_HALO;
+        const int gy = blockIdx.y * NCA_TILE + r - 1, gx = blockIdx.x * NCA_TILE + q - 1;
+        if (r >= 1 && r <= NCA_TILE && q >= 1 && q <= NCA_TILE && gy < H && gx < W)
+          cp_async4(ct + i, cond + ((size_t)b * cc + j) * HW + gy * W + gx);
+        else
+          ct[i] = 0.f;
+      }
+      for (int k = tid; k < P; k += NS_THREADS) {
+        const int tap = k / C, c = k - tap * C, j = k - 9 * C;
+        koff[k] = tap < 9 ? c * NCA_HALO * NCA_HALO + (tap / 3) * NCA_HALO + tap % 3
+                          : (C + j) * NCA_HALO * NCA_HALO + NCA_HALO + 1;
       }
     }
   }
-#pragma unroll
-  for (int j = 0; j < NCA_CC_MAX; ++j) {
-    if (j < cc) {
-      ps[cols.idx(4 * C + j, tid)] = pcond[j];
-      pm = fmaxf(pm, fabsf(pcond[j]));
+  cp_async_wait_all();
+  __syncthreads();  // the weights and the tiles (the half percept; MAT: cond, koff)
+
+  const Cols cols{ps, NS_THREADS, -1};
+  const Taps taps{tile, koff, NCA_HALO};
+  if constexpr (MAT) {
+    if constexpr (BF16) {  // JAX rounds the raw taps, not a percept, to the compute type
+      for (int i = tid; i < (C + cc) * NCA_HALO * NCA_HALO; i += NS_THREADS)
+        tile[i] = bf16_round(tile[i]);
+      __syncthreads();  // the rounded taps
     }
+  } else {
+    if constexpr (!CHAIN) z1_norms(w1n, w1s, LDW, P, FP, tid, NS_THREADS);
+    const int px = blockIdx.x * NCA_TILE + tx;
+    const int py = blockIdx.y * NCA_TILE + ty;
+    const bool valid = px < W && py < H;
+    float pc[4][NCA_C_MAX];
+    float pcond[NCA_CC_MAX];
+    if (valid) {
+      pixel_percept<BF16, MS, BSTATE>(pc, pcond, tile, hp,
+                                      cc ? cond + (size_t)b * cc * HW : cond, C, cc, H, W,
+                                      ty, tx, py * W + px);
+    } else {  // zeros: the pixel is computed and never stored
+#pragma unroll
+      for (int c = 0; c < NCA_C_MAX; ++c) pc[0][c] = pc[1][c] = pc[2][c] = pc[3][c] = 0.f;
+#pragma unroll
+      for (int j = 0; j < NCA_CC_MAX; ++j) pcond[j] = 0.f;
+    }
+    __syncthreads();  // every read of the tiles is done: the percept takes their memory
+
+    float pm = 0.f;
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+#pragma unroll
+      for (int c = 0; c < NCA_C_MAX; ++c) {
+        if (c < C) {
+          ps[cols.idx(k * C + c, tid)] = pc[k][c];
+          pm = fmaxf(pm, fabsf(pc[k][c]));
+        }
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < NCA_CC_MAX; ++j) {
+      if (j < cc) {
+        ps[cols.idx(4 * C + j, tid)] = pcond[j];
+        pm = fmaxf(pm, fabsf(pcond[j]));
+      }
+    }
+    pmx[tid] = pm;
+    __syncthreads();  // the percept columns, pmx and w1n
   }
-  pmx[tid] = pm;
-  __syncthreads();  // the percept columns, pmx and w1n
 
   if constexpr (CHAIN) {
     // z1 as the plain version's FMA chain (rows in order, then the bias):
@@ -357,7 +421,13 @@ nca_step_kernel(const T* __restrict__ x, T* __restrict__ out,
     // 8 percept reads feeding 32 FMAs a row; relu(z1) (rounded to bf16 under
     // bf16 compute) to hs. Then dx += W2^T h in unit order, a thread 4
     // adjacent pixels x 4 channels.
-    float* hs = ps + P * NS_THREADS;
+    // MAT: a thread takes 8 units (two float4s of W_eff, the same in every
+    // lane of the warp) for 4 pixels, so 6 shared-memory reads feed 32 FMAs
+    // a row; warps w and w + 4 share their units and split the pixels: lane
+    // l, pixel i of warp half h sits in tile row 4 h + i + 8 (l / 16), column
+    // l % 16, the two half-warps 8 rows (144 floats = 16 banks) apart, so a
+    // tap read is free of bank conflicts.
+    float* hs = MAT ? tile + (C + cc) * NCA_HALO * NCA_HALO : ps + P * NS_THREADS;
     const int warp = tid >> 5, lane = tid & 31;
     const int q = tid & 63, cg = tid >> 6;
     float acc[4][4];
@@ -365,35 +435,86 @@ nca_step_kernel(const T* __restrict__ x, T* __restrict__ out,
     for (int i = 0; i < 4; ++i) acc[i][0] = acc[i][1] = acc[i][2] = acc[i][3] = 0.f;
 #pragma unroll 1
     for (int f0 = 0; f0 < FP; f0 += NS_FC) {
-      const int u0 = f0 + 4 * warp;
-      float a[8][4];
+      if constexpr (MAT) {
+        const int u0 = f0 + 8 * (warp & 3), half = warp >> 2;
+        const int m0 = (4 * half + 8 * (lane >> 4)) * NCA_TILE + (lane & 15);
+        const float* tp = tile + (4 * half + 8 * (lane >> 4)) * NCA_HALO + (lane & 15);
+        float a[4][8];
 #pragma unroll
-      for (int i = 0; i < 8; ++i) a[i][0] = a[i][1] = a[i][2] = a[i][3] = 0.f;
-      // W1's rows from shared memory, or through L1 (the row stride in
-      // float4s; a padded unit's z1 is never read)
-      const float4* w1u = reinterpret_cast<const float4*>(staged ? w1s + u0 : w1 + u0);
-      const int ld4 = (staged ? LDW : F4) / 4;
-      const bool unit = staged || u0 < F4;
-#pragma unroll 2
-      for (int k = 0; k < P; ++k) {
-        const float4 w = unit ? w1u[k * ld4] : make_float4(0.f, 0.f, 0.f, 0.f);
-        const float* pk = ps + cols.idx(k, lane);  // pixel lane + 32 i at pk[32 i]
+        for (int i = 0; i < 4; ++i) {
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float v = pk[32 * i];
-          a[i][0] = fmaf(w.x, v, a[i][0]);
-          a[i][1] = fmaf(w.y, v, a[i][1]);
-          a[i][2] = fmaf(w.z, v, a[i][2]);
-          a[i][3] = fmaf(w.w, v, a[i][3]);
+          for (int j = 0; j < 8; ++j) a[i][j] = 0.f;
         }
-      }
+        // W_eff's two float4s of the thread's units, from shared memory or
+        // through L1 (the row stride in float4s); through L1 a unit past F4
+        // reads a valid one instead (its z1 is never read), so the loop
+        // carries no condition
+        const int ld4 = (staged ? LDW : F4) / 4;
+        const float4* wa4 = reinterpret_cast<const float4*>(
+            staged ? w1s + u0 : w1 + min(u0, F4 - 4));
+        const float4* wb4 = reinterpret_cast<const float4*>(
+            staged ? w1s + u0 + 4 : w1 + min(u0 + 4, F4 - 4));
+        // W_eff's rows in order: the 9 taps of each channel (tap < 9), then
+        // the conditioning planes' centres (tap 9)
+#pragma unroll 1
+        for (int tap = 0, k = 0; tap < 10; ++tap) {
+          const int n = tap < 9 ? C : cc;
+          const float* tt = tap < 9 ? tp + (tap / 3) * NCA_HALO + tap % 3
+                                    : tp + C * NCA_HALO * NCA_HALO + NCA_HALO + 1;
+#pragma unroll 2
+          for (int c = 0; c < n; ++c, ++k) {
+            const float4 wa = wa4[k * ld4], wb = wb4[k * ld4];
+            const float wv[8] = {wa.x, wa.y, wa.z, wa.w, wb.x, wb.y, wb.z, wb.w};
+            const float* pk = tt + c * NCA_HALO * NCA_HALO;
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const float bb = b1s[u0 + j];
+            for (int i = 0; i < 4; ++i) {
+              const float v = pk[i * NCA_HALO];
 #pragma unroll
-        for (int i = 0; i < 8; ++i) {
-          const float h = fmaxf(a[i][j] + bb, 0.f);
-          hs[(4 * warp + j) * NS_THREADS + lane + 32 * i] = BF16 ? bf16_round(h) : h;
+              for (int j = 0; j < 8; ++j) a[i][j] = fmaf(wv[j], v, a[i][j]);
+            }
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const float bb = b1s[u0 + j];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const float h = fmaxf(a[i][j] + bb, 0.f);
+            hs[(8 * (warp & 3) + j) * NS_THREADS + m0 + i * NCA_TILE] =
+                BF16 ? bf16_round(h) : h;
+          }
+        }
+      } else {
+        const int u0 = f0 + 4 * warp;
+        float a[8][4];
+#pragma unroll
+        for (int i = 0; i < 8; ++i) a[i][0] = a[i][1] = a[i][2] = a[i][3] = 0.f;
+        // W1's rows from shared memory, or through L1 (the row stride in
+        // float4s; a padded unit's z1 is never read)
+        const float4* w1u = reinterpret_cast<const float4*>(staged ? w1s + u0 : w1 + u0);
+        const int ld4 = (staged ? LDW : F4) / 4;
+        const bool unit = staged || u0 < F4;
+#pragma unroll 2
+        for (int k = 0; k < P; ++k) {
+          const float4 w = unit ? w1u[k * ld4] : make_float4(0.f, 0.f, 0.f, 0.f);
+          const float* pk = ps + cols.idx(k, lane);  // pixel lane + 32 i at pk[32 i]
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float v = pk[32 * i];
+            a[i][0] = fmaf(w.x, v, a[i][0]);
+            a[i][1] = fmaf(w.y, v, a[i][1]);
+            a[i][2] = fmaf(w.z, v, a[i][2]);
+            a[i][3] = fmaf(w.w, v, a[i][3]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const float bb = b1s[u0 + j];
+#pragma unroll
+          for (int i = 0; i < 8; ++i) {
+            const float h = fmaxf(a[i][j] + bb, 0.f);
+            hs[(4 * warp + j) * NS_THREADS + lane + 32 * i] = BF16 ? bf16_round(h) : h;
+          }
         }
       }
       __syncthreads();  // relu(z1) of the chunk
@@ -446,9 +567,14 @@ nca_step_kernel(const T* __restrict__ x, T* __restrict__ out,
   #pragma unroll 1
     for (int f0 = 0; f0 < FP; f0 += NS_FC) {
       float z[2][NS_FC / 8][4];
-      z1_mma<BF16, 2, NS_FC / 8>(z, cols, w1s, LDW, P, m0, f0, g, t);
-      z1_finish<2, NS_FC / 8>(z, cols, w1s, LDW, b1s, w1n, pmx, pmx, P, m0, f0, g, t);
-      // phase: z1 (z1_mma, z1_finish)
+      if constexpr (MAT) {
+        z1_mma<BF16, 2, NS_FC / 8>(z, taps, w1s, LDW, P, m0, f0, g, t);
+        z1_bias<2, NS_FC / 8>(z, b1s, f0, t);
+      } else {
+        z1_mma<BF16, 2, NS_FC / 8>(z, cols, w1s, LDW, P, m0, f0, g, t);
+        z1_finish<2, NS_FC / 8>(z, cols, w1s, LDW, b1s, w1n, pmx, pmx, P, m0, f0, g, t);
+      }
+      // phase: z1 (z1_mma, then z1_finish; MAT: z1_bias)
   #pragma unroll
       for (int jj = 0; jj < NS_FC / 16; ++jj) {
         FragA<BF16> fa[2];
@@ -510,154 +636,14 @@ nca_step_kernel(const T* __restrict__ x, T* __restrict__ out,
   }
 }
 
-// nca_step_mat: the folded-stencil step (see the header). Shared memory, all
-// float32, in this order: w1s [9C + cc, F4] (W_eff, rows (di*3 + dj)*C + c,
-// then the conditioning rows), w2s [F4, C_MAX], b1s [F4], b2s [C_MAX],
-// tile [C, 18, 18]. In bf16 mode the tile is rounded to bf16 in place after
-// each thread has kept its own pixel's float32 state for the residual.
-template <bool BF16>
-__global__ void __launch_bounds__(NCA_TILE * NCA_TILE)
-nca_step_mat_kernel(const float* __restrict__ x, float* __restrict__ out,
-                    const float* __restrict__ cond,
-                    const float* __restrict__ w1,
-                    const float* __restrict__ b1,
-                    const float* __restrict__ w2,
-                    const float* __restrict__ b2, int C, int H, int W, int cc,
-                    int F4, int pad_mode, uint32_t seed, uint32_t step,
-                    uint32_t thr) {
-  extern __shared__ __align__(16) float smem[];
-  const int P = 9 * C + cc;
-  float* w1s = smem;
-  float* w2s = w1s + P * F4;
-  float* b1s = w2s + F4 * NCA_C_MAX;
-  float* b2s = b1s + F4;
-  float* tile = b2s + NCA_C_MAX;
-
-  const int tid = threadIdx.y * NCA_TILE + threadIdx.x;
-  const int nthr = NCA_TILE * NCA_TILE;
-  const int b = blockIdx.z;
-  const int HW = H * W;
-  const int nt = C * NCA_HALO * NCA_HALO;
-
-  for (int i = tid; i < P * F4; i += nthr) w1s[i] = w1[i];
-  for (int i = tid; i < F4 * NCA_C_MAX; i += nthr) {
-    const int f = i / NCA_C_MAX, c = i % NCA_C_MAX;
-    w2s[i] = c < C ? w2[f * C + c] : 0.f;
-  }
-  for (int i = tid; i < F4; i += nthr) b1s[i] = b1[i];
-  for (int i = tid; i < NCA_C_MAX; i += nthr) b2s[i] = i < C ? b2[i] : 0.f;
-  stage_tile(tile, x + (size_t)b * C * HW, C, H, W, blockIdx.y * NCA_TILE - 1,
-             blockIdx.x * NCA_TILE - 1, pad_mode, tid, nthr);
-  __syncthreads();
-
-  const int px = blockIdx.x * NCA_TILE + threadIdx.x;
-  const int py = blockIdx.y * NCA_TILE + threadIdx.y;
-  const bool inside = px < W && py < H;
-  const int centre = (threadIdx.y + 1) * NCA_HALO + threadIdx.x + 1;
-  float xc[NCA_C_MAX];
-#pragma unroll
-  for (int c = 0; c < NCA_C_MAX; ++c)
-    xc[c] = c < C ? tile[c * NCA_HALO * NCA_HALO + centre] : 0.f;
-  if (BF16) {  // JAX rounds the raw taps, not a percept, to the compute type
-    __syncthreads();
-    for (int i = tid; i < nt; i += nthr) tile[i] = bf16_round(tile[i]);
-    __syncthreads();
-  }
-  if (!inside) return;
-  const int pix = py * W + px;
-  float pcond[NCA_CC_MAX];
-#pragma unroll
-  for (int j = 0; j < NCA_CC_MAX; ++j) {
-    const float v = j < cc ? cond[((size_t)b * cc + j) * HW + pix] : 0.f;
-    pcond[j] = BF16 ? bf16_round(v) : v;
-  }
-
-  float dx[NCA_C_MAX];
-#pragma unroll
-  for (int c = 0; c < NCA_C_MAX; ++c) dx[c] = 0.f;
-
-  const float* tpix = tile + threadIdx.y * NCA_HALO + threadIdx.x;
-  for (int f = 0; f < F4; f += 4) {
-    float4 a = make_float4(0.f, 0.f, 0.f, 0.f);
-#pragma unroll
-    for (int t = 0; t < 9; ++t) {
-      const float* tp = tpix + (t / 3) * NCA_HALO + (t % 3);
-#pragma unroll
-      for (int c = 0; c < NCA_C_MAX; ++c) {
-        if (c < C) {
-          const float4 w =
-              *reinterpret_cast<const float4*>(w1s + (t * C + c) * F4 + f);
-          const float v = tp[c * NCA_HALO * NCA_HALO];
-          a.x = fmaf(w.x, v, a.x);
-          a.y = fmaf(w.y, v, a.y);
-          a.z = fmaf(w.z, v, a.z);
-          a.w = fmaf(w.w, v, a.w);
-        }
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < NCA_CC_MAX; ++j) {
-      if (j < cc) {
-        const float4 w =
-            *reinterpret_cast<const float4*>(w1s + (9 * C + j) * F4 + f);
-        const float v = pcond[j];
-        a.x = fmaf(w.x, v, a.x);
-        a.y = fmaf(w.y, v, a.y);
-        a.z = fmaf(w.z, v, a.z);
-        a.w = fmaf(w.w, v, a.w);
-      }
-    }
-    const float4 bb = *reinterpret_cast<const float4*>(b1s + f);
-    float hv[4] = {fmaxf(a.x + bb.x, 0.f), fmaxf(a.y + bb.y, 0.f),
-                   fmaxf(a.z + bb.z, 0.f), fmaxf(a.w + bb.w, 0.f)};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      const float h = BF16 ? bf16_round(hv[i]) : hv[i];
-      const float* w2r = w2s + (f + i) * NCA_C_MAX;
-#pragma unroll
-      for (int g = 0; g < NCA_C_MAX / 4; ++g) {
-        if (4 * g < C) {
-          const float4 w = *reinterpret_cast<const float4*>(w2r + 4 * g);
-          dx[4 * g + 0] = fmaf(w.x, h, dx[4 * g + 0]);
-          dx[4 * g + 1] = fmaf(w.y, h, dx[4 * g + 1]);
-          dx[4 * g + 2] = fmaf(w.z, h, dx[4 * g + 2]);
-          dx[4 * g + 3] = fmaf(w.w, h, dx[4 * g + 3]);
-        }
-      }
-    }
-  }
-
-  const bool on = (mask_bits(seed, (uint32_t)b, step, (uint32_t)pix) >> 8) >= thr;
-  float* ob = out + (size_t)b * C * HW + pix;
-#pragma unroll
-  for (int c = 0; c < NCA_C_MAX; ++c) {
-    if (c < C) ob[(size_t)c * HW] = on ? xc[c] + (dx[c] + b2s[c]) : xc[c];
-  }
-}
-
-template <bool BF16, bool MS, typename T = float, bool CHAIN = false>
+template <bool BF16, bool MS, typename T = float, bool CHAIN = false, bool MAT = false>
 static void launch(dim3 grid, size_t smem, cudaStream_t s, const T* x, T* out,
                    const T* cond, const float* w1, const float* b1, const float* w2,
                    const float* b2, int C, int H, int W, int cc, int F4, int pad_mode,
                    unsigned int seed, unsigned int step, unsigned int thr) {
-  cudaFuncSetAttribute(nca_step_kernel<BF16, MS, T, CHAIN>,
+  cudaFuncSetAttribute(nca_step_kernel<BF16, MS, T, CHAIN, MAT>,
                        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  nca_step_kernel<BF16, MS, T, CHAIN><<<grid, NS_THREADS, smem, s>>>(
-      x, out, cond, w1, b1, w2, b2, C, H, W, cc, F4, pad_mode, seed, step, thr);
-}
-
-template <bool BF16>
-static void launch_mat(dim3 grid, dim3 block, size_t smem, cudaStream_t s,
-                       const float* x, float* out, const float* cond,
-                       const float* w1, const float* b1, const float* w2,
-                       const float* b2, int C, int H, int W, int cc, int F4,
-                       int pad_mode, unsigned int seed, unsigned int step,
-                       unsigned int thr) {
-  // W_eff alone is up to 148 x 128 floats (75.8 KB): past the 48 KB default,
-  // so the dynamic shared memory limit is raised for every launch
-  cudaFuncSetAttribute(nca_step_mat_kernel<BF16>,
-                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  nca_step_mat_kernel<BF16><<<grid, block, smem, s>>>(
+  nca_step_kernel<BF16, MS, T, CHAIN, MAT><<<grid, NS_THREADS, smem, s>>>(
       x, out, cond, w1, b1, w2, b2, C, H, W, cc, F4, pad_mode, seed, step, thr);
 }
 
@@ -666,15 +652,9 @@ static bool bad_sizes(int C, int cc, int F4, int pad_mode) {
          F4 > NCA_F_MAX || F4 % 4 != 0 || pad_mode < 0 || pad_mode > 2;
 }
 
-// nca_step_mat's shared memory (P = 9C + cc)
-static size_t mat_smem(int P, int C, int F4) {
-  return sizeof(float) * ((size_t)P * F4 + (size_t)F4 * NCA_C_MAX + F4 + NCA_C_MAX +
-                          (size_t)C * NCA_HALO * NCA_HALO);
-}
-
-static size_t step_smem(int C, int cc, int F4, bool ms, bool chain) {
-  return sizeof(float) *
-         step_floats(C, cc, F4, ms, chain, !chain || chain_w1_staged(C, cc, F4, ms));
+static size_t step_smem(int C, int cc, int F4, bool ms, bool chain, bool mat = false) {
+  return sizeof(float) * step_floats(C, cc, F4, ms, chain,
+                                     !chain || chain_w1_staged(C, cc, F4, ms, mat), mat);
 }
 
 static dim3 step_grid(int B, int H, int W) {
@@ -774,38 +754,50 @@ int nca_step_bf16_state_launch(const void* x, void* out, const void* cond,
   return (int)cudaGetLastError();
 }
 
-// The folded-stencil step (nca_step_mat), perception_scales (0,): w1 is
-// W_eff [9C + cc, F4] (stencil_folded_w1, padded to F4), everything else as
-// nca_step_launch.
+// The folded-stencil step (nca_step_mat), perception_scales (0,), float32
+// state: w1 is W_eff [9C + cc, F4] (stencil_folded_w1, padded to F4;
+// 16-byte aligned), everything else as nca_step_launch. The form follows
+// the compute type: the tensor-core form under float32 compute, the chain
+// form under bf16 compute; tc takes the tensor-core form under bf16
+// compute too.
 int nca_step_mat_launch(const float* x, float* out, const float* cond,
                         const float* w1, const float* b1, const float* w2,
                         const float* b2, int B, int C, int H, int W, int cc,
-                        int F4, int pad_mode, int bf16, unsigned int seed,
+                        int F4, int pad_mode, int bf16, int tc, unsigned int seed,
                         unsigned int step, unsigned int thr, void* stream) {
-  if (bad_sizes(C, cc, F4, pad_mode)) return (int)cudaErrorInvalidValue;
-  const size_t smem = mat_smem(9 * C + cc, C, F4);
+  if (bad_sizes(C, cc, F4, pad_mode) || reinterpret_cast<uintptr_t>(w1) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const bool chain = bf16 && !tc;
+  const size_t smem = step_smem(C, cc, F4, false, chain, true);
   const dim3 grid = step_grid(B, H, W);
-  const dim3 block(NCA_TILE, NCA_TILE);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (bf16)
-    launch_mat<true>(grid, block, smem, s, x, out, cond, w1, b1, w2, b2, C, H,
-                     W, cc, F4, pad_mode, seed, step, thr);
+  if (chain)
+    launch<true, false, float, true, true>(grid, smem, s, x, out, cond, w1, b1, w2, b2, C,
+                                           H, W, cc, F4, pad_mode, seed, step, thr);
+  else if (bf16)
+    launch<true, false, float, false, true>(grid, smem, s, x, out, cond, w1, b1, w2, b2, C,
+                                            H, W, cc, F4, pad_mode, seed, step, thr);
   else
-    launch_mat<false>(grid, block, smem, s, x, out, cond, w1, b1, w2, b2, C, H,
-                      W, cc, F4, pad_mode, seed, step, thr);
+    launch<false, false, float, false, true>(grid, smem, s, x, out, cond, w1, b1, w2, b2,
+                                             C, H, W, cc, F4, pad_mode, seed, step, thr);
   return (int)cudaGetLastError();
 }
 
 // Blocks an SM of a step form at these widths (cudaOccupancy...), with its
 // dynamic shared memory in *smem_bytes: form 0 the tensor-core nca_step, 1
-// its bf16-state form, 2 the chain form (ms, bf16 as nca_step_launch).
+// its bf16-state form, 2 the chain form (ms, bf16 as nca_step_launch), 3
+// nca_step_mat in the form its compute type takes (ms ignored).
 int nca_step_occupancy(int C, int cc, int F4, int bf16, int ms, int form,
                        int* blocks, int* smem_bytes) {
   if (bad_sizes(C, cc, F4, 0)) return (int)cudaErrorInvalidValue;
-  const size_t smem = step_smem(C, cc, F4, ms, form == 2);
+  const bool mat = form == 3;
+  const size_t smem = step_smem(C, cc, F4, ms && !mat, form == 2 || (mat && bf16), mat);
   *smem_bytes = (int)smem;
   using bf = __nv_bfloat16;
-  if (form == 1)
+  if (mat)
+    *blocks = bf16 ? blocks_per_sm(nca_step_kernel<true, false, float, true, true>, smem)
+                   : blocks_per_sm(nca_step_kernel<false, false, float, false, true>, smem);
+  else if (form == 1)
     *blocks = bf16 ? blocks_per_sm(nca_step_kernel<true, false, bf>, smem)
                    : blocks_per_sm(nca_step_kernel<false, false, bf>, smem);
   else if (form == 2)

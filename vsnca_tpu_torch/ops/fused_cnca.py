@@ -562,8 +562,9 @@ def _lib() -> ctypes.CDLL:
         lib.cnca_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 2
         lib.cnca_update_occupancy.argtypes = [i32] * 3 + [ctypes.POINTER(ctypes.c_int)] * 2
         lib.cnca_update_occupancy.restype = ctypes.c_int
-        lib.cnca_bwd_adjoint_geometry.argtypes = [i32] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3
-        lib.cnca_bwd_adjoint_geometry.restype = ctypes.c_int
+        for fn in (lib.cnca_bwd_adjoint_geometry, lib.cnca_gate_geometry):
+            fn.argtypes = [i32] * 4 + [ctypes.POINTER(ctypes.c_int)] * 3
+            fn.restype = ctypes.c_int
     return lib
 
 
@@ -583,11 +584,20 @@ def bwd_adjoint_geometry(b: int, c: int, h: int, w: int) -> Tuple[int, int, int]
     """(blocks of the launch, blocks an SM, dynamic shared-memory bytes) of
     ``cnca_bwd_adjoint`` at [b, c, h, w], from the built library
     (``cudaOccupancyMaxActiveBlocksPerMultiprocessor``)."""
+    return _geometry("cnca_bwd_adjoint_geometry", b, c, h, w)
+
+
+def gate_geometry(b: int, c: int, h: int, w: int) -> Tuple[int, int, int]:
+    """The same for ``cnca_gate``."""
+    return _geometry("cnca_gate_geometry", b, c, h, w)
+
+
+def _geometry(fn: str, b: int, c: int, h: int, w: int) -> Tuple[int, int, int]:
     n, blocks, smem = ctypes.c_int(), ctypes.c_int(), ctypes.c_int()
-    err = _lib().cnca_bwd_adjoint_geometry(b, c, h, w, ctypes.byref(n), ctypes.byref(blocks),
-                                           ctypes.byref(smem))
+    err = getattr(_lib(), fn)(b, c, h, w, ctypes.byref(n), ctypes.byref(blocks),
+                              ctypes.byref(smem))
     if err != 0:
-        raise RuntimeError(f"cnca_bwd_adjoint_geometry failed: CUDA error {err}")
+        raise RuntimeError(f"{fn} failed: CUDA error {err}")
     return n.value, blocks.value, smem.value
 
 

@@ -39,12 +39,14 @@ ops, so the kernel and the plain version draw bit-identical masks at any
 update rate. ``jax.random``'s bits cannot be reproduced, so parity with the
 JAX package holds at ``update_rate=1`` and otherwise only in distribution.
 
-``nca_step`` and ``nca_step_ms`` come in two forms of one template: the
-tensor-core form (the MLP as ``mma.sync``, split TF32 or bf16) and the
-chain form (the MLP as float32 FMAs in the plain version's order, bit for
-bit). The training pair launches the chain form; so does the scales-(0,)
-rollout under bf16 compute (``chain_form`` says why); every other rollout
-launches the tensor-core form.
+``nca_step``, ``nca_step_ms`` and ``nca_step_mat`` come in two forms of
+one template: the tensor-core form (the MLP as ``mma.sync``, split TF32 or
+bf16; ``nca_step_mat``'s first layer an implicit GEMM over the raw taps)
+and the chain form (the MLP as float32 FMAs in the plain version's order,
+bit for bit). The training pair launches the chain form; so do the
+scales-(0,) rollout and the folded-stencil rollout under bf16 compute
+(``chain_form`` says why); every other rollout launches the tensor-core
+form.
 
 Every entry launches a kernel for a CUDA tensor and runs the plain version
 (``fused_rollout_chw_reference``) only for a CPU tensor; there is no
@@ -52,7 +54,8 @@ fallback. ``fused_rollout`` runs ``dynca_rollout``'s eager steps where
 ``select_rollout_kernel`` returns None, as the JAX wrapper runs its scan:
 that is the reference's semantics for a config no kernel takes. ``LAUNCHES``
 counts kernel launches (one per step); ``KERNEL_LAUNCHES`` splits them by
-kernel form (``nca_step_chain`` and ``nca_step_ms_chain`` the chain forms).
+kernel form (``nca_step_chain``, ``nca_step_ms_chain`` and
+``nca_step_mat_chain`` the chain forms).
 """
 
 from __future__ import annotations
@@ -72,7 +75,7 @@ from vsnca_tpu_torch.ops.perception import perceive
 LAUNCHES = 0
 KERNEL_LAUNCHES: Dict[str, int] = {
     "nca_step": 0, "nca_step_ms": 0, "nca_step_mat": 0, "nca_step_bf16_state": 0,
-    "nca_step_chain": 0, "nca_step_ms_chain": 0,
+    "nca_step_chain": 0, "nca_step_ms_chain": 0, "nca_step_mat_chain": 0,
 }
 
 PAD_CODES = {"circular": 0, "replicate": 1, "zeros": 2}
@@ -339,17 +342,21 @@ def fused_rollout_chw(
 
 
 def chain_form(form: str, compute_dtype: str) -> bool:
-    """Whether a rollout of ``form`` runs ``nca_step``'s chain form rather
-    than its tensor-core form: the scales-(0,) step with a float32 state
-    under bf16 compute. Its percept is rounded to bf16 every step, so a
-    one-ulp difference in a state (the tensor-core second layer sums in
-    another order than the plain version) flips percept roundings, and over
-    the served 24 steps at 256^2 the state drifted 2.07e-3 from the plain
-    version's against ``TOL['bfloat16']`` 1e-3 (H100, chip_smoke.py); the
-    chain form reproduces the plain version's bits. The multiscale step
+    """Whether a rollout of ``form`` runs its chain form rather than its
+    tensor-core form: the scales-(0,) step (``nca_step``) and the
+    folded-stencil step (``nca_step_mat``) with a float32 state under bf16
+    compute. Their percept or raw taps and their hidden activations are
+    rounded to bf16 every step, so a one-ulp difference (the tensor cores
+    sum in another order than the plain version) flips those roundings, and
+    over 24 steps at 256^2 the state drifted from the plain version's past
+    ``TOL['bfloat16']`` 1e-3: 2.07e-3 for ``nca_step`` (the served step),
+    1.01e-2 for ``nca_step_mat``, in all 18 of its bf16 cases (H100,
+    chip_smoke.py); the chain forms reproduce the plain version's bits at
+    those shapes. Under float32 compute ``nca_step_mat``'s tensor-core form
+    (split TF32) stays within 4.8e-6 of it against 1e-4. The multiscale step
     (whose average damps the flips: 7.0e-4 over 24 steps at 256^2 b3), the
-    float32 step and the bf16-state step run on the tensor cores."""
-    return form == "nca_step" and compute_dtype == "bfloat16"
+    float32 steps and the bf16-state step run on the tensor cores."""
+    return form in ("nca_step", "nca_step_mat") and compute_dtype == "bfloat16"
 
 
 def launch_step(src: torch.Tensor, dst: torch.Tensor, cond: Optional[torch.Tensor],
@@ -361,14 +368,16 @@ def launch_step(src: torch.Tensor, dst: torch.Tensor, cond: Optional[torch.Tenso
     ``step``; ``packed`` from ``pack_weights`` (with its ``mat`` for
     ``mat``). The form: ``nca_step_ms`` with ``multiscale``,
     ``nca_step_mat`` with ``mat``, the bf16-state ``nca_step`` for bfloat16
-    buffers (cond bfloat16 too), else ``nca_step``. ``nca_step`` and
-    ``nca_step_ms`` run the MLP on the tensor cores; with ``chain`` (a
-    float32 state) they run it as float32 FMAs in the plain version's order
-    instead (``nca_step_chain``, ``nca_step_ms_chain``): the training
-    pair's forward, whose states, and so its relu gates, must be the plain
-    pair's bits (see csrc/nca_step.cu), and the bf16 scales-(0,) rollout
-    (``chain_form``). Counts the launch in ``LAUNCHES`` and
-    ``KERNEL_LAUNCHES``."""
+    buffers (cond bfloat16 too), else ``nca_step``. ``nca_step``,
+    ``nca_step_ms`` and ``nca_step_mat`` run the MLP on the tensor cores;
+    with ``chain`` (a float32 state) they run it as float32 FMAs in the
+    plain version's order instead (``nca_step_chain``, ``nca_step_ms_chain``,
+    ``nca_step_mat_chain``): the training pair's forward, whose states, and
+    so its relu gates, must be the plain pair's bits (see csrc/nca_step.cu),
+    and the bf16 scales-(0,) and folded-stencil rollouts (``chain_form``).
+    ``nca_step_mat``'s chain form exists under bf16 compute only; without
+    ``chain`` it runs the tensor-core form under either compute type.
+    Counts the launch in ``LAUNCHES`` and ``KERNEL_LAUNCHES``."""
     global LAUNCHES
     w1, b1, w2, b2 = packed
     b, c, h, w = src.shape
@@ -382,7 +391,10 @@ def launch_step(src: torch.Tensor, dst: torch.Tensor, cond: Optional[torch.Tenso
             int(compute_dtype == "bfloat16"))
     tail = (seed & 0xFFFFFFFF, step, thr)
     if mat:
-        name, fn, ms = "nca_step_mat", lib.nca_step_mat_launch, ()
+        if chain and compute_dtype != "bfloat16":
+            raise ValueError("nca_step_mat has a chain form under bf16 compute only")
+        name = "nca_step_mat" + ("_chain" if chain else "")
+        fn, ms = lib.nca_step_mat_launch, (int(not chain),)
     elif bf16_state:
         name, fn, ms = "nca_step_bf16_state", lib.nca_step_bf16_state_launch, ()
     else:
@@ -405,23 +417,28 @@ def _launcher() -> ctypes.CDLL:
         lib.nca_step_launch.restype = ctypes.c_int
         lib.nca_step_occupancy.argtypes = [i32] * 6 + [ctypes.POINTER(ctypes.c_int)] * 2
         lib.nca_step_occupancy.restype = ctypes.c_int
+        lib.nca_step_mat_launch.argtypes = [ptr] * 7 + [i32] * 9 + [u32] * 3 + [ptr]
+        lib.nca_step_bf16_state_launch.argtypes = [ptr] * 7 + [i32] * 8 + [u32] * 3 + [ptr]
         for fn in (lib.nca_step_mat_launch, lib.nca_step_bf16_state_launch):
-            fn.argtypes = [ptr] * 7 + [i32] * 8 + [u32] * 3 + [ptr]
             fn.restype = ctypes.c_int
         lib.nca_step_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
         lib.nca_step_limits.restype = ctypes.c_int
     return lib
 
 
+STEP_OCCUPANCY_FORMS = ("tc", "bf16_state", "chain", "mat")
+
+
 def step_occupancy(c: int, cc: int, fc_dim: int, compute_dtype: str, multiscale: bool,
                    form: str) -> Tuple[int, int]:
     """(blocks an SM, dynamic shared-memory bytes) of a step kernel at these
     widths, from ``cudaOccupancyMaxActiveBlocksPerMultiprocessor``: ``form``
-    'tc' (``nca_step``/``nca_step_ms``), 'bf16_state' or 'chain'."""
+    'tc' (``nca_step``/``nca_step_ms``), 'bf16_state', 'chain', or 'mat'
+    (``nca_step_mat`` in the form its compute type takes: ``chain_form``)."""
     blocks, smem = ctypes.c_int(), ctypes.c_int()
     err = _launcher().nca_step_occupancy(
         c, cc, fc_dim + (-fc_dim % 4), int(compute_dtype == "bfloat16"), int(multiscale),
-        ("tc", "bf16_state", "chain").index(form), ctypes.byref(blocks), ctypes.byref(smem))
+        STEP_OCCUPANCY_FORMS.index(form), ctypes.byref(blocks), ctypes.byref(smem))
     if err != 0:
         raise RuntimeError(f"nca_step_occupancy failed: CUDA error {err}")
     return blocks.value, smem.value

@@ -1,8 +1,9 @@
 """Where the time goes inside the redesigned kernels: a per-phase clock
 profile of the rollout step ``nca_step_ms`` (its tensor-core and chain
-forms), of the training backward's ``nca_bwd_mlp(_ms)``, ``nca_bwd_adjoint``
-and ``nca_bwd_adjoint_ms``, and of ``cnca_update``, ``cnca_bwd_mlp`` and
-``cnca_bwd_adjoint`` on the card.
+forms) and ``nca_step_mat`` (the folded stencil, both forms), of the training
+backward's ``nca_bwd_mlp(_ms)``, ``nca_bwd_adjoint`` and
+``nca_bwd_adjoint_ms``, and of ``cnca_update``, ``cnca_gate``,
+``cnca_bwd_mlp`` and ``cnca_bwd_adjoint`` on the card.
 
 ``python3 -m vsnca_tpu_torch.ops.phase_profile`` (a CUDA card and ``nvcc``
 needed) writes instrumented copies of ``csrc/nca_step.cu``,
@@ -20,7 +21,8 @@ time, and its store; the staging and the last phase of ``cnca_update``; the
 issue of the next pass's copies and the combine of ``nca_bwd_adjoint_ms``)
 counts thread 0's warp alone; so do the
 staging, adjoint and store marks of the single-scale adjoints, whose
-waiting phase ends at the barrier after a channel's copies. A phase in a
+waiting phase ends at the barrier after a channel's copies, and
+``cnca_gate``'s staging, life-mask and store marks. A phase in a
 loop (the adjoints' passes or channels) sums over its iterations. The
 kernels' results are not checked here: ``chip_smoke.py`` and
 ``tests/test_torch_cuda.py`` hold the uninstrumented kernels to their plain
@@ -43,7 +45,8 @@ OUT = _build.BUILD_DIR / "profile"
 KERNELS = {"nca_step": ("nca_step_kernel(",),
            "nca_train": ("nca_bwd_mlp_kernel(", "nca_bwd_adjoint_kernel(",
                          "nca_bwd_adjoint_ms_kernel("),
-           "nca_cnca": ("cnca_update_kernel(", "cnca_bwd_mlp_kernel(", "cnca_bwd_adjoint_kernel(")}
+           "nca_cnca": ("cnca_update_kernel(", "cnca_gate_kernel(", "cnca_bwd_mlp_kernel(",
+                        "cnca_bwd_adjoint_kernel(")}
 MAX_PHASES = 32
 
 _COUNTERS = f"""
@@ -72,7 +75,7 @@ def instrument(name: str) -> Dict[str, Tuple[int, List[str]]]:
     out, n, phases = src, 0, {}
     for kernel in KERNELS[name]:
         start = out.index(kernel)
-        start = out.index("extern __shared__", start)
+        start = out.index(") {\n", start) + len(") {\n")  # the body's first line
         end = out.index("\n}\n", start)
         labels, lines = [], []
         for line in out[start:end].split("\n"):
@@ -83,8 +86,7 @@ def instrument(name: str) -> Dict[str, Tuple[int, List[str]]]:
             elif "// phase:" in line:
                 lines.append(f"  PHASE({n + len(labels)});")
                 labels.append(line.split("// phase:", 1)[1].strip())
-        body = "\n".join(lines).replace(
-            "float smem[];", "float smem[];\n  long long t_phase = clock64();", 1)
+        body = "  long long t_phase = clock64();\n" + "\n".join(lines)
         out = out[:start] + body + out[end:]
         phases[kernel.rstrip("(")] = (n, labels)
         n += len(labels)
@@ -159,6 +161,26 @@ def main(reps: int = 10) -> None:
         _report(lib, labels["nca_step"]["nca_step_kernel"], ft.n_blocks(b, 256, 256), reps,
                 f"nca_step_ms{'_chain' if chain else ''} c16/fc128 256^2 b{b} {cdt} (the "
                 f"other form's phases read 0)")
+    cfg = NCAConfig(c_in=12, fc_dim=96, padding_mode="circular", conditioning="edges")
+    params = dynca_init(torch.Generator().manual_seed(0), cfg, device="cuda")
+    g = torch.Generator().manual_seed(3)
+    x = (torch.rand((1, 12, 256, 256), generator=g) - 0.5).cuda()
+    cond = (torch.rand((1, 3, 256, 256), generator=g) - 0.5).cuda()
+    dst = torch.empty_like(x)
+    for cdt in ("float32", "bfloat16"):
+        chain = fs.chain_form("nca_step_mat", cdt)
+        packed = fs.pack_weights(params, 12, 3, cdt, True)
+        fs.launch_step(x, dst, cond, packed, "circular", cdt, 5, 17, thr, mat=True,
+                       chain=chain)  # warm-up
+        torch.cuda.synchronize()
+        lib.read_phase_clocks((ctypes.c_ulonglong * MAX_PHASES)())
+        for _ in range(reps):
+            fs.launch_step(x, dst, cond, packed, "circular", cdt, 5, 17, thr, mat=True,
+                           chain=chain)
+        torch.cuda.synchronize()
+        _report(lib, labels["nca_step"]["nca_step_kernel"], ft.n_blocks(1, 256, 256), reps,
+                f"nca_step_mat{'_chain' if chain else ''} c12/fc96/edges 256^2 b1 {cdt} (the "
+                f"other forms' phases read 0)")
     lib = _build._LIBS["nca_train"]
     for c, f, ms, b, n, cdt in ((12, 96, False, 4, 128, "float32"),
                                 (16, 128, True, 3, 256, "float32"),
@@ -222,6 +244,16 @@ def main(reps: int = 10) -> None:
         torch.cuda.synchronize()
         _report(lib, labels["nca_cnca"]["cnca_update_kernel"], fc.n_mlp_blocks(b, 64, 64), reps,
                 f"cnca_update C20/D64 64^2 b{b} float32")
+        out = torch.empty_like(x)
+        life_out = torch.empty((b, 64, 64), dtype=torch.uint8, device="cuda")
+        fc.launch_gate(x, xn, out, life_out, cfg)  # warm-up
+        torch.cuda.synchronize()
+        lib.read_phase_clocks((ctypes.c_ulonglong * MAX_PHASES)())
+        for _ in range(reps):
+            fc.launch_gate(x, xn, out, life_out, cfg)
+        torch.cuda.synchronize()
+        _report(lib, labels["nca_cnca"]["cnca_gate_kernel"], fc.gate_geometry(b, 20, 64, 64)[0],
+                reps, f"cnca_gate C20 64^2 b{b} float32 (4 channels a block)")
         gp = torch.empty((b, 60, 64, 64), device="cuda")
         slots = fc._zero_slots(b, 64, 64, packed)
         fc._launch_bwd_mlp(x, goal, life, gy.clone(), gp, slots, packed, cfg, "float32", 3, 5,
