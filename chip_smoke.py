@@ -10,8 +10,11 @@ exit and no result line:
    with ptxas' registers and spills of each kernel;
 2. each kernel against its plain PyTorch version on the card: the rollout
    step across padding modes, conditioning, update rates and compute types at
-   a ragged size, at the served shape (256^2) and past the TPU's resident
-   cap (512^2); the stylizer on the card against the CPU; the training pair
+   a ragged size, at the served shape (256^2), past the TPU's resident
+   cap (512^2) and at the trainers' vector-field pre-roll (the
+   extra_channels cell, C 13 without conditioning, at 40x72 b2, rates 1 and
+   0.5, f32 and bf16, and 256^2 b2 f32; the edge_conditioned cell at 256^2
+   b2 f32); the stylizer on the card against the CPU; the training pair
    (forward through nca_step, backward through nca_bwd_mlp and
    nca_bwd_adjoint) across conditioning, rates and compute types at 40x72,
    and at the static_texture shape (128^2, batch 4, 32 steps), with each
@@ -49,7 +52,11 @@ exit and no result line:
    rates 1 and 0.5; the ConditionedNCA pair at 64^2 b8 x 24 steps with b1
    and b2 set so that a tenth of h1's and h2's pre-activations lie within
    1e-6 of zero (the guard that the update and the backward's recompute
-   share their bits);
+   share their bits); the training pair at the extra_channels cell (C 13,
+   12 seed channels, no conditioning) at 40x72 b2 x 4 steps (rates 1 and
+   0.5, f32 and bf16) and 256^2 b2 x 16 steps, and at the edge_conditioned
+   cell at 256^2 b2 x 32 steps without a conditioning cotangent, with each
+   backward kernel alone at both cells' 256^2 b2 shape;
 3. the serving path: ``StylizeServer`` with the edge-conditioned model at
    full width (c12/fc96, random weights from a seed) answers session, frame,
    damage, reset, stream and stats requests at 256^2 with 24 steps a frame;
@@ -81,7 +88,20 @@ exit and no result line:
    cell through ``fused_rollout_chw`` with algo 'mat' (bf16 and f32
    compute) and with a bf16 state (24 steps each), ``fused_rollout_stream_chw`` at 1024^2, and the
    static_texture cell through ``fused_rollout_train_nhwc`` (K = 16) with a
-   backward, each kernel's launches counted exactly;
+   backward, each kernel's launches counted exactly. The conditioned
+   presets: one edge_conditioned train step on the card against the CPU at
+   32^2, against a target field along the step's own flow (the
+   vector-field term's strength part open); ``DyNCATrainer`` with edge_conditioned at full width (c12/fc96,
+   edges, 256^2, batch 2, pool 256, OT + auxiliary VGG + vector field +
+   overflow, VGG16 and MSOE from their seeded fallbacks, 8 synthetic content
+   frames drawn as the CLI draws them) trains at step_n 32, 128 and two
+   sampled, the pair's three kernels each launched once a step and the
+   tensor-core nca_step once an iteration (the vector-field pre-roll); the
+   CLI trains 2 iterations of it in a subprocess; extra_channels trains 2
+   iterations (the pair sees 13 channels, the pool keeps 12);
+   vector_field_motion (128^2, batch 4) 2 iterations; ``VectorFieldProtocol``
+   with recalibrate_every 1 runs 2 iterations, its recalibrated weight
+   median(appearance log) / 50;
 4. times with CUDA events (median of repeats after warm-up): kernel and plain
    ms/step at 256^2 and 512^2, stylizer frames/s, the cell-update rate of
    ``bench.py``'s primary metric; on the host clock the server's frames/s and
@@ -100,7 +120,11 @@ exit and no result line:
    parts and its two loss forwards (VGG16 + OT, MSOE + MotionOT) alone,
    video_motion iterations/s, peak memory and a profiler window over one
    iteration, the multiscale stylizer's frames/s and a profiler window over
-   its frames; nca_step_mat (f32: tensor cores; bf16: chain) and the
+   its frames; one 128-step edge_conditioned iteration split into its
+   parts, each of its loss terms' forward alone (OT appearance, auxiliary
+   VGG, vector field with MSOE, overflow), its iterations/s, peak memory and
+   a profiler window over one iteration, and one 128-step
+   vector_field_motion iteration split into its parts; nca_step_mat (f32: tensor cores; bf16: chain) and the
    bf16-state nca_step per launch at 256^2 b1 beside nca_step, their bounds
    and plain versions, every registry
    entry per step at 256^2 and 1024^2, the segment trade-off (forward +
@@ -273,6 +297,18 @@ def phase_compare(torch, fs, NCAConfig, dynca_init):
              STEPS, None, cdt)
     case("512^2 edges circular 24 steps bfloat16", served, (1, 12, 512, 512),
          STEPS, None, "bfloat16")
+    # the trainers' vector-field pre-roll: the extra_channels cell (C 13, a
+    # percept of 52 rows, so the tensor-core form's last depth block of 16 is
+    # ragged; no conditioning) and the edge_conditioned cell, at batch 2
+    extra = NCAConfig(c_in=13, seed_channels=12, fc_dim=96, padding_mode="circular")
+    for rate in (1.0, 0.5):
+        for cdt in ("float32", "bfloat16"):
+            case(f"C13 40x72 b2 circular None rate {rate} {cdt}", extra, (2, 13, 40, 72), 4,
+                 rate, cdt)
+    case("C13 256^2 b2 circular None 4 steps float32", extra, (2, 13, 256, 256), 4, None,
+         "float32")
+    case("256^2 b2 edges circular 4 steps float32", served, (2, 12, 256, 256), 4, None,
+         "float32")
     return worst
 
 
@@ -469,49 +505,88 @@ SA_SHAPES = ((4, 128, 128), (2, 8, 8), (2, 18, 18), (2, 34, 66), (2, 40, 72))
 CA_SHAPES = ((8, 64, 64), (2, 8, 8), (2, 24, 40), (2, 34, 66))
 
 
-def phase_compare_train(torch, ft, NCAConfig, dynca_init):
+def check_train_pair(torch, ft, NCAConfig, dynca_init, name, cell, shape, n_steps, rate, cdt,
+                     cond_no_grad=False):
     """The training pair (forward through nca_step, backward through
-    nca_bwd_mlp and nca_bwd_adjoint) against its plain version on the same
-    card tensors; then each backward kernel alone at the static_texture
-    shape. Returns the largest absolute difference of each kernel's
-    outputs."""
+    nca_bwd_mlp and nca_bwd_adjoint) of the fc 96 circular cell ``cell``
+    (NCAConfig fields) on random card tensors against its plain version:
+    the final state within TOL, every gradient within TRAIN_TOL of the
+    largest element of the plain one's. ``cond_no_grad``: the trainer's
+    conditioning, which takes no cotangent. Returns the largest absolute
+    difference."""
+    dev = "cuda"
+    cfg = NCAConfig(fc_dim=96, padding_mode="circular", **cell)
+    params = dynca_init(torch.Generator().manual_seed(0), cfg, device=dev)
+    g = torch.Generator().manual_seed(1)
+    x = (torch.rand(shape, generator=g) - 0.5).to(dev)
+    gy = torch.randn(shape, generator=g).to(dev)
+    cond = None
+    if cfg.conditioning:
+        b, _, h, w = shape
+        cond = (torch.rand((b, cfg.c_cond, h, w), generator=g) - 0.5).to(dev)
+    p = {k: v.clone().requires_grad_() for k, v in params.items()}
+    xr = x.clone().requires_grad_()
+    cr = None if cond is None or cond_no_grad else cond.clone().requires_grad_()
+    y = ft.fused_rollout_train(p, xr, 7, cfg, n_steps, cond if cr is None else cr, rate, cdt,
+                               cond_no_grad=cond_no_grad)
+    (y * gy).sum().backward()
+    want_y, grads, dx0, dcond = ft.fused_rollout_train_reference(
+        params, x, 7, cfg, n_steps, cond, gy, rate, cdt, need_dcond=cr is not None)
+    torch.cuda.synchronize()
+    pairs = {"dx0": (xr.grad, dx0), **{f"d{k}": (p[k].grad, grads[k]) for k in grads}}
+    if cr is not None:
+        pairs["dcond"] = (cr.grad, dcond)
+    errs = {k: scaled_err(a, b) for k, (a, b) in pairs.items()}
+    absd = max(float((a - b).abs().max()) for a, b in pairs.values())
+    nonzero = all(float(b.abs().max()) > 0 for _, b in pairs.values())
+    y_err = float((y.detach() - want_y).abs().max())
+    tol = TRAIN_TOL[cdt]
+    ok = max(errs.values()) <= tol and y_err <= TOL[cdt] and nonzero and \
+        all(bool(torch.isfinite(a).all()) for a, _ in pairs.values())
+    print(f"  {name:<40} state {y_err:.2e}; grads max|kernel-plain|/max|plain|: "
+          + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+          + f" (tol {tol:.0e}; all non-zero: {nonzero}) {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit(f"training pair disagrees with its plain version: {name}")
+    return y_err, absd
+
+
+def check_backward_kernels(torch, ft, NCAConfig, dynca_init, c, cc, shape, seed=2):
+    """Each backward kernel alone at one shape (c channels, cc conditioning
+    channels, fc 96), against its plain version on the same inputs. Returns
+    (nca_bwd_mlp's, nca_bwd_adjoint's) largest absolute difference and their
+    largest difference over the plain version's largest element."""
+    dev = "cuda"
+    cond_kind = {0: None, 2: "pos_emb", 3: "edges"}[cc]
+    cfg = NCAConfig(c_in=c, fc_dim=96, padding_mode="circular", conditioning=cond_kind)
+    params = dynca_init(torch.Generator().manual_seed(0), cfg, device=dev)
+    g = torch.Generator().manual_seed(seed)
+    b, _, h, w = shape
+    x = (torch.rand(shape, generator=g) - 0.5).to(dev)
+    gx = torch.randn(shape, generator=g).to(dev)
+    cond = (torch.rand((b, cc, h, w), generator=g) - 0.5).to(dev) if cc else None
+    packed = ft.fs.pack_weights(params, c, cc, "float32")
+    args = (packed, x, cond, gx, 5, 17, 0.5, "float32", cc > 0)
+    got, want = ft.nca_bwd_mlp(*args), ft.nca_bwd_mlp_reference(*args)
+    adj, adj_want = ft.nca_bwd_adjoint(want[0], gx), ft.nca_bwd_adjoint_reference(want[0], gx)
+    torch.cuda.synchronize()
+    pairs = [(a, b_) for a, b_ in zip(got, want) if b_ is not None]
+    mlp_abs = max(float((a - b_).abs().max()) for a, b_ in pairs)
+    mlp_rel = max(scaled_err(a, b_) for a, b_ in pairs)
+    return (mlp_abs, float((adj - adj_want).abs().max()), mlp_rel, scaled_err(adj, adj_want))
+
+
+def phase_compare_train(torch, ft, NCAConfig, dynca_init):
+    """The training pair against its plain version on the same card tensors
+    (``check_train_pair``); then each backward kernel alone at the
+    static_texture shape. Returns the largest absolute difference of each
+    kernel's outputs."""
     dev = "cuda"
     worst = {"nca_bwd_mlp": 0.0, "nca_bwd_adjoint": 0.0}
 
     def case(name, cond_kind, shape, n_steps, rate, cdt):
-        cfg = NCAConfig(c_in=12, fc_dim=96, padding_mode="circular", conditioning=cond_kind)
-        params = dynca_init(torch.Generator().manual_seed(0), cfg, device=dev)
-        g = torch.Generator().manual_seed(1)
-        x = (torch.rand(shape, generator=g) - 0.5).to(dev)
-        gy = torch.randn(shape, generator=g).to(dev)
-        cond = None
-        if cond_kind:
-            b, _, h, w = shape
-            cond = (torch.rand((b, cfg.c_cond, h, w), generator=g) - 0.5).to(dev)
-        p = {k: v.clone().requires_grad_() for k, v in params.items()}
-        xr = x.clone().requires_grad_()
-        cr = None if cond is None else cond.clone().requires_grad_()
-        y = ft.fused_rollout_train(p, xr, 7, cfg, n_steps, cr, rate, cdt)
-        (y * gy).sum().backward()
-        want_y, grads, dx0, dcond = ft.fused_rollout_train_reference(
-            params, x, 7, cfg, n_steps, cond, gy, rate, cdt, need_dcond=cond is not None)
-        torch.cuda.synchronize()
-        pairs = {"dx0": (xr.grad, dx0), **{f"d{k}": (p[k].grad, grads[k]) for k in grads}}
-        if cond is not None:
-            pairs["dcond"] = (cr.grad, dcond)
-        errs = {k: scaled_err(a, b) for k, (a, b) in pairs.items()}
-        absd = max(float((a - b).abs().max()) for a, b in pairs.values())
-        nonzero = all(float(b.abs().max()) > 0 for _, b in pairs.values())
-        y_err = float((y.detach() - want_y).abs().max())
-        tol = TRAIN_TOL[cdt]
-        ok = max(errs.values()) <= tol and y_err <= TOL[cdt] and nonzero and \
-            all(bool(torch.isfinite(a).all()) for a, _ in pairs.values())
-        print(f"  {name:<40} state {y_err:.2e}; grads max|kernel-plain|/max|plain|: "
-              + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
-              + f" (tol {tol:.0e}; all non-zero: {nonzero}) {'ok' if ok else 'FAIL'}")
-        if not ok:
-            raise SystemExit(f"training pair disagrees with its plain version: {name}")
-        return absd
+        return check_train_pair(torch, ft, NCAConfig, dynca_init, name,
+                                dict(c_in=12, conditioning=cond_kind), shape, n_steps, rate, cdt)
 
     for cond_kind in (None, "pos_emb", "edges"):
         for rate in (1.0, 0.5):
@@ -523,21 +598,8 @@ def phase_compare_train(torch, ft, NCAConfig, dynca_init):
 
     # each backward kernel alone at the static_texture shape, against its
     # plain version on the same inputs
-    cfg = NCAConfig(c_in=12, fc_dim=96, padding_mode="circular", conditioning="pos_emb")
-    params = dynca_init(torch.Generator().manual_seed(0), cfg, device=dev)
-    g = torch.Generator().manual_seed(2)
-    x = (torch.rand((4, 12, 128, 128), generator=g) - 0.5).to(dev)
-    gx = torch.randn((4, 12, 128, 128), generator=g).to(dev)
-    cond = (torch.rand((4, 2, 128, 128), generator=g) - 0.5).to(dev)
-    packed = ft.fs.pack_weights(params, 12, 2, "float32")
-    args = (packed, x, cond, gx, 5, 17, 0.5, "float32", True)
-    got, want = ft.nca_bwd_mlp(*args), ft.nca_bwd_mlp_reference(*args)
-    adj, adj_want = ft.nca_bwd_adjoint(want[0], gx), ft.nca_bwd_adjoint_reference(want[0], gx)
-    torch.cuda.synchronize()
-    mlp_err = max(scaled_err(a, b) for a, b in zip(got, want))
-    adj_err = scaled_err(adj, adj_want)
-    worst["nca_bwd_mlp"] = max(float((a - b).abs().max()) for a, b in zip(got, want))
-    worst["nca_bwd_adjoint"] = float((adj - adj_want).abs().max())
+    worst["nca_bwd_mlp"], worst["nca_bwd_adjoint"], mlp_err, adj_err = check_backward_kernels(
+        torch, ft, NCAConfig, dynca_init, 12, 2, (4, 12, 128, 128))
     ok = mlp_err <= TRAIN_TOL["float32"] and adj_err <= TRAIN_TOL["float32"]
     print(f"  one launch each at 128^2 b4 pos_emb f32: nca_bwd_mlp max|kernel-plain| "
           f"{worst['nca_bwd_mlp']:.3e} ({mlp_err:.2e} of max|plain|), nca_bwd_adjoint "
@@ -545,6 +607,7 @@ def phase_compare_train(torch, ft, NCAConfig, dynca_init):
     if not ok:
         raise SystemExit("a backward kernel disagrees with its plain version")
 
+    g = torch.Generator().manual_seed(2)
     # the redesigned nca_bwd_adjoint alone at SA_SHAPES, C 12 and 5, with a
     # tap and without
     rel, n = 0.0, 0
@@ -709,7 +772,8 @@ def profile_frames(torch, next_frame, n_frames: int = 10, unit: str = "frame"):
     """torch.profiler over ``n_frames`` calls of ``next_frame`` (stylizer
     frames, or training iterations): device time by kernel and the device's
     busy share of the window (the profiler's own cost is inside the window,
-    so the busy share is a lower bound)."""
+    so the busy share is a lower bound). Returns (busy ms, window ms), or
+    None when the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     next_frame()
@@ -738,6 +802,7 @@ def profile_frames(torch, next_frame, n_frames: int = 10, unit: str = "frame"):
     for us, key, count in rows[:8]:
         if us > 0:
             print(f"    {us / 1e3 / n_frames:.4f} ms  {count / n_frames:g}x  {key[:70]}")
+    return busy_ms, wall_ms
 
 
 def device_ms(torch, fn, reps: int = 20) -> float:
@@ -2622,6 +2687,379 @@ def time_vgg_pool(torch, vgg_mod, F):
     return out
 
 
+# ------------------------------------ the conditioned and vector-field presets
+
+COND_STEPS = 128  # the longest rollout of edge_conditioned, extra_channels and
+# vector_field_motion (step_range (32, 128))
+
+
+def phase_compare_conditioned(torch, ft, NCAConfig, dynca_init):
+    """The training pair at the extra_channels cell (C 13, 12 seed channels,
+    no conditioning: a percept of 52 rows, so nca_bwd_mlp's last depth block
+    of 16 is ragged) at 40x72 b2 x 4 steps (rates 1 and 0.5, f32 and bf16)
+    and 256^2 b2 x 16 steps f32, and at the edge_conditioned cell (edges,
+    taken as the trainer takes it: without a cotangent) at 256^2 b2 x 32
+    steps f32; then each backward kernel alone at both cells' 256^2 b2
+    shape. Returns the largest absolute difference of each kernel's
+    outputs."""
+    worst = {"nca_step_chain": 0.0, "nca_bwd_mlp": 0.0, "nca_bwd_adjoint": 0.0}
+
+    def pair(*args, **kw):
+        y_err, _ = check_train_pair(torch, ft, NCAConfig, dynca_init, *args, **kw)
+        worst["nca_step_chain"] = max(worst["nca_step_chain"], y_err)
+
+    extra = dict(c_in=13, seed_channels=12, conditioning=None)
+    for rate in (1.0, 0.5):
+        for cdt in ("float32", "bfloat16"):
+            pair(f"C13 40x72 b2 4 steps rate {rate} {cdt}", extra, (2, 13, 40, 72), 4, rate,
+                 cdt)
+    pair("C13 256^2 b2 16 steps rate 0.5 float32", extra, (2, 13, 256, 256), 16, 0.5,
+         "float32")
+    pair("edges 256^2 b2 32 steps rate 0.5 f32 no dcond", dict(c_in=12, conditioning="edges"),
+         (2, 12, 256, 256), 32, 0.5, "float32", cond_no_grad=True)
+    for c, cc, cell in ((13, 0, "extra_channels"), (12, 3, "edge_conditioned")):
+        mlp_abs, adj_abs, mlp_rel, adj_rel = check_backward_kernels(
+            torch, ft, NCAConfig, dynca_init, c, cc, (2, c, 256, 256))
+        worst["nca_bwd_mlp"] = max(worst["nca_bwd_mlp"], mlp_abs)
+        worst["nca_bwd_adjoint"] = max(worst["nca_bwd_adjoint"], adj_abs)
+        ok = mlp_rel <= TRAIN_TOL["float32"] and adj_rel <= TRAIN_TOL["float32"]
+        print(f"  one launch each at the {cell} cell (C {c}, cc {cc}) 256^2 b2 f32: nca_bwd_mlp "
+              f"max|kernel-plain| {mlp_abs:.3e} ({mlp_rel:.2e} of max|plain|), "
+              f"nca_bwd_adjoint {adj_abs:.3e} ({adj_rel:.2e}) {'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise SystemExit(f"a backward kernel disagrees with its plain version at the {cell} "
+                             "cell")
+    return worst
+
+
+def flow_target_field(torch, cfg, loss_cfg, params, msoe, states, aux, step_n: int):
+    """A target field along the MSOE flow of the first item's train-step
+    frames (the 1-step pre-roll and the step_n-step rollout, on the CPU at
+    update rate 1, where the masks play no part), each component scaled by
+    1 + 0.2 x noise from RandomState(11): the cosine gate of the
+    vector-field term then lets its strength part through, which it shuts
+    against a synthetic field at random weights."""
+    from vsnca_tpu_torch.models.dynca import dynca_rollout, make_conditioning, to_rgb
+    from vsnca_tpu_torch.models.msoe import motion_pair_from_rgb, msoe_forward
+
+    cond = make_conditioning(cfg, tuple(states.shape[-2:]), cond_img=aux.mean(dim=1,
+                                                                              keepdim=True),
+                             batch=states.shape[0], device="cpu")
+    with torch.no_grad():
+        pre, _ = dynca_rollout(params, states, 0, cfg, 1, cond, rollout_path="xla")
+        _, after = dynca_rollout(params, states, 0, cfg, step_n, cond, rollout_path="xla")
+        flow = msoe_forward(msoe, motion_pair_from_rgb(to_rgb(pre, cfg.c_out), after,
+                                                       loss_cfg.motion_img_size))[:1]
+    noise = np.random.RandomState(11).randn(*flow.shape).astype(np.float32)
+    return flow * (1.0 + 0.2 * torch.from_numpy(noise))
+
+
+def phase_edge_step_parity(torch, make_train_step, LossState, presets, dynca_init,
+                           vgg16_random_init, msoe_random_init, make_optimizer):
+    """One edge_conditioned train step on the card (the training pair, and
+    the tensor-core step for the pre-roll) against the same step on the CPU
+    (eager steps): the preset's cell and losses at 32^2 (OT, auxiliary VGG,
+    vector-field motion, overflow; nothing subsampled), batch 2, 8 steps,
+    update rate 1, float32, against a target field along the step's own
+    flow (``flow_target_field``), so that the vector-field term's strength
+    part and its gradient are held too."""
+    nca, loss_cfg, _ = presets.edge_conditioned(32)
+    cfg = dataclasses.replace(nca, update_rate=1.0)
+    params = dynca_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    vgg = vgg16_random_init(torch.Generator().manual_seed(16), device="cpu")
+    msoe = msoe_random_init(torch.Generator().manual_seed(175), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    states = torch.rand((2, 12, 32, 32), generator=g) - 0.5
+    style = torch.rand((2, 3, 32, 32), generator=g) * 2 - 1
+    aux = torch.rand((2, 3, 32, 32), generator=g) * 2 - 1
+    field = flow_target_field(torch, cfg, loss_cfg, params, msoe, states, aux, 8)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        p = {k: v.detach().clone().to(dev).requires_grad_() for k, v in params.items()}
+        state = LossState(cfg=loss_cfg, vgg_params=[{k: v.to(dev) for k, v in d.items()}
+                                                    for d in vgg],
+                          msoe_params={k: v.to(dev) for k, v in msoe.items()},
+                          target_field=field.to(dev))
+        step = make_train_step(cfg, state, "none", "auto")
+        inputs = {"target_style": style.to(dev), "aux_imgs": aux.to(dev),
+                  "aux_gs": aux.to(dev).mean(dim=1, keepdim=True)}
+        _, _, new_states, loss, logs = step(p, make_optimizer(p, 1e-3), states.to(dev), 4,
+                                            inputs, step_n=8)
+        out[dev] = (float(loss), {k: float(v) for k, v in logs.items()},
+                    {k: v.detach().cpu() for k, v in p.items()}, new_states.cpu())
+    (lc, gc, pc, sc), (lg, gg, pg, sg) = out["cpu"], out["cuda"]
+    p_err = max(float((pg[k] - pc[k]).abs().max()) for k in pc)
+    s_err = float((sg - sc).abs().max())
+    log_err = max(abs(gg[k] - gc[k]) / max(abs(gc[k]), 1e-6) for k in gc)
+    strength = "vector_field_motion-strength"
+    ok = (abs(lg - lc) <= 1e-4 * abs(lc) and log_err <= 1e-4 and p_err <= 5e-5
+          and s_err <= 1e-4 and set(gg) == set(gc) and gc.get(strength, 0.0) > 0.0)
+    print(f"  edge_conditioned train step card vs CPU, 32^2 b2 c12/fc96 edges, 8 steps, field "
+          f"along the flow: loss {lg:.6f} vs {lc:.6f} (terms {sorted(gc)} within "
+          f"{log_err:.1e}; strength {gg.get(strength, 0.0):.6f} vs {gc.get(strength, 0.0):.6f}, "
+          f"open: {gc.get(strength, 0.0) > 0.0}), params max diff {p_err:.2e} (tol 5e-05), new "
+          f"states {s_err:.2e} {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the edge_conditioned train step on the card disagrees with the CPU")
+
+
+def conditioned_trainer(torch, presets, DyNCATrainer, synthetic_style_image, synthetic_video,
+                        precompute_target_style_features, preset, extractors, **train_kw):
+    """DyNCATrainer with ``preset`` at full width and size (``train_kw``
+    replaces TrainConfig fields), the VGG16 and MSOE ``extractors``, the
+    synthetic style image with its features precomputed as the CLI does
+    and, for the content-conditioned presets, the CLI's 8 synthetic content
+    frames on the card. Returns (trainer, inputs, content frames or None)."""
+    nca, loss, train = presets.PRESETS[preset]()
+    train = dataclasses.replace(train, **train_kw)
+    vgg, msoe = extractors
+    trainer = DyNCATrainer(nca, loss, train, vgg_params=vgg, msoe_params=msoe, device="cuda")
+    hw = train.img_size
+    style = synthetic_style_image(hw, train.batch_size)
+    style = torch.from_numpy(style * 2.0 - 1.0).permute(0, 3, 1, 2).contiguous().cuda()
+    inputs = {"target_style": style,
+              "target_style_features": precompute_target_style_features(
+                  vgg, style, loss.appearance_loss_type, hw)}
+    frames = None
+    if preset in ("edge_conditioned", "extra_channels"):
+        frames = torch.from_numpy(synthetic_video(hw, 8)).permute(0, 3, 1, 2).contiguous().cuda()
+    return trainer, inputs, frames
+
+
+def content_inputs(torch, inputs, frames, rng, batch: int):
+    """One iteration's inputs with content frames drawn as the CLI draws
+    them (``rng.choice`` with replacement) and their channel-mean
+    grayscale; ``inputs`` as they are without frames."""
+    if frames is None:
+        return inputs
+    idx = rng.choice(frames.shape[0], batch, replace=True)
+    aux = frames[torch.as_tensor(idx, device=frames.device)]
+    return {**inputs, "aux_imgs": aux, "aux_gs": aux.mean(dim=1, keepdim=True)}
+
+
+def phase_conditioned_train(torch, ft, fs, trainer, inputs, frames, steps, label: str):
+    """Iterations of a conditioned or vector-field preset at ``steps``, the
+    content drawn as the CLI draws it: nca_step (the training forward, its
+    chain form), nca_bwd_mlp and nca_bwd_adjoint sum(step_n) times each,
+    nca_step's tensor-core form once an iteration (the vector-field
+    pre-roll), no multiscale launch; the loss and every log term finite;
+    the pool written back with ``n_seed_channels`` channels. Returns
+    (launches by kernel: the pair's, and the tensor-core step's as
+    'nca_step_tc'; the step counts)."""
+    rng = np.random.RandomState(42)
+    reset_counts(ft, fs)
+    logs, written = [], []
+    for n in steps:
+        logs.append(trainer.train_iteration(
+            content_inputs(torch, inputs, frames, rng, trainer.train_cfg.batch_size), step_n=n))
+        idx = trainer.last_batch_idx
+        written.append(bool(torch.isfinite(trainer.pool.states[idx]).all())
+                       and float(trainer.pool.states[idx].abs().max()) > 0)
+    torch.cuda.synchronize()
+    launches = dict(ft.KERNEL_LAUNCHES)
+    fs_launches = dict(fs.KERNEL_LAUNCHES)
+    total = sum(steps)
+    pair = ("nca_step", "nca_bwd_mlp", "nca_bwd_adjoint")
+    checks = {
+        "loss and every log term finite, with vector_field_motion": all(
+            np.isfinite(l.loss) and "vector_field_motion" in l.logs
+            and all(np.isfinite(v) for v in l.logs.values()) for l in logs),
+        "nca_step == nca_bwd_mlp == nca_bwd_adjoint == sum(step_n)":
+            all(launches[k] == total for k in pair),
+        "no multiscale launches": all(launches[k] == 0 for k in launches if k not in pair),
+        "fused_step: nca_step_chain == sum(step_n), tensor-core nca_step == iterations":
+            fs_launches["nca_step_chain"] == total and fs_launches["nca_step"] == len(steps)
+            and fs.LAUNCHES == total + len(steps),
+        f"pool written back (finite, non-zero, {trainer.nca_cfg.n_seed_channels} channels)":
+            all(written) and trainer.pool.states.shape[1] == trainer.nca_cfg.n_seed_channels,
+    }
+    for log, n in zip(logs, steps):
+        terms = " ".join(f"{k}={v:.4f}" for k, v in log.logs.items())
+        print(f"  {label} iter {log.iteration} step_n {n}: loss={log.loss:.4f} {terms}")
+    print(f"  launches {launches}, fused_step {fs_launches} for sum(step_n) = {total}")
+    for k, v in checks.items():
+        print(f"  {k}: {'ok' if v else 'FAIL'}")
+    if not all(checks.values()):
+        raise SystemExit(f"{label} training phase failed")
+    return {**launches, "nca_step_tc": fs_launches["nca_step"]}, steps
+
+
+def phase_extra_channels(torch, ft, fs, dynca_mod, trainer, inputs, frames):
+    """extra_channels for 2 iterations (32 and 128 steps): the training pair
+    sees 13 channels (the content's grayscale appended) and the pool keeps
+    12."""
+    seen = []
+    pair = dynca_mod.fused_rollout_train
+
+    def recording(params, x, *args, **kw):
+        seen.append(int(x.shape[1]))
+        return pair(params, x, *args, **kw)
+
+    dynca_mod.fused_rollout_train = recording
+    try:
+        launches, steps = phase_conditioned_train(torch, ft, fs, trainer, inputs, frames,
+                                                  [32, 128], "extra_channels")
+    finally:
+        dynca_mod.fused_rollout_train = pair
+    ok = seen == [13, 13] and trainer.pool.states.shape[1] == 12
+    print(f"  the pair saw {seen} channels, the pool keeps {trainer.pool.states.shape[1]}: "
+          f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("extra_channels: the content channel is not appended or not stripped")
+    return launches, steps
+
+
+def phase_edge_cli(load_params_pickle):
+    """``python -m vsnca_tpu_torch.train.cli --preset edge_conditioned`` in a
+    subprocess, 2 iterations on the synthetic content frames; it prints the
+    parameter count and its checkpoint must load. The run's directory (the
+    checkpoint holds the 805 MB pool) is removed afterwards."""
+    import shutil
+
+    out = "out/chip_smoke_edge_cli"
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "vsnca_tpu_torch.train.cli", "--preset", "edge_conditioned",
+         "--max-iterations", "2", "--log-every", "1", "--out", out],
+        capture_output=True, text=True, timeout=600,
+    )
+    print("\n".join(f"    {line}" for line in r.stdout.strip().splitlines()))
+    if r.returncode != 0:
+        print(r.stderr[-4000:])
+        raise SystemExit(f"the edge_conditioned CLI exited {r.returncode}")
+    params = load_params_pickle(f"{out}/checkpoint", "cpu")
+    shutil.rmtree(out)
+    ok = (tuple(params["w1"].shape) == (51, 96) and tuple(params["w2"].shape) == (96, 12)
+          and "DyNCA param count: 6156;" in r.stdout)
+    print(f"  edge_conditioned CLI: 2 iterations in {time.perf_counter() - t0:.1f} s (process "
+          f"start, kernel load and target features included); parameter count printed, "
+          f"checkpoint loads: {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise SystemExit("the edge_conditioned CLI's checkpoint does not load")
+
+
+def phase_vf_protocol(torch, ft, presets, VectorFieldProtocol, extractors,
+                      synthetic_style_image):
+    """VectorFieldProtocol at the vector_field_motion preset (c12/fc96,
+    128^2, b4), 2 iterations with recalibrate_every 1: at iteration 1 the
+    weight becomes median(appearance log) / 50, in place."""
+    nca, loss, train = presets.vector_field_motion()
+    style = synthetic_style_image(train.img_size, train.batch_size)
+    style = torch.from_numpy(style * 2.0 - 1.0).permute(0, 3, 1, 2).contiguous().cuda()
+    proto = VectorFieldProtocol(nca, loss, dataclasses.replace(train, max_iterations=2), style,
+                                recalibrate_every=1, device="cuda")
+    reset_counts(ft)
+    t0 = time.perf_counter()
+    trainer = proto.run(*extractors)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    want = float(np.median(np.asarray(proto._appearance_log[:2])) / 50.0)
+    launches = dict(ft.KERNEL_LAUNCHES)
+    checks = {
+        "two iterations, losses finite": trainer.iteration == 2
+        and all(np.isfinite(h.loss) for h in trainer.history),
+        "one recalibration, at iteration 1, to median(appearance log) / 50":
+            proto.recalibrations == [(1, want)],
+        "the live loss takes the weight": trainer.loss_state.cfg.vector_field_motion_weight
+        == want == proto.loss_cfg.vector_field_motion_weight,
+        "the pair's kernels launched alike": launches["nca_step"] == launches["nca_bwd_mlp"]
+        == launches["nca_bwd_adjoint"] > 0,
+    }
+    print(f"  appearance log {proto._appearance_log}; recalibrated vector_field_motion weight "
+          f"{proto.loss_cfg.vector_field_motion_weight:.6f} (from 4.0); {secs:.2f} s")
+    for k, v in checks.items():
+        print(f"  {k}: {'ok' if v else 'FAIL'}")
+    if not all(checks.values()):
+        raise SystemExit("vector-field protocol phase failed")
+
+
+def time_conditioned_losses(torch, trainer, inputs, frames, extractors, appearance_loss,
+                            auxiliary_loss, vector_field_motion_loss, overflow_loss,
+                            make_conditioning, dynca_rollout):
+    """Each loss term of a 128-step edge_conditioned iteration alone, its
+    forward without autograd, on the frame of a 128-step rollout from the
+    pool (CUDA events, median): VGG16 + OT appearance, VGG16 content
+    (auxiliary VGG, the target's features included), MSOE + the vector-field
+    term, overflow."""
+    vgg, msoe = extractors
+    cfg, loss_cfg = trainer.nca_cfg, trainer.loss_state.cfg
+    it = content_inputs(torch, inputs, frames, np.random.RandomState(0), 2)
+    gen = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        params = {k: v.detach() for k, v in trainer.params.items()}
+        x0 = trainer.pool.states[:2].contiguous()
+        cond = make_conditioning(cfg, tuple(x0.shape[-2:]), cond_img=it["aux_gs"], batch=2)
+        state, rgb = dynca_rollout(params, x0, 0, cfg, COND_STEPS, cond)
+        before = dynca_rollout(params, x0, 1, cfg, 1, cond)[1]
+        field = trainer.loss_state.target_field
+        out = {
+            "OT appearance (VGG16)": cuda_ms(lambda: appearance_loss(
+                vgg, rgb, it["target_style"], "OT", it["target_style_features"], gen,
+                loss_cfg.ot_subsample), 2, rounds=3),
+            "auxiliary VGG (VGG16 content)": cuda_ms(lambda: auxiliary_loss(
+                vgg, rgb, it["aux_imgs"], "VGG"), 2, rounds=3),
+            "vector field (MSOE)": cuda_ms(lambda: vector_field_motion_loss(
+                msoe, before, rgb, field, COND_STEPS, loss_cfg.nca_base_num_steps,
+                loss_cfg.motion_img_size, loss_cfg.motion_strength_weight,
+                loss_cfg.motion_direction_weight), 2, rounds=3),
+            "overflow": cuda_ms(lambda: overflow_loss(state), 10, rounds=3),
+        }
+    print("  of the loss forward, each term alone without autograd, b2 at 256^2: "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in out.items()))
+    return out
+
+
+def time_edge_kernels(torch, fs, ft, trainer):
+    """The kernels of an edge_conditioned iteration alone at its shape
+    (c12/fc96, edges, 256^2 b2, f32), beside their plain versions and
+    bounds: the training forward (nca_step's chain form), nca_bwd_mlp,
+    nca_bwd_adjoint, and the pre-roll's tensor-core nca_step (a whole
+    ``fused_rollout_chw`` call of one step). CUDA events (median) and the
+    profiler's device time, a launch each. Returns {name: (ms, device ms,
+    plain ms, bound ms, bound by)}."""
+    cfg = trainer.nca_cfg
+    params = {k: v.detach() for k, v in trainer.params.items()}
+    packed = fs.pack_weights(params, 12, 3, "float32")
+    g = torch.Generator().manual_seed(5)
+    shape = (2, 12, 256, 256)
+    x = (torch.rand(shape, generator=g) - 0.5).cuda()
+    gx = torch.randn(shape, generator=g).cuda()
+    gx_acc = gx.clone()
+    cond = (torch.rand((2, 3, 256, 256), generator=g) - 0.5).cuda()
+    gp = torch.empty((2, 48, 256, 256), device="cuda")
+    slots = ft._zero_slots(2, 12, 256, 256, packed)
+    thr = fs.uniform_threshold(0.5)
+    hw = 2 * 256 * 256
+    spec = ft._Spec(3, 16, 0.5, "float32", True)
+    cases = {  # name: (kernel call, launches a call, plain call, bound)
+        "nca_step_chain (training forward)": (
+            lambda: ft._forward_card(packed, x, cond, spec), 16,
+            lambda: ft._forward_reference(packed, x, cond, spec),
+            step_bound_ms(12, 3, 96, hw, "float32")),
+        "nca_bwd_mlp": (
+            lambda: ft._launch_mlp(x, cond, gx, gp, None, slots, packed, "float32", 5, 17, thr),
+            1, lambda: ft.nca_bwd_mlp_reference(packed, x, cond, gx, 5, 17, 0.5),
+            tc_bound_ms("nca_bwd_mlp", 12, 3, 96, hw)),
+        "nca_bwd_adjoint": (
+            lambda: ft._launch_adjoint(gp, gx_acc), 1,
+            lambda: ft.nca_bwd_adjoint_reference(gp, gx),
+            train_bound_ms("nca_bwd_adjoint", 12, 3, 96, hw)),
+        "nca_step (pre-roll, tensor cores)": (
+            lambda: fs.fused_rollout_chw(params, x, 1, cfg, 1, cond), 1,
+            lambda: fs.fused_rollout_chw_reference(params, x, 1, cfg, 1, cond),
+            tc_bound_ms("nca_step", 12, 3, 96, hw)),
+    }
+    out = {}
+    for name, (fn, n, plain, (b, by)) in cases.items():
+        k = cuda_ms(fn, max(20 // n, 1), rounds=3) / n
+        dev = device_ms(torch, fn, reps=max(10 // n, 1)) / n
+        p = cuda_ms(plain, 1, rounds=3) / n
+        out[name] = (k, dev, p, b, by)
+        print(f"  {name} at the edge_conditioned shape 256^2 b2 f32: kernel {k:.4f} ms/launch "
+              f"({dev:.4f} device), plain {p:.4f} ms, bound {b:.5f} ms ({by}); {dev / b:.1f}x "
+              f"the bound by device time")
+    return out
+
 def main() -> int:
     import torch
 
@@ -2645,14 +3083,19 @@ def main() -> int:
         appearance_loss,
         precompute_target_style_features,
     )
+    from vsnca_tpu_torch.losses.auxiliary import auxiliary_loss
     from vsnca_tpu_torch.losses.orchestrator import LossState
+    from vsnca_tpu_torch.losses.overflow import overflow_loss
+    from vsnca_tpu_torch.losses.vector_field import vector_field_motion_loss
     from vsnca_tpu_torch.losses.video_motion import (
         precompute_target_motion_features,
         video_motion_loss,
     )
     from vsnca_tpu_torch.models import conditioned_nca as cn
+    from vsnca_tpu_torch.models import dynca as dynca_mod
     from vsnca_tpu_torch.models.dynca import (
         dynca_init,
+        dynca_rollout,
         make_conditioning,
         rollout_taps,
         tap_schedule,
@@ -2669,6 +3112,7 @@ def main() -> int:
     from vsnca_tpu_torch.train.encoder_trainer import ConditionedNCATrainer
     from vsnca_tpu_torch.train.optim import make_optimizer
     from vsnca_tpu_torch.train.trainer import DyNCATrainer, make_train_step
+    from vsnca_tpu_torch.train.vector_field_protocol import VectorFieldProtocol
     from vsnca_tpu_torch.train.video_motion_protocol import VideoMotionProtocol
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2696,6 +3140,9 @@ def main() -> int:
     train_err = phase_compare_train(torch, ft, NCAConfig, dynca_init)
     phase_train_step_parity(torch, make_train_step, LossState, LossConfig, NCAConfig,
                             dynca_init, vgg16_random_init, make_optimizer)
+    print("[2] training pair at the extra_channels cell (C 13, no conditioning) and the "
+          "edge_conditioned cell at 256^2 vs its plain version on the card")
+    cond_err = phase_compare_conditioned(torch, ft, NCAConfig, dynca_init)
     print("[2] ConditionedNCA kernels vs their plain versions on the card (C 20, D 64)")
     cnca_err = phase_compare_cnca(torch, fc, cn, ConditionedNCAConfig)
     print("[2] multiscale kernels (the video_motion cell, c16/fc128, scales (0, 1)) vs their "
@@ -2758,6 +3205,35 @@ def main() -> int:
     print("[3] video_motion protocol: VideoMotionProtocol, warmup 2 -> calibrate -> reinit -> "
           "main 1, full width")
     phase_vm_protocol(torch, ft, presets, VideoMotionProtocol, vm_extractors)
+    print("[3] edge_conditioned training path: DyNCATrainer, edge_conditioned c12/fc96/edges, "
+          "256^2, batch 2, pool 256, OT + auxiliary VGG x 10 + vector field x 1 + overflow x "
+          "1000, full VGG16 and MSOE (seeded fallbacks), 8 synthetic content frames drawn as the "
+          "CLI draws them")
+    phase_edge_step_parity(torch, make_train_step, LossState, presets, dynca_init,
+                           vgg16_random_init, msoe_random_init, make_optimizer)
+    cond_args = (torch, presets, DyNCATrainer, synthetic_style_image, synthetic_video,
+                 precompute_target_style_features)
+    extractors = vm_extractors[:2]
+    edge_trainer, edge_inputs, edge_frames = conditioned_trainer(*cond_args, "edge_conditioned",
+                                                                 extractors)
+    edge_launches, edge_steps = phase_conditioned_train(
+        torch, ft, fs, edge_trainer, edge_inputs, edge_frames,
+        [32, COND_STEPS, edge_trainer.sample_step_n(), edge_trainer.sample_step_n()],
+        "edge_conditioned")
+    phase_edge_cli(load_params_pickle)
+    print("[3] extra_channels: c13 (12 seed channels + the content's grayscale)/fc96, 256^2, "
+          "batch 2, pool 256")
+    xc_trainer, xc_inputs, xc_frames = conditioned_trainer(*cond_args, "extra_channels",
+                                                           extractors)
+    phase_extra_channels(torch, ft, fs, dynca_mod, xc_trainer, xc_inputs, xc_frames)
+    del xc_trainer, xc_inputs, xc_frames
+    print("[3] vector_field_motion: c12/fc96/pos_emb, 128^2, batch 4, pool 256, OT + vector "
+          "field x 4 (strength 15, direction 10, circular) + overflow x 100")
+    vf_trainer, vf_inputs, _ = conditioned_trainer(*cond_args, "vector_field_motion", extractors)
+    phase_conditioned_train(torch, ft, fs, vf_trainer, vf_inputs, None,
+                            [COND_STEPS, vf_trainer.sample_step_n()], "vector_field_motion")
+    print("[3] vector-field protocol: VectorFieldProtocol, recalibrate_every 1, 2 iterations")
+    phase_vf_protocol(torch, ft, presets, VectorFieldProtocol, extractors, synthetic_style_image)
     print("[3] multiscale stylizer: VideoStylizer, video_motion cell c16/fc128, 256^2, random "
           "weights (seed 0)")
     ms_styl_launches, ms_styl = phase_ms_stylizer(torch, fs, presets, VideoStylizer, dynca_init)
@@ -2962,6 +3438,42 @@ def main() -> int:
     profile_frames(torch, next_ms_frame, unit="multiscale frame")
     print(f"  card during timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
 
+    # the edge_conditioned iteration, its loss terms alone, and the
+    # vector_field_motion iteration
+    edge_rng = np.random.RandomState(1)
+    it_edge = content_inputs(torch, edge_inputs, edge_frames, edge_rng, 2)
+    edge_split = time_train_iteration(torch, edge_trainer, it_edge, COND_STEPS, reps=2)
+    print(f"  edge_conditioned iteration, {COND_STEPS} steps, 256^2 b2: "
+          f"{sum(edge_split.values()):.3f} ms = "
+          + ", ".join(f"{k} {v:.3f}" for k, v in edge_split.items()))
+    edge_loss_ms = time_conditioned_losses(
+        torch, edge_trainer, edge_inputs, edge_frames, extractors, appearance_loss,
+        auxiliary_loss, vector_field_motion_loss, overflow_loss, make_conditioning,
+        dynca_rollout)
+    torch.cuda.synchronize()
+    edge_held_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.reset_peak_memory_stats()
+    edge_trainer.train_iteration(it_edge, step_n=COND_STEPS)
+    edge_peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    t0 = time.perf_counter()
+    n_iters = 4
+    for _ in range(n_iters):
+        edge_trainer.train_iteration(content_inputs(torch, edge_inputs, edge_frames, edge_rng, 2))
+    edge_its = n_iters / (time.perf_counter() - t0)
+    print(f"  edge_conditioned DyNCATrainer.train_iteration at sampled step counts: "
+          f"{edge_its:.3f} iterations/s (host clock, {n_iters} iterations, loss read each); "
+          f"peak device memory of a {COND_STEPS}-step iteration {edge_peak_gb:.3f} GB, of which "
+          f"{edge_held_gb:.3f} GB held before it")
+    edge_busy = profile_frames(
+        torch, lambda: edge_trainer.train_iteration(it_edge, step_n=COND_STEPS), 1,
+        unit=f"{COND_STEPS}-step edge_conditioned iteration")
+    edge_kernels = time_edge_kernels(torch, fs, ft, edge_trainer)
+    vf_split = time_train_iteration(torch, vf_trainer, vf_inputs, COND_STEPS, reps=1)
+    print(f"  vector_field_motion iteration, {COND_STEPS} steps, 128^2 b4: "
+          f"{sum(vf_split.values()):.3f} ms = "
+          + ", ".join(f"{k} {v:.3f}" for k, v in vf_split.items()))
+    print(f"  card during timing: {smi('clocks.sm,power.draw,power.limit,temperature.gpu')}")
+
     # the TPU-layout forms, the registry's entries, the segment trade-off and
     # the benchmark harness
     form_times, entry_ms = time_forms(torch, fs, edge_cfg, edge_params)
@@ -3026,6 +3538,19 @@ def main() -> int:
         "vm_iterations_per_s": vm_its,
         "vm_peak_gb_144": vm_peak_gb,
         "vm_held_gb_before_144": vm_held_gb,
+        "cond_pair_max_abs_err": cond_err,
+        "edge_launches": edge_launches,
+        "edge_step_n": edge_steps,
+        **{f"edge_{k.replace(' ', '_')}_ms_{COND_STEPS}": v for k, v in edge_split.items()},
+        **{f"edge_loss_fwd_{k.split(' (')[0].replace(' ', '_')}_ms": v
+           for k, v in edge_loss_ms.items()},
+        "edge_iterations_per_s": edge_its,
+        "edge_peak_gb_128": edge_peak_gb,
+        "edge_held_gb_before_128": edge_held_gb,
+        "edge_profiler_busy_ms_and_window_ms": edge_busy,
+        **{f"edge_kernel_{k.split(' (')[0]}_{what}": v for k, t in edge_kernels.items()
+           for what, v in zip(("ms", "device_ms", "plain_ms", "bound_ms"), t)},
+        **{f"vf_{k.replace(' ', '_')}_ms_{COND_STEPS}": v for k, v in vf_split.items()},
         "ms_stylizer_ms_per_frame_256": ms_frame_ms,
         "ms_stylizer_fps_256": 1e3 / ms_frame_ms,
         "ms_stylizer_launches": ms_styl_launches,
@@ -3084,7 +3609,7 @@ def main() -> int:
         "route": "cuda",
         "source": "vsnca_tpu_torch/csrc/nca_step.cu",
         "replaces": rollout_rows,
-        "launches": f32_launches,
+        "launches": f32_launches + edge_launches["nca_step_tc"],
         "max_abs_err": max_err,
         "ms": timing["f32"]["kernel_ms_per_step"],
         "plain_ms": timing["f32"]["plain_ms_per_step"],
@@ -3102,8 +3627,9 @@ def main() -> int:
                     "_make_fwd_kernel_flat :942); vsnca_tpu/ops/pallas_train.py:759 "
                     "(_fwd_call, _make_fwd_kernel :390) and the recompute of "
                     "vsnca_tpu/ops/pallas_train.py:843 (_make_bwd_kernel :485)",
-        "launches": launches + train_launches["nca_step"],
-        "max_abs_err": max(max_err, stream_err, chain_err["nca_step_chain"]),
+        "launches": launches + train_launches["nca_step"] + edge_launches["nca_step"],
+        "max_abs_err": max(max_err, stream_err, chain_err["nca_step_chain"],
+                           cond_err["nca_step_chain"]),
         "ms": timing[256]["kernel_ms_per_step"],
         "plain_ms": timing[256]["plain_ms_per_step"],
         "bound_ms": timing[256]["bound_ms_per_step"],
@@ -3115,8 +3641,8 @@ def main() -> int:
         "route": "cuda",
         "source": "vsnca_tpu_torch/csrc/nca_train.cu",
         "replaces": bwd_rows,
-        "launches": train_launches[name],
-        "max_abs_err": train_err[name],
+        "launches": train_launches[name] + edge_launches[name],
+        "max_abs_err": max(train_err[name], cond_err[name]),
         "ms": k,
         "plain_ms": p,
         "bound_ms": b,

@@ -74,8 +74,9 @@ def test_benchmark_train_step_keys_and_unported_presets():
     assert (got["preset"], got["step_n"]) == ("static_texture", 4)
     assert got["train_iters_per_sec"] == pytest.approx(1 / got["sec_per_train_iter"])
     for preset in ("edge_conditioned", "extra_channels", "vector_field_motion"):
-        with pytest.raises(NotImplementedError, match="A6"):
-            bench.benchmark_train_step(preset, device="cpu")
+        got = bench.benchmark_train_step(preset, iters=1, step_n=4, img_size=32, device="cpu")
+        assert (got["preset"], got["step_n"]) == (preset, 4)
+        _finite_positive(got, ["sec_per_train_iter"])
 
 
 @pytest.mark.parametrize("step_n,reference_shape", [(66, True), (4, False)])

@@ -72,6 +72,20 @@ def test_kernel_widths(cuda, c_in, fc_dim):
     torch.testing.assert_close(got, want, **TOL["float32"])
 
 
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+def test_kernel_at_c13_without_conditioning_matches_plain(cuda, compute_dtype):
+    """The trainers' vector-field pre-roll at the extra_channels cell: 13
+    channels (a percept of 52 rows, not a multiple of the tensor-core
+    form's depth blocks of 16), no conditioning, batch 2."""
+    cfg = NCAConfig(c_in=13, seed_channels=12, fc_dim=96, padding_mode="circular")
+    params = dynca.dynca_init(torch.Generator().manual_seed(0), cfg, device=cuda)
+    x = (torch.rand((2, 13, 40, 72), generator=torch.Generator().manual_seed(1))
+         - 0.5).to(cuda)
+    got = fs.fused_rollout_chw(params, x, 3, cfg, 4, None, 0.5, compute_dtype)
+    want = fs.fused_rollout_chw_reference(params, x, 3, cfg, 4, None, 0.5, compute_dtype)
+    torch.testing.assert_close(got, want, **TOL[compute_dtype])
+
+
 def test_kernel_refuses_sizes_past_its_limits(cuda):
     cfg = NCAConfig(c_in=17, fc_dim=8)
     params = dynca.dynca_init(torch.Generator().manual_seed(0), cfg, device=cuda)
@@ -151,6 +165,34 @@ def test_training_pair_matches_plain(cuda, compute_dtype):
     _close(cr.grad, dcond, tol)
 
 
+@pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("shape", [(2, 13, 24, 40), (2, 13, 40, 72)])
+def test_training_pair_at_c13_without_conditioning_matches_plain(cuda, shape, compute_dtype):
+    """The extra_channels cell's pair: 13 channels (a percept of 52 rows,
+    not a multiple of nca_bwd_mlp's depth blocks of 16), no conditioning,
+    4 steps at rate 0.5; launches n + 2n."""
+    from vsnca_tpu_torch.ops import fused_train as ft
+
+    cfg = NCAConfig(c_in=13, seed_channels=12, fc_dim=96, padding_mode="circular")
+    params = dynca.dynca_init(torch.Generator().manual_seed(3), cfg, device=cuda)
+    g = torch.Generator().manual_seed(4)
+    x = (torch.rand(shape, generator=g) - 0.5).to(cuda)
+    gy = torch.randn(shape, generator=g).to(cuda)
+    p = {k: v.clone().requires_grad_() for k, v in params.items()}
+    xr = x.clone().requires_grad_()
+    before = ft.LAUNCHES
+    y = ft.fused_rollout_train(p, xr, 9, cfg, 4, None, 0.5, compute_dtype)
+    (y * gy).sum().backward()
+    assert ft.LAUNCHES == before + 12
+    want_y, grads, dx0, _ = ft.fused_rollout_train_reference(
+        params, x, 9, cfg, 4, None, gy, 0.5, compute_dtype)
+    tol = TRAIN_TOL[compute_dtype]
+    _close(y.detach(), want_y, TOL[compute_dtype]["atol"])
+    for k in grads:
+        _close(p[k].grad, grads[k], tol)
+    _close(xr.grad, dx0, tol)
+
+
 def test_dynca_rollout_takes_the_kernels_on_the_card(cuda):
     """``dynca_rollout`` on a CUDA tensor: with a gradient the training pair
     (n forward + 2n backward launches), without one the rollout kernel (n
@@ -221,6 +263,75 @@ def test_train_step_on_card_matches_cpu(cuda):
                          new_states.cpu())
     (lc, pc, sc), (lg, pg, sg) = out["cpu"], out["cuda"]
     assert lg == pytest.approx(lc, rel=1e-4)
+    for k in pc:
+        torch.testing.assert_close(pg[k], pc[k], rtol=0, atol=5e-5)
+    torch.testing.assert_close(sg, sc, **TOL["float32"])
+
+
+def test_edge_conditioned_train_step_on_card_matches_cpu(cuda):
+    """One edge_conditioned train step at full width (c12/fc96, edges; OT
+    appearance, auxiliary VGG, vector-field motion, overflow; full VGG16 and
+    MSOE from their seeded fallbacks) through the kernels against the same
+    step on the CPU, float32, 32^2, update rate 1, with the tolerances of
+    test_train_step_on_card_matches_cpu; on the card the training pair
+    runs step_n steps and the pre-roll one launch of the tensor-core step.
+    The target field lies along the MSOE flow of the first item's frames
+    (scaled by 1 + 0.2 x noise), so that the cosine gate lets the
+    vector-field term's strength part through and its value and gradient
+    are held too."""
+    from vsnca_tpu_torch.losses.orchestrator import LossState
+    from vsnca_tpu_torch.models.msoe import (
+        motion_pair_from_rgb,
+        msoe_forward,
+        msoe_random_init,
+    )
+    from vsnca_tpu_torch.models.vgg import vgg16_random_init
+    from vsnca_tpu_torch.ops import fused_train as ft
+    from vsnca_tpu_torch.train.optim import make_optimizer
+    from vsnca_tpu_torch.train.presets import edge_conditioned
+    from vsnca_tpu_torch.train.trainer import make_train_step
+
+    nca, loss_cfg, _ = edge_conditioned(32)
+    cfg = dataclasses.replace(nca, update_rate=1.0)
+    params = dynca.dynca_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    vgg = vgg16_random_init(torch.Generator().manual_seed(16), device="cpu")
+    msoe = msoe_random_init(torch.Generator().manual_seed(175), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    states = torch.rand((2, 12, 32, 32), generator=g) - 0.5
+    style = torch.rand((2, 3, 32, 32), generator=g) * 2 - 1
+    aux = torch.rand((2, 3, 32, 32), generator=g) * 2 - 1
+    cond = dynca.make_conditioning(cfg, (32, 32), cond_img=aux.mean(dim=1, keepdim=True),
+                                   batch=2, device="cpu")
+    with torch.no_grad():
+        pre, _ = dynca.dynca_rollout(params, states, 0, cfg, 1, cond, rollout_path="xla")
+        _, after = dynca.dynca_rollout(params, states, 0, cfg, 8, cond, rollout_path="xla")
+        flow = msoe_forward(msoe, motion_pair_from_rgb(dynca.to_rgb(pre), after, (32, 32)))[:1]
+    noise = np.random.RandomState(11).randn(*flow.shape).astype(np.float32)
+    field = flow * (1.0 + 0.2 * torch.from_numpy(noise))
+    out = {}
+    for dev in ("cpu", cuda):
+        p = {k: v.detach().clone().to(dev).requires_grad_() for k, v in params.items()}
+        state = LossState(cfg=loss_cfg, vgg_params=[{k: v.to(dev) for k, v in d.items()}
+                                                    for d in vgg],
+                          msoe_params={k: v.to(dev) for k, v in msoe.items()},
+                          target_field=field.to(dev))
+        step = make_train_step(cfg, state, "none", "auto")
+        inputs = {"target_style": style.to(dev), "aux_imgs": aux.to(dev),
+                  "aux_gs": aux.to(dev).mean(dim=1, keepdim=True)}
+        before = (dict(ft.KERNEL_LAUNCHES), dict(fs.KERNEL_LAUNCHES))
+        _, _, new_states, loss, logs = step(p, make_optimizer(p, 1e-3), states.to(dev), 4,
+                                            inputs, step_n=8)
+        out[str(dev)] = (float(loss), {k: v.detach().cpu() for k, v in p.items()},
+                         new_states.cpu(), {k: float(v) for k, v in logs.items()})
+    assert {k: ft.KERNEL_LAUNCHES[k] - before[0][k]
+            for k in ("nca_step", "nca_bwd_mlp", "nca_bwd_adjoint")} == dict.fromkeys(
+        ("nca_step", "nca_bwd_mlp", "nca_bwd_adjoint"), 8)
+    assert fs.KERNEL_LAUNCHES["nca_step"] - before[1]["nca_step"] == 1
+    (lc, pc, sc, gc), (lg, pg, sg, gg) = out["cpu"], out["cuda"]
+    assert set(gg) == set(gc) >= {"auxillary", "vector_field_motion", "appearance"}
+    assert gc["vector_field_motion-strength"] > 0
+    assert lg == pytest.approx(lc, rel=1e-4)
+    assert gg == pytest.approx(gc, rel=1e-4, abs=1e-6)
     for k in pc:
         torch.testing.assert_close(pg[k], pc[k], rtol=0, atol=5e-5)
     torch.testing.assert_close(sg, sc, **TOL["float32"])

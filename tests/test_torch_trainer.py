@@ -37,7 +37,7 @@ from vsnca_tpu_torch.convert import params_from_jax, vgg_from_jax
 from vsnca_tpu_torch.losses.appearance import precompute_target_style_features
 from vsnca_tpu_torch.losses.orchestrator import LossState
 from vsnca_tpu_torch.train.optim import make_optimizer
-from vsnca_tpu_torch.train.presets import PRESETS, static_texture, video_motion
+from vsnca_tpu_torch.train.presets import PRESETS
 from vsnca_tpu_torch.train.trainer import DyNCATrainer, make_train_step
 
 from test_torch_losses import np_vgg16
@@ -156,27 +156,51 @@ def test_trainer_iterations_match_jax_draw_for_draw():
 
 
 def test_presets_match_jax():
-    from vsnca_tpu.train.presets import static_texture as jstatic
-    from vsnca_tpu.train.presets import video_motion as jvideo
+    from vsnca_tpu.train.presets import PRESETS as JPRESETS
 
-    for mine_fn, theirs_fn in ((static_texture, jstatic), (video_motion, jvideo)):
-        for mine, theirs in zip(mine_fn(), theirs_fn()):
+    assert set(PRESETS) == set(JPRESETS) == {"static_texture", "vector_field_motion",
+                                             "video_motion", "extra_channels",
+                                             "edge_conditioned"}
+    for name, theirs_fn in JPRESETS.items():
+        mine_fn = PRESETS[name]
+        for size in ((), (64,), (256,)):
+            for mine, theirs in zip(mine_fn(*size), theirs_fn(*size)):
+                assert dataclasses.asdict(mine) == dataclasses.asdict(theirs), name
+    for field in ("diverge", "grad_45_30"):
+        for mine, theirs in zip(PRESETS["vector_field_motion"](128, field),
+                                JPRESETS["vector_field_motion"](128, field)):
             assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
-        for size in (64, 256):
-            for mine, theirs in zip(mine_fn(size), theirs_fn(size)):
-                assert dataclasses.asdict(mine) == dataclasses.asdict(theirs)
-    assert set(PRESETS) == {"static_texture", "video_motion"}
     assert dataclasses.asdict(TrainConfig()) == dataclasses.asdict(JTrainConfig())
     assert dataclasses.asdict(LossConfig()) == dataclasses.asdict(JLossConfig())
 
 
 def test_unported_loss_terms_raise():
+    """Every term of LossConfig builds; each still raises ValueError without
+    what it needs: VGG16 params (auxiliary with a VGG metric, content),
+    MSOE params (vector-field and video motion), the model config (style
+    consistency). The vector-field term builds its target field once, on
+    the MSOE params' device."""
     from vsnca_tpu_torch.losses.appearance import appearance_loss
     from vsnca_tpu_torch.losses.orchestrator import make_loss_fn
+    from vsnca_tpu_torch.losses.vector_field import get_motion_vector_field_by_name
 
-    for term in ("vector_field_motion_weight", "auxiliary_weight", "content_weight"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    vgg, msoe = [{"w": torch.zeros(1)}], {"w": torch.zeros(1)}
+    for term, missing, needs in (("auxiliary_weight", "VGG", dict(vgg_params=vgg)),
+                                 ("content_weight", "VGG", dict(vgg_params=vgg)),
+                                 ("vector_field_motion_weight", "MSOE",
+                                  dict(msoe_params=msoe)),
+                                 ("style_consistency_weight", "model config",
+                                  dict(nca_cfg=NCAConfig(**CELL)))):
+        with pytest.raises(ValueError, match=missing):
             make_loss_fn(LossState(cfg=LossConfig(**{term: 1.0})))
+        assert callable(make_loss_fn(LossState(cfg=LossConfig(**{term: 1.0}), **needs)))
+    assert callable(make_loss_fn(LossState(cfg=LossConfig(auxiliary_weight=1.0,
+                                                          auxiliary_loss_type="MSE"))))
+    state = LossState(cfg=LossConfig(vector_field_motion_weight=1.0, motion_img_size=(16, 24),
+                                     motion_vector_field_name="3block"), msoe_params=msoe)
+    make_loss_fn(state)
+    torch.testing.assert_close(state.target_field,
+                               get_motion_vector_field_by_name("3block", (16, 24)))
     with pytest.raises(ValueError, match="MSOE"):
         make_loss_fn(LossState(cfg=LossConfig(video_motion_weight=1.0)))
     img = torch.zeros((1, 3, 32, 32))

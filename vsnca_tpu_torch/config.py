@@ -84,8 +84,7 @@ class ConditionedNCAConfig:
 @dataclasses.dataclass(frozen=True)
 class LossConfig:
     """Weights and metric selections for the loss orchestrator (same fields
-    and defaults as ``vsnca_tpu.config.LossConfig``; the port computes the
-    overflow and Gram appearance terms so far, see
+    and defaults as ``vsnca_tpu.config.LossConfig``; the terms are computed by
     ``losses.orchestrator.make_loss_fn``)."""
 
     overflow_weight: float = 0.0

@@ -1,16 +1,19 @@
-"""Image and video preprocessing — the port's own copy of the parts of
-``vsnca_tpu/data/preprocess.py`` the trainers use (numpy and PIL only):
-center-crop to a square, resize, [0, 1]; NHWC float32 numpy arrays, as the
-JAX package returns them (the trainer moves them to the device as NCHW).
-GIF videos decode through PIL; mp4/avi (OpenCV in the JAX package) are not
-ported.
+"""Image and video preprocessing — the port's own copy of
+``vsnca_tpu/data/preprocess.py``: center-crop to a square, resize, [0, 1];
+NHWC float32 numpy arrays, as the JAX package returns them (the trainer
+moves them to the device as NCHW). GIF videos decode through PIL; mp4/avi
+(OpenCV in the JAX package) are not ported. The appearance-frame helpers
+(``compute_flow_strengths``, ``select_frame_by_vgg_median``) take NCHW
+tensors, as the port's models do.
 """
 
 from __future__ import annotations
 
 import os
+from typing import List, Sequence
 
 import numpy as np
+import torch
 
 
 def _center_crop_square(arr: np.ndarray) -> np.ndarray:
@@ -40,6 +43,58 @@ def preprocess_style_image(path_or_img, img_size=(128, 128),
     img = (Image.open(path_or_img) if isinstance(path_or_img, (str, os.PathLike))
            else path_or_img)
     return np.repeat(preprocess_pil_image(img, img_size), batch_size, axis=0)
+
+
+def preprocess_target_images(paths: Sequence[str], img_size=(128, 128),
+                             normal_rgb=False) -> np.ndarray:
+    """Image files → [T, H, W, 3] in [-1, 1] ([0, 1] with ``normal_rgb``),
+    each center-cropped and resized (preprocess.py:62)."""
+    frames = []
+    for p in paths:
+        f = preprocess_style_image(p, img_size, batch_size=1)[0]
+        frames.append(f if normal_rgb else f * 2.0 - 1.0)
+    return np.stack(frames)
+
+
+def rgb_to_grayscale_mean(x: np.ndarray) -> np.ndarray:
+    """Channel-mean grayscale of NHWC frames, keepdim — the reference's
+    RGBToGrayscale (preprocess.py:104), not the luma MSOE uses."""
+    return np.mean(x, axis=-1, keepdims=True)
+
+
+def compute_flow_strengths(msoe_params, video: torch.Tensor) -> List[float]:
+    """The mean MSOE flow magnitude of each consecutive frame pair of a
+    [T, 3, H, W] video in [-1, 1] (preprocess.py:111;
+    preprocess_texture.py:116-149)."""
+    from vsnca_tpu_torch.models.msoe import motion_pair_from_rgb, msoe_forward
+
+    size = tuple(video.shape[-2:])
+    out = []
+    with torch.no_grad():
+        for t in range(video.shape[0] - 1):
+            pair = motion_pair_from_rgb(video[t:t + 1], video[t + 1:t + 2], size)
+            flow = msoe_forward(msoe_params, pair)
+            out.append(float(torch.linalg.vector_norm(flow, dim=1).mean()))
+    return out
+
+
+def select_frame_by_vgg_median(vgg_params, image_seq: torch.Tensor) -> int:
+    """The frame whose relu4_1 VGG16 features lie closest to the sequence's
+    mean (preprocess.py:134; the reference's ``select_frame``).
+    image_seq: [T, 3, H, W] in [-1, 1]."""
+    from vsnca_tpu_torch.models.vgg import vgg16_features
+
+    with torch.no_grad():
+        feats = vgg16_features(vgg_params, (image_seq + 1.0) / 2.0, layers=(18,))[0]
+        dists = torch.linalg.vector_norm((feats - feats.mean(dim=0)).flatten(1), dim=1)
+    return int(torch.argmin(dists))
+
+
+def select_appearance_frame(flow_strengths: Sequence[float]) -> int:
+    """The frame pair with the largest mean flow magnitude
+    (preprocess.py:155; preprocess_texture.py:116-149)."""
+    total = float(sum(flow_strengths))
+    return int(np.argmax([s / total for s in flow_strengths]))
 
 
 def synthetic_style_image(img_size=(128, 128), batch_size: int = 4,

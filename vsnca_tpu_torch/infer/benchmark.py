@@ -254,9 +254,10 @@ def benchmark_train_step(
     steps 1, 65, ...; fit_video_motion.py:229-235), else 3 equal chunks of
     step_n // 2. ``rollout_path`` overrides TrainConfig.rollout_path,
     ``precompute_targets`` computes the target's VGG16 / MSOE features once,
-    ``loss_overrides`` replaces fields of the preset's LossConfig. The port
-    has the presets of ``train.presets.PRESETS``; the others raise
-    NotImplementedError (ROADMAP A6)."""
+    ``loss_overrides`` replaces fields of the preset's LossConfig. The
+    conditioned presets (edges, an extra content channel or an auxiliary
+    term) get a fixed batch of content frames, the synthetic style image
+    of seed 7, and its channel-mean grayscale."""
     from vsnca_tpu_torch.data.preprocess import synthetic_style_image
     from vsnca_tpu_torch.losses.appearance import precompute_target_style_features
     from vsnca_tpu_torch.losses.video_motion import precompute_target_motion_features
@@ -266,10 +267,6 @@ def benchmark_train_step(
     from vsnca_tpu_torch.train.presets import PRESETS
     from vsnca_tpu_torch.train.trainer import DyNCATrainer
 
-    if preset not in PRESETS:
-        raise NotImplementedError(
-            f"preset {preset!r} is not ported yet (ROADMAP A6); the port has "
-            f"{sorted(PRESETS)}")
     dev = resolve_device(device)
     nca_cfg, loss_cfg, train_cfg = PRESETS[preset](
         **({} if img_size is None else {"img_size": img_size}))
@@ -287,6 +284,13 @@ def benchmark_train_step(
         synthetic_style_image(train_cfg.img_size, train_cfg.batch_size) * 2 - 1
     ).permute(0, 3, 1, 2).contiguous().to(dev)
     inputs = {"target_style": style}
+    if (nca_cfg.conditioning == "edges" or nca_cfg.n_seed_channels < nca_cfg.c_in
+            or loss_cfg.auxiliary_weight):
+        aux = torch.from_numpy(
+            synthetic_style_image(train_cfg.img_size, train_cfg.batch_size, seed=7) * 2 - 1
+        ).permute(0, 3, 1, 2).contiguous().to(dev)
+        inputs["aux_imgs"] = aux
+        inputs["aux_gs"] = aux.mean(dim=1, keepdim=True)
     if step_n is None:
         step_n = train_cfg.step_buckets[len(train_cfg.step_buckets) // 2]
 

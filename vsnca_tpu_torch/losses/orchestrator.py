@@ -1,13 +1,13 @@
 """Loss orchestrator: the weighted objective from a LossConfig — the port's
-copy of ``vsnca_tpu/losses/orchestrator.py`` for the terms it has.
+copy of ``vsnca_tpu/losses/orchestrator.py``.
 
 ``make_loss_fn`` returns ``loss_fn(input_dict, generator=None) -> (total,
-logs)``; ``generator`` (a ``torch.Generator``) keys the OT subsample and the
-SlW projections, where the JAX function splits a key. The overflow,
-appearance ("Gram", "OT", "SlW", on one frame or a list of tapped frames)
-and video-motion terms are ported; any other term with a non-zero weight
-raises when the function is built (ROADMAP.md queue A6).
-``set_loss_weight`` is the video-motion calibration.
+logs)``; ``generator`` (a ``torch.Generator``) keys the OT subsample, the
+SlW projections and the style-consistency seed, where the JAX function
+splits a key. The terms, in the JAX function's order: overflow, auxiliary,
+vector-field motion, appearance ("Gram", "OT", "SlW", on one frame or a
+list of tapped frames), video motion, content and style consistency.
+``set_loss_weight`` is the video-motion and vector-field calibration.
 """
 
 from __future__ import annotations
@@ -18,41 +18,58 @@ from typing import Callable, Dict, Optional
 import numpy as np
 import torch
 
-from vsnca_tpu_torch.config import LossConfig
+from vsnca_tpu_torch.config import LossConfig, NCAConfig
 from vsnca_tpu_torch.losses.appearance import appearance_loss
+from vsnca_tpu_torch.losses.auxiliary import auxiliary_loss
+from vsnca_tpu_torch.losses.content import content_loss
 from vsnca_tpu_torch.losses.overflow import overflow_loss
+from vsnca_tpu_torch.losses.style_consistency import style_consistency_loss
+from vsnca_tpu_torch.losses.vector_field import (
+    get_motion_vector_field_by_name,
+    vector_field_motion_loss,
+)
 from vsnca_tpu_torch.losses.video_motion import video_motion_loss
-
-_NOT_PORTED = {
-    "auxiliary_weight": "A6",
-    "vector_field_motion_weight": "A6",
-    "style_consistency_weight": "A6",
-    "content_weight": "A6",
-}
 
 
 @dataclasses.dataclass
 class LossState:
     """The LossConfig with what its terms need: the VGG16 and MSOE
-    parameters."""
+    parameters, the vector-field term's target field (built once by
+    ``make_loss_fn``) and the model config the style-consistency term grows
+    a seed with."""
 
     cfg: LossConfig
     vgg_params: Optional[list] = None
     msoe_params: Optional[dict] = None
+    target_field: Optional[torch.Tensor] = None
+    nca_cfg: Optional[NCAConfig] = None
+
+
+def _needs(what: str, terms) -> str:
+    return (f"the {terms[0]} loss needs {what}" if len(terms) == 1
+            else f"the {', '.join(terms[:-1])} and {terms[-1]} losses need {what}")
 
 
 def make_loss_fn(state: LossState) -> Callable:
     """The composite loss of the enabled terms."""
     cfg = state.cfg
-    for name, item in _NOT_PORTED.items():
-        if getattr(cfg, name) != 0:
-            raise NotImplementedError(
-                f"loss term {name} is not ported yet (ROADMAP.md {item})"
-            )
-    if cfg.appearance_weight != 0 and state.vgg_params is None:
-        raise ValueError("the appearance loss needs VGG params")
-    if cfg.video_motion_weight != 0 and state.msoe_params is None:
-        raise ValueError("the video-motion loss needs MSOE params")
+    vgg_terms = [name for name, on in (
+        ("appearance", cfg.appearance_weight != 0),
+        ("auxiliary", cfg.auxiliary_weight != 0 and cfg.auxiliary_loss_type != "MSE"),
+        ("content", cfg.content_weight != 0)) if on]
+    msoe_terms = [name for name, on in (
+        ("vector-field motion", cfg.vector_field_motion_weight != 0),
+        ("video-motion", cfg.video_motion_weight != 0)) if on]
+    if vgg_terms and state.vgg_params is None:
+        raise ValueError(_needs("VGG params", vgg_terms))
+    if msoe_terms and state.msoe_params is None:
+        raise ValueError(_needs("MSOE params", msoe_terms))
+    if cfg.style_consistency_weight != 0 and state.nca_cfg is None:
+        raise ValueError(_needs("the model config (LossState.nca_cfg)", ["style-consistency"]))
+    if cfg.vector_field_motion_weight != 0 and state.target_field is None:
+        dev = next(iter(state.msoe_params.values())).device
+        state.target_field = get_motion_vector_field_by_name(
+            cfg.motion_vector_field_name, cfg.motion_img_size).to(dev)
 
     def loss_fn(input_dict: Dict, generator: Optional[torch.Generator] = None):
         total = torch.zeros((), device=input_dict["nca_state"].device)
@@ -61,6 +78,25 @@ def make_loss_fn(state: LossState) -> Callable:
             l = overflow_loss(input_dict["nca_state"])
             logs["overflow"] = l * cfg.overflow_weight
             total = total + cfg.overflow_weight * l
+        if cfg.auxiliary_weight != 0:
+            gen_list = input_dict["generated_image_list"]
+            l = 0.0
+            for g, a in zip(gen_list, input_dict["auxillary_image_list"]):
+                l = l + auxiliary_loss(state.vgg_params, g, a, cfg.auxiliary_loss_type,
+                                       generator, cfg.ot_subsample, cfg.slw_projections)
+            l = l / len(gen_list)
+            logs["auxillary"] = l * cfg.auxiliary_weight
+            total = total + cfg.auxiliary_weight * l
+        if cfg.vector_field_motion_weight != 0:
+            l, sub_logs, _ = vector_field_motion_loss(
+                state.msoe_params, input_dict["generated_image_before_nca"],
+                input_dict["generated_image_after_nca"], state.target_field,
+                input_dict["step_n"], cfg.nca_base_num_steps, cfg.motion_img_size,
+                cfg.motion_strength_weight, cfg.motion_direction_weight)
+            for k, v in sub_logs.items():
+                logs[f"vector_field_motion-{k}"] = v
+            logs["vector_field_motion"] = l * cfg.vector_field_motion_weight
+            total = total + cfg.vector_field_motion_weight * l
         if cfg.appearance_weight != 0:
             gen_list = input_dict["generated_image_list"]
             tgt_list = input_dict["target_image_list"]
@@ -93,6 +129,21 @@ def make_loss_fn(state: LossState) -> Callable:
                 target_features=input_dict.get("target_motion_feature_list"))
             logs["video_motion"] = l * cfg.video_motion_weight
             total = total + cfg.video_motion_weight * l
+        if cfg.content_weight != 0:
+            gen = (input_dict["generated_image_list"][0] + 1.0) / 2.0
+            tgt = (input_dict["content_image"] + 1.0) / 2.0
+            l = content_loss(state.vgg_params, gen, tgt)
+            logs["content"] = l * cfg.content_weight
+            total = total + cfg.content_weight * l
+        if cfg.style_consistency_weight != 0:
+            # min_steps 32: the reference's step-range minimum (the fit
+            # scripts' nca_step_range[0])
+            l = style_consistency_loss(
+                input_dict["nca_params"], state.nca_cfg, input_dict["target_image_list"][0],
+                generator if generator is not None else torch.default_generator,
+                min_steps=32, cond_img=input_dict.get("style_consistency_cond_img"))
+            logs["style_consistency"] = l * cfg.style_consistency_weight
+            total = total + cfg.style_consistency_weight * l
         return total, logs
 
     return loss_fn

@@ -53,6 +53,11 @@ def dynca_init(generator: torch.Generator, cfg: NCAConfig, device=None) -> dict:
     return {k: v.to(dev, torch.float32) for k, v in params.items()}
 
 
+def param_count(params: dict) -> int:
+    """The number of parameters (dynca.py:58)."""
+    return sum(int(p.numel()) for p in params.values())
+
+
 def make_conditioning(
     cfg: NCAConfig,
     shape_hw: Tuple[int, int],

@@ -1,16 +1,26 @@
-"""The MSOE pyramid's TF-consistent bilinear upsample — the port's copy of
-``vsnca_tpu/ops/grid_sample.py::tf_consistent_bilinear_upsample`` on NCHW
-tensors, as two separable products with a static interpolation matrix.
+"""Bilinear grid sampling and the MSOE pyramid's TF-consistent bilinear
+upsample — the port's copy of ``vsnca_tpu/ops/grid_sample.py`` on NCHW
+tensors. The upsample runs as two separable products with a static
+interpolation matrix.
 
 ``resize_matrix`` (grid_sample.py:60), the edge-clamped bilinear resize
-matrix, is ``ops.resize._bilinear_matrix`` in the port; ``grid_sample_bilinear``
-(:17) is used by no module of the JAX package and is not ported.
+matrix, is ``ops.resize._bilinear_matrix`` in the port.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+import torch.nn.functional as F
+
+
+def grid_sample_bilinear(imgs: torch.Tensor, grid: torch.Tensor) -> torch.Tensor:
+    """Sample NCHW images at normalized grid locations (grid_sample.py:17):
+    imgs [B, C, H, W]; grid [B, Ho, Wo, 2] with grid[..., 0] = x (width)
+    and grid[..., 1] = y (height) in [-1, 1]; taps outside the image
+    contribute zero. Returns [B, C, Ho, Wo]."""
+    return F.grid_sample(imgs, grid, mode="bilinear", padding_mode="zeros",
+                         align_corners=False)
 
 
 def _interp_matrix(xs: np.ndarray, size: int) -> np.ndarray:

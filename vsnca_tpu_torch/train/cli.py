@@ -1,12 +1,22 @@
-"""Training CLI — the port's counterpart of ``vsnca_tpu/train/cli.py`` for
-the presets it can train.
+"""Training CLI — the port's counterpart of ``vsnca_tpu/train/cli.py``, for
+the five presets.
 
 Usage (on the card; ``--device cpu`` runs the plain path):
     python -m vsnca_tpu_torch.train.cli --preset static_texture \
         [--style-image path | synthetic] [--max-iterations N] \
         [--img-size S] [--out out/run]
+    python -m vsnca_tpu_torch.train.cli --preset edge_conditioned \
+        [--target-images dir] [--max-iterations N] [--out out/edges]
+    python -m vsnca_tpu_torch.train.cli --preset vector_field_motion \
+        [--motion-field circular] [--max-iterations N] [--out out/vf]
     python -m vsnca_tpu_torch.train.cli --preset video_motion \
         [--target-video clip.gif] [--max-iterations N] [--out out/vm]
+
+``edge_conditioned`` and ``extra_channels`` train on content frames (a
+folder of PNG/JPEG images, or 8 synthetic drifting frames): each iteration
+draws a batch of them with replacement from this script's
+RandomState(seed), as the JAX CLI does, for the auxiliary term and, as
+their channel-mean grayscale, for the edge map or the content channel.
 
 ``video_motion`` fits a target video (a GIF, or a synthetic 16-frame
 drifting texture): MSOE from ``weights/msoe.npz`` or its seeded fallback,
@@ -19,7 +29,8 @@ Writes ``<out>/args.json`` and, at the end, ``<out>/checkpoint/state.pkl``
 in the JAX package's pickle layout (``vsnca_tpu/export/checkpoint.py``:
 {params, opt_state, pool, iteration} as numpy arrays), which
 ``convert.load_params_pickle`` reads; pool states are NCHW. Orbax
-checkpoints, preview artifacts, videos and ``--dp`` are not ported yet.
+checkpoints, ``--save-every`` previews, videos and ``--dp`` are not ported
+yet (ROADMAP.md A5, A9, A10).
 """
 
 from __future__ import annotations
@@ -42,8 +53,12 @@ def setup_args(argv=None):
     p.add_argument("--preset", default="static_texture", choices=sorted(PRESETS))
     p.add_argument("--style-image", default="synthetic",
                    help="style image path, or 'synthetic'")
+    p.add_argument("--target-images", default=None,
+                   help="folder of content/conditioning frames (conditioned presets)")
     p.add_argument("--target-video", default=None,
                    help="target dynamics video, a GIF (video_motion preset)")
+    p.add_argument("--motion-field", default="circular",
+                   help="target field of the vector_field_motion preset")
     p.add_argument("--img-size", type=int, default=None)
     p.add_argument("--max-iterations", type=int, default=None)
     p.add_argument("--batch-size", type=int, default=None)
@@ -83,18 +98,22 @@ def main(argv=None):
 
     from vsnca_tpu_torch.data.preprocess import (
         preprocess_style_image,
+        preprocess_target_images,
         preprocess_video,
         synthetic_style_image,
         synthetic_video,
     )
     from vsnca_tpu_torch.device import resolve_device
     from vsnca_tpu_torch.losses.appearance import precompute_target_style_features
+    from vsnca_tpu_torch.models.dynca import param_count
     from vsnca_tpu_torch.models.vgg import load_vgg16
     from vsnca_tpu_torch.train.presets import PRESETS
     from vsnca_tpu_torch.train.trainer import DyNCATrainer
 
     device = resolve_device(args.device)
     preset_kwargs = {"img_size": args.img_size} if args.img_size else {}
+    if args.preset == "vector_field_motion":
+        preset_kwargs["field"] = args.motion_field
     nca_cfg, loss_cfg, train_cfg = PRESETS[args.preset](**preset_kwargs)
     overrides = {"seed": args.seed}
     for field, value in (("max_iterations", args.max_iterations),
@@ -116,6 +135,18 @@ def main(argv=None):
         style = preprocess_style_image(args.style_image, hw, train_cfg.batch_size)
     style = torch.from_numpy(style * 2.0 - 1.0).permute(0, 3, 1, 2).contiguous().to(device)
 
+    target_frames = None
+    if args.target_images:
+        paths = sorted(os.path.join(args.target_images, f)
+                       for f in os.listdir(args.target_images)
+                       if f.lower().endswith((".png", ".jpg", ".jpeg")))
+        target_frames = preprocess_target_images(paths, hw)
+    elif args.preset in ("extra_channels", "edge_conditioned"):
+        target_frames = synthetic_video(hw, 8)
+    if target_frames is not None:
+        target_frames = torch.from_numpy(target_frames).permute(0, 3, 1, 2).contiguous().to(
+            device)
+
     target_video = None
     if args.target_video:
         target_video = preprocess_video(args.target_video, hw)
@@ -127,20 +158,19 @@ def main(argv=None):
     vgg, vgg_pretrained = load_vgg16(device=device)
     print(f"VGG16 weights: {'pretrained' if vgg_pretrained else 'RANDOM FALLBACK'}")
     msoe = None
-    if loss_cfg.video_motion_weight:
+    if loss_cfg.vector_field_motion_weight or loss_cfg.video_motion_weight:
         from vsnca_tpu_torch.models.msoe import load_msoe
 
         msoe, msoe_pretrained = load_msoe(device=device)
         print(f"MSOE weights: {'pretrained' if msoe_pretrained else 'RANDOM FALLBACK'}")
     trainer = DyNCATrainer(nca_cfg, loss_cfg, train_cfg, vgg_params=vgg, msoe_params=msoe,
                            device=device)
-    print(f"DyNCA param count: {sum(v.numel() for v in trainer.params.values())}; "
-          f"device {device}")
+    print(f"DyNCA param count: {param_count(trainer.params)}; device {device}")
 
-    inputs = {"target_style": style}
+    style_feats = None
     if loss_cfg.appearance_weight and not args.no_precompute:
         # constant across iterations: extract once
-        inputs["target_style_features"] = precompute_target_style_features(
+        style_feats = precompute_target_style_features(
             vgg, style, loss_cfg.appearance_loss_type, hw
         )
 
@@ -157,6 +187,14 @@ def main(argv=None):
     rng = np.random.RandomState(args.seed)
     t0 = time.time()
     for i in range(train_cfg.max_iterations):
+        inputs = {"target_style": style}
+        if style_feats is not None:
+            inputs["target_style_features"] = style_feats
+        if target_frames is not None:
+            idx = rng.choice(target_frames.shape[0], train_cfg.batch_size, replace=True)
+            aux = target_frames[torch.as_tensor(idx, device=device)]
+            inputs["aux_imgs"] = aux
+            inputs["aux_gs"] = aux.mean(dim=1, keepdim=True)
         iter_kw = {}
         if loss_cfg.video_motion_weight:
             from vsnca_tpu_torch.models.dynca import tap_schedule
@@ -168,8 +206,6 @@ def main(argv=None):
             nf = len(chunks)
             iter_kw = dict(step_n=step_n, tap_chunks=chunks, tail_steps=tail)
             start = rng.randint(0, max(target_video.shape[0] - nf, 1))
-            inputs.pop("target_motion_features", None)
-            inputs.pop("target_motion_frames", None)
             if motion_feats is not None:
                 inputs["target_motion_features"] = motion_feats[start:start + nf - 1]
             else:

@@ -1,20 +1,21 @@
 """DyNCA training harness — the port's copy of ``vsnca_tpu/train/trainer.py``
-for the branches ``static_texture`` and ``video_motion`` take, on one
-device.
+on one device.
 
-``make_train_step`` builds the step: conditioning, the BPTT rollout (the
+``make_train_step`` builds the step: the content-channel append of an
+ExtraChannels cell, conditioning, the one-step pre-roll without a gradient
+that gives the vector-field loss its flow baseline, the BPTT rollout (the
 fused kernel pair of ``ops/fused_train.py`` on a card where it applies, see
-``TrainConfig.rollout_path``), the loss, per-tensor gradient normalization
-and the Adam update. ``DyNCATrainer`` owns what the reference loop owns:
+``TrainConfig.rollout_path``), the loss, per-tensor gradient normalization,
+the Adam update and the strip of appended channels before the pool
+write-back. ``DyNCATrainer`` owns what the reference loop owns:
 pool sampling and the rollout length from one ``np.random.RandomState(seed)``
 in the JAX trainer's order (so both packages draw the same batch indices and
 step counts from the same seed), seed injection every K iterations, the NaN
 abort, the pool write-back and the history. The tapped (video-motion)
 schedule runs as the JAX trainer's does (trainer.py:161-288): one call of
 the training pair with in-kernel taps where the pair applies, else one
-rollout a chunk; appearance scores every tapped frame. The extra-channel content
-append, the vector-field pre-roll and device meshes are not ported yet
-(ROADMAP.md queue A); their losses raise in ``make_loss_fn``.
+rollout a chunk; appearance scores every tapped frame. Device meshes are
+not ported yet (ROADMAP.md queue A10).
 """
 
 from __future__ import annotations
@@ -40,6 +41,10 @@ from vsnca_tpu_torch.models.dynca import (
 from vsnca_tpu_torch.pool.sample_pool import DevicePool, inject_seed_into_batch
 from vsnca_tpu_torch.train.optim import NormalizedAdam, make_optimizer
 
+# the pre-roll's masks come from the step's seed with these bits flipped, so
+# that they are not the rollout's first mask (the JAX step splits a key)
+PREROLL_SEED_XOR = 0x5BD1E995
+
 
 def _tap_plan(n_motion_frames: int, tap_every: int, tap_chunks, tail_steps):
     """(frame chunks, tail) of a tapped iteration, or None: ``tap_chunks``
@@ -62,7 +67,9 @@ def make_train_step(nca_cfg: NCAConfig, loss_state: LossState,
     the rollout's masks and the loss's draws. ``inputs`` (NCHW tensors):
     ``target_style`` [B, 3, H, W] in [-1, 1]; ``target_style_features``
     (optional, from ``losses.appearance.precompute_target_style_features``);
-    ``aux_gs`` [B, 1, H, W] grayscale content for edge conditioning;
+    ``aux_imgs`` [B, 3, H, W] content frames in [-1, 1] (the auxiliary and
+    content terms); ``aux_gs`` [B, 1, H, W] their grayscale, for edge
+    conditioning and the ExtraChannels content channel;
     ``target_motion_frames`` [T, B, 3, H, W], the target video's window,
     or ``target_motion_features`` [T - 1, 320, h, w], its pairs' MSOE
     features (``losses.video_motion.precompute_target_motion_features``).
@@ -75,6 +82,12 @@ def make_train_step(nca_cfg: NCAConfig, loss_state: LossState,
     call with in-kernel taps; otherwise one rollout a chunk (the JAX
     trainer's chunked fallback and its two-level tap scan, which compute
     the same values).
+
+    With a vector-field term, one step from the same states without a
+    gradient gives the flow's "before" frame (trainer.py:118-126), with masks
+    of its own seed (``seed ^ PREROLL_SEED_XOR``): on a card the rollout
+    kernel, one launch. The new states returned are the first
+    ``n_seed_channels`` of the final state (trainer.py:362).
 
     ``rollout_path`` is ``rollout_route``'s: "auto" runs the fused kernel
     pair for a CUDA state where it applies and the eager steps on the CPU,
@@ -91,6 +104,10 @@ def make_train_step(nca_cfg: NCAConfig, loss_state: LossState,
     if rollout_path not in ROLLOUT_PATHS:
         raise ValueError(f"rollout_path must be one of {ROLLOUT_PATHS}")
     loss_fn = make_loss_fn(loss_state)
+    cfg = loss_state.cfg
+    # the pre-roll runs without a gradient: 'auto' takes the rollout kernel on
+    # a card ('fused' would take the training pair)
+    pre_path = "xla" if rollout_path == "xla" else "auto"
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
@@ -99,11 +116,20 @@ def make_train_step(nca_cfg: NCAConfig, loss_state: LossState,
                    n_motion_frames: int = 0, tap_every: int = 0, tap_chunks=(),
                    tail_steps: int = 0, mark: Optional[Callable[[str], None]] = None):
         mark = mark or (lambda name: None)
+        if nca_cfg.n_seed_channels < nca_cfg.c_in:
+            # the ExtraChannels content channel (experiments.py:211)
+            states = torch.cat([states, inputs["aux_gs"]], dim=1)
         cond = make_conditioning(nca_cfg, tuple(states.shape[-2:]),
                                  cond_img=inputs.get("aux_gs"), batch=states.shape[0],
                                  device=states.device)
         optimizer.zero_grad()
         mark("rollout forward")
+        rgb_before = None
+        if cfg.vector_field_motion_weight != 0:
+            with torch.no_grad():
+                pre, _ = dynca_rollout(params, states, seed ^ PREROLL_SEED_XOR, nca_cfg, 1,
+                                       cond, rollout_path=pre_path)
+            rgb_before = to_rgb(pre, nca_cfg.c_out)
         plan = _tap_plan(n_motion_frames, tap_every, tap_chunks, tail_steps)
         input_dict = {"step_n": step_n}
         if plan is None:
@@ -116,6 +142,7 @@ def make_train_step(nca_cfg: NCAConfig, loss_state: LossState,
             state_after, taps = rollout_taps(params, states, seed, nca_cfg, chunks, tail,
                                              cond, remat, rollout_path)
             frames = [to_rgb(t, nca_cfg.c_out) for t in taps]
+            rgb_after = frames[-1]
             n_frames = len(frames)
             # appearance scores every tapped frame (fit_video_motion.py:243-256)
             input_dict["generated_image_list"] = frames
@@ -133,6 +160,18 @@ def make_train_step(nca_cfg: NCAConfig, loss_state: LossState,
                 [inputs["target_style"]] * len(input_dict["generated_image_list"]))
         if "target_style_features" in inputs:
             input_dict["target_style_features"] = inputs["target_style_features"]
+        if rgb_before is not None:
+            input_dict["generated_image_before_nca"] = rgb_before
+            input_dict["generated_image_after_nca"] = rgb_after
+        if "aux_imgs" in inputs:
+            input_dict["auxillary_image_list"] = [inputs["aux_imgs"]]
+            input_dict["content_image"] = inputs["aux_imgs"]
+        if cfg.style_consistency_weight != 0:
+            # the live params for the fresh-seed grow, which runs without a
+            # gradient (the reference's no_grad)
+            input_dict["nca_params"] = params
+            if "aux_gs" in inputs:
+                input_dict["style_consistency_cond_img"] = inputs["aux_gs"]
         loss, logs = loss_fn(input_dict, torch.Generator().manual_seed(seed + 1))
         mark("loss backward")
         state_after.register_hook(lambda g: mark("rollout backward"))
@@ -140,7 +179,9 @@ def make_train_step(nca_cfg: NCAConfig, loss_state: LossState,
         mark("optimizer")
         optimizer.step()
         mark("end")
-        return (params, optimizer, state_after.detach(), loss.detach(),
+        # the pool write-back strips appended channels (experiments.py:269)
+        new_states = state_after.detach()[:, :nca_cfg.n_seed_channels]
+        return (params, optimizer, new_states, loss.detach(),
                 {k: v.detach() for k, v in logs.items()})
 
     return train_step
@@ -166,7 +207,7 @@ class DyNCATrainer:
         self.nca_cfg = nca_cfg
         self.train_cfg = train_cfg
         self.loss_state = LossState(cfg=loss_cfg, vgg_params=vgg_params,
-                                    msoe_params=msoe_params)
+                                    msoe_params=msoe_params, nca_cfg=nca_cfg)
         s = train_cfg.seed if seed is None else seed
         self.rng = np.random.RandomState(s)
         self.generator = torch.Generator().manual_seed(s)
