@@ -101,7 +101,19 @@ exit and no result line:
    iterations (the pair sees 13 channels, the pool keeps 12);
    vector_field_motion (128^2, batch 4) 2 iterations; ``VectorFieldProtocol``
    with recalibrate_every 1 runs 2 iterations, its recalibrated weight
-   median(appearance log) / 50;
+   median(appearance log) / 50. The lifecycle at edge_conditioned's widths:
+   the training CLI in a subprocess (128^2, 2 iterations, ``--save-every 1
+   --make-videos --eval-videos``) writes its args, metrics, previews, the
+   loss plot where matplotlib is installed, its checkpoint and its videos,
+   and ``--video-only --checkpoint`` writes the same control-video frames;
+   the checkpoint loads, exports to WebGL JSON and ``validate_export`` runs
+   it at 256^2 x 24 steps on the card (48 nca_step launches; a
+   video_motion-cell export, 48 nca_step_ms launches) within half a uint8
+   step and within 1e-4 of the CPU; ``VectorFieldProtocol`` with
+   ``save_every`` 1 writes its 1x and 2x videos and flow images, 770
+   tensor-core nca_step launches; timed: the CLI's wall time, a
+   checkpoint's write time and bytes, the control videos' frames/s and
+   validate_export's device time;
 4. times with CUDA events (median of repeats after warm-up): kernel and plain
    ms/step at 256^2 and 512^2, stylizer frames/s, the cell-update rate of
    ``bench.py``'s primary metric; on the host clock the server's frames/s and
@@ -161,6 +173,7 @@ from __future__ import annotations
 import dataclasses
 import io
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -3009,6 +3022,250 @@ def time_conditioned_losses(torch, trainer, inputs, frames, extractors, appearan
     return out
 
 
+# ------------------------------------- the product's lifecycle (PR 12's phase)
+
+LIFE_SIZE = 128  # the CLI lifecycle's grid: its pool, 256 x 12 x 128^2 x 4 B = 201 MB a checkpoint
+EXPORT_SIZE = 256  # validate_export's grid
+EXPORT_STEPS = 24
+
+
+def decode_mp4(path: str) -> np.ndarray:
+    """Every frame of an mp4, [T, H, W, 3] uint8 (OpenCV's BGR)."""
+    import cv2
+
+    cap = cv2.VideoCapture(path)
+    frames = []
+    while True:
+        ok, frame = cap.read()
+        if not ok:
+            break
+        frames.append(frame)
+    cap.release()
+    return np.stack(frames) if frames else np.zeros((0,), np.uint8)
+
+
+def uint8_bound(path: str) -> float:
+    """Half a uint8 step of the widest layer of an exported model, + 1e-6."""
+    with open(path) as f:
+        return max(layer["scale"] for layer in json.load(f)["layers"]) / 510.0 + 1e-6
+
+
+def export_float_rollout(torch, cfg, params, device: str):
+    """validate_export's float-model rollout alone, on ``device``: its seed
+    state, conditioning and seed (0), EXPORT_SIZE^2 x EXPORT_STEPS. Returns
+    (seed state, final state), both on the CPU."""
+    from vsnca_tpu_torch.models.dynca import dynca_rollout, dynca_seed, make_conditioning
+
+    n = EXPORT_SIZE
+    params = {k: torch.as_tensor(v).to(device, torch.float32) for k, v in params.items()}
+    x = dynca_seed(cfg, 1, n, generator=torch.Generator().manual_seed(0), device=device)
+    cond_img = (torch.zeros((1, 1, n, n), device=device)
+                if cfg.conditioning == "edges" else None)
+    cond = make_conditioning(cfg, (n, n), cond_img=cond_img, batch=1, device=device)
+    with torch.no_grad():
+        out, _ = dynca_rollout(params, x, 0, cfg, EXPORT_STEPS, cond)
+    return x.cpu(), out.cpu()
+
+
+def phase_lifecycle(torch, fs, ft, presets, dynca_init, VectorFieldProtocol, extractors,
+                    synthetic_style_image, card: str):
+    """The product's lifecycle on the card, at edge_conditioned's widths:
+    (1) ``python -m vsnca_tpu_torch.train.cli --preset edge_conditioned
+    --img-size 128 --max-iterations 2 --save-every 1 --make-videos
+    --eval-videos DIR`` in a subprocess writes args.json, metrics.jsonl, the
+    previews, the loss plot where matplotlib is installed, the checkpoint,
+    both control videos and DIR's clip stylized; ``--video-only
+    --checkpoint`` on that checkpoint writes the same control-video frames;
+    (2) in this process, the checkpoint loads with ``load_checkpoint``,
+    exports with ``save_webgl_model`` and ``validate_export`` runs at 256^2
+    x 24 steps on the card (48 nca_step launches; a video_motion-cell
+    export, scales (0, 1), 48 nca_step_ms launches) within half a uint8
+    step and within 1e-4 of the same call on the CPU, and the float model's
+    rollout on the card within TOL["float32"] of the CPU's; (3)
+    ``VectorFieldProtocol`` (vector_field_motion, 128^2, 2 iterations,
+    save_every 1) writes its 1x and 2x videos, flow images and, where
+    matplotlib is installed, the field plots; (4) times: the CLI's wall
+    time, a checkpoint's write time and bytes, the control videos' frames/s
+    after a one-frame warm-up (frames made and mp4 encode apart),
+    validate_export's device time. Returns
+    (launches by kernel, metrics)."""
+    import shutil
+
+    from vsnca_tpu_torch.config import edge_conditioned
+    from vsnca_tpu_torch.data.preprocess import synthetic_video
+    from vsnca_tpu_torch.export.checkpoint import load_checkpoint, save_checkpoint
+    from vsnca_tpu_torch.export.webgl import save_webgl_model
+    from vsnca_tpu_torch.export.webgl_sim import validate_export
+    from vsnca_tpu_torch.infer.stylize import generate_control_frames
+    from vsnca_tpu_torch.utils.display import plotting_available
+    from vsnca_tpu_torch.utils.video_writer import VideoWriter, generate_control_videos
+
+    root = "out/chip_smoke_lifecycle"
+    shutil.rmtree(root, ignore_errors=True)
+    plots = plotting_available()
+    checks, metrics = {}, {}
+    with VideoWriter(f"{root}/evals/clip.mp4", fps=30) as w:
+        for f in synthetic_video((LIFE_SIZE, LIFE_SIZE), 8):
+            w.add((f + 1.0) / 2.0)
+    out, again = f"{root}/edges", f"{root}/again"
+    base = [sys.executable, "-m", "vsnca_tpu_torch.train.cli", "--preset", "edge_conditioned",
+            "--img-size", str(LIFE_SIZE)]
+    runs = {}
+    for label, args in (("train", ["--max-iterations", "2", "--save-every", "1", "--log-every",
+                                   "1", "--make-videos", "--eval-videos", f"{root}/evals",
+                                   "--out", out]),
+                        ("video-only", ["--video-only", "--checkpoint", f"{out}/checkpoint",
+                                        "--out", again])):
+        t0 = time.perf_counter()
+        r = subprocess.run(base + args, capture_output=True, text=True, timeout=600)
+        runs[label] = time.perf_counter() - t0
+        print("\n".join(f"    {line}" for line in r.stdout.strip().splitlines()))
+        if r.returncode != 0:
+            print(r.stderr[-4000:])
+            raise SystemExit(f"the CLI ({label}) exited {r.returncode}")
+        runs[label + " stdout"] = r.stdout
+    for f in ("args.json", "metrics.jsonl", "artifacts/step_0.png", "artifacts/step_1.png",
+              "checkpoint/state.pkl", "checkpoint/metadata.json", "videos/style_img.mp4",
+              "videos/black_img.mp4", "videos/clip.mp4"):
+        checks[f"CLI wrote {f}"] = os.path.isfile(f"{out}/{f}") and os.path.getsize(
+            f"{out}/{f}") > 0
+    checks[f"loss plot written iff matplotlib is installed ({plots})"] = (
+        os.path.isfile(f"{out}/artifacts/loss_plot.png") == plots
+        and (plots or "matplotlib is not installed" in runs["train stdout"]))
+    with open(f"{out}/metrics.jsonl") as f:
+        checks["metrics.jsonl holds iterations 0 and 1"] = [
+            json.loads(line)["step"] for line in f] == [0, 1]
+    videos = {}
+    for name in ("style_img", "black_img"):
+        first, second = decode_mp4(f"{out}/videos/{name}.mp4"), decode_mp4(
+            f"{again}/videos/{name}.mp4")
+        videos[name] = first.shape
+        checks[f"--video-only's {name} frames equal the first run's"] = (
+            first.shape == (64, LIFE_SIZE, LIFE_SIZE, 3) and np.array_equal(first, second))
+    checks["the eval clip stylized, 8 frames"] = decode_mp4(f"{out}/videos/clip.mp4").shape == (
+        8, LIFE_SIZE, LIFE_SIZE, 3)
+
+    # the checkpoint, its WebGL export and validate_export on the card
+    state = load_checkpoint(f"{out}/checkpoint")
+    t0 = time.perf_counter()
+    save_checkpoint(f"{root}/rewrite", state)
+    write_s = time.perf_counter() - t0
+    ck_bytes = os.path.getsize(f"{root}/rewrite/state.pkl")
+    again_state = load_checkpoint(f"{root}/rewrite")
+    checks["checkpoint: pool NHWC [256, 128, 128, 12], rewritten exactly"] = (
+        state["pool"].shape == (256, LIFE_SIZE, LIFE_SIZE, 12)
+        and np.array_equal(again_state["pool"], state["pool"])
+        and all(np.array_equal(again_state["params"][k], v) for k, v in state["params"].items()))
+    edge_cfg = edge_conditioned()
+    vm_cfg = presets.video_motion()[0]
+    vm_params = dynca_init(torch.Generator().manual_seed(0), vm_cfg, device="cpu")
+    save_webgl_model(f"{root}/web/edges.json", [state["params"]], ["edges"],
+                     edge_conditioning=True)
+    save_webgl_model(f"{root}/web/video_motion.json", [vm_params], ["video_motion"],
+                     pos_emb=True, n_perception_scales=2)
+    launches = {}
+    for label, cfg, params, kernel in (("edges", edge_cfg, state["params"], "nca_step"),
+                                       ("video_motion", vm_cfg, vm_params, "nca_step_ms")):
+        path = f"{root}/web/{label}.json"
+
+        def run(device):
+            return validate_export(path, params, cfg, size=EXPORT_SIZE, n_steps=EXPORT_STEPS,
+                                   device=device)
+
+        reset_counts(fs, ft)
+        got = run("cuda")
+        torch.cuda.synchronize()
+        counts = {k: v for k, v in fs.KERNEL_LAUNCHES.items() if v}
+        launches[kernel] = counts.get(kernel, 0)
+        want = run("cpu")
+        bound = uint8_bound(path)
+        dev_ms = device_ms(torch, lambda: run("cuda"), reps=3)
+        metrics[f"validate_export_{label}_device_ms"] = dev_ms
+        metrics[f"validate_export_{label}_card"] = got
+        metrics[f"validate_export_{label}_cpu"] = want
+        print(f"  validate_export {label} at {EXPORT_SIZE}^2 x {EXPORT_STEPS} steps: card {got}; "
+              f"cpu {want}; uint8 half step {bound:.6g}; launches {counts}")
+        checks[f"{label}: {kernel} launched {2 * EXPORT_STEPS} times, nothing else"] = (
+            counts == {kernel: 2 * EXPORT_STEPS})
+        checks[f"{label}: weights within half a uint8 step on both devices"] = (
+            got["weight_max_abs_diff"] <= bound and want["weight_max_abs_diff"] <= bound)
+        checks[f"{label}: state and rgb differences within 1e-4 of the CPU's"] = all(
+            abs(got[k] - want[k]) <= 1e-4 for k in ("state_max_abs_diff", "rgb_mean_abs_diff"))
+        seed_state, card_state = export_float_rollout(torch, cfg, params, "cuda")
+        _, cpu_state = export_float_rollout(torch, cfg, params, "cpu")
+        err = float((card_state - cpu_state).abs().max())
+        metrics[f"validate_export_{label}_float_rollout_card_vs_cpu"] = err
+        print(f"  {label}: the float model's rollout, card against CPU: max|diff| {err:.3e} "
+              f"(tol {TOL['float32']:.0e})")
+        checks[f"{label}: the float model's rollout on the card within {TOL['float32']:.0e} of "
+               f"the CPU's"] = (err <= TOL["float32"] and bool(torch.isfinite(card_state).all())
+                                and float((cpu_state - seed_state).abs().max()) > 0)
+
+    # the vector-field protocol's dumps
+    nca, loss, train = presets.vector_field_motion()
+    style = synthetic_style_image(train.img_size, train.batch_size)
+    style = torch.from_numpy(style * 2.0 - 1.0).permute(0, 3, 1, 2).contiguous().cuda()
+    proto = VectorFieldProtocol(nca, loss, dataclasses.replace(train, max_iterations=2), style,
+                                recalibrate_every=0, save_every=1, out_dir=f"{root}/vf",
+                                device="cuda")
+    reset_counts(fs, ft)
+    t0 = time.perf_counter()
+    proto.run(*extractors)
+    torch.cuda.synchronize()
+    vf_s = time.perf_counter() - t0
+    vf_tc = fs.KERNEL_LAUNCHES["nca_step"]
+    launches["nca_step"] += vf_tc
+    n_frames = proto.video_frames
+    want_files = {"video_last.mp4", "video_large_last.mp4", "flow_gen0.jpg", "flow_gen1.jpg"}
+    if plots:
+        want_files |= {"vec_field_gen0.png", "vec_field_gen1.png", "vec_field_target.png"}
+    checks[f"protocol dumps written ({sorted(want_files)})"] = set(
+        os.listdir(f"{root}/vf")) == want_files
+    checks["protocol videos: 1x at 128^2, 2x at 256^2"] = (
+        decode_mp4(f"{root}/vf/video_last.mp4").shape == (n_frames, 128, 128, 3)
+        and decode_mp4(f"{root}/vf/video_large_last.mp4").shape == (n_frames, 256, 256, 3))
+    checks["protocol: tensor-core nca_step once a pre-roll and once a synthesis step"] = (
+        vf_tc == 2 + 2 * 2 * n_frames * loss.nca_base_num_steps)
+
+    # the control videos' frames/s, in this process, after one frame each at
+    # this shape to warm the stylizer and the mp4 writer; the frames (launches
+    # and readout) timed apart from the mp4 encode
+    style01 = np.asarray(synthetic_style_image((LIFE_SIZE, LIFE_SIZE), 1)[0])
+    generate_control_videos(f"{root}/warm", state["params"], edge_cfg, style01, n_frames=1,
+                            step_n=STEPS, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    seqs = generate_control_frames(state["params"], edge_cfg, style01 * 2.0 - 1.0, 64, STEPS,
+                                   device="cuda")
+    t1 = time.perf_counter()
+    for name, frames in zip(("style_img", "black_img"), seqs):
+        with VideoWriter(f"{root}/ctl/{name}.mp4", fps=30) as w:
+            for frame in frames:
+                w.add(frame)
+    t2 = time.perf_counter()
+    video_fps, frames_ms, encode_ms = 128 / (t2 - t0), 1e3 * (t1 - t0) / 128, 1e3 * (t2 - t1) / 128
+    shutil.rmtree(root)
+    metrics.update({"cli_train_s": runs["train"], "cli_video_only_s": runs["video-only"],
+                    "checkpoint_write_s": write_s, "checkpoint_bytes": ck_bytes,
+                    "control_video_frames_per_s": video_fps, "control_frame_ms": frames_ms,
+                    "control_encode_ms": encode_ms, "vf_protocol_s": vf_s,
+                    "matplotlib": plots})
+    print(f"  times ({card}): CLI train + previews + checkpoints + videos {runs['train']:.2f} s, "
+          f"--video-only {runs['video-only']:.2f} s (process start and kernel load included); "
+          f"checkpoint write {write_s:.3f} s for {ck_bytes} bytes "
+          f"({ck_bytes / write_s / 1e6:.1f} MB/s); control videos {video_fps:.1f} frames/s "
+          f"written (128^2, 24 bf16 steps a frame, mp4, after a warm-up: {frames_ms:.3f} ms a "
+          f"frame made, {encode_ms:.3f} ms a frame encoded); validate_export device time "
+          f"{metrics['validate_export_edges_device_ms']:.4f} ms (edges), "
+          f"{metrics['validate_export_video_motion_device_ms']:.4f} ms (video_motion); "
+          f"VectorFieldProtocol 2 iterations with 2 dumps {vf_s:.2f} s")
+    for k, v in checks.items():
+        print(f"  {k}: {'ok' if v else 'FAIL'}")
+    if not all(checks.values()):
+        raise SystemExit("lifecycle phase failed")
+    return launches, metrics
+
+
 def time_edge_kernels(torch, fs, ft, trainer):
     """The kernels of an edge_conditioned iteration alone at its shape
     (c12/fc96, edges, 256^2 b2, f32), beside their plain versions and
@@ -3234,6 +3491,12 @@ def main() -> int:
                             [COND_STEPS, vf_trainer.sample_step_n()], "vector_field_motion")
     print("[3] vector-field protocol: VectorFieldProtocol, recalibrate_every 1, 2 iterations")
     phase_vf_protocol(torch, ft, presets, VectorFieldProtocol, extractors, synthetic_style_image)
+    print("[3] the lifecycle at edge_conditioned's widths: the training CLI's artifacts, "
+          "checkpoints and videos (128^2), --video-only, the WebGL export and validate_export "
+          "(256^2 x 24 steps), the vector-field protocol's dumps")
+    life_launches, life_metrics = phase_lifecycle(torch, fs, ft, presets, dynca_init,
+                                                  VectorFieldProtocol, extractors,
+                                                  synthetic_style_image, card)
     print("[3] multiscale stylizer: VideoStylizer, video_motion cell c16/fc128, 256^2, random "
           "weights (seed 0)")
     ms_styl_launches, ms_styl = phase_ms_stylizer(torch, fs, presets, VideoStylizer, dynca_init)
@@ -3584,6 +3847,8 @@ def main() -> int:
         "cnca_gate_stress_max_scaled_err": stress_err,
         **{f"vgg_loss_fwd_bwd_{label.replace('^', '').replace(' ', '_')}_{which}_ms": v
            for label, t in vgg_pool_ms.items() for which, v in zip(("eq_pool", "torch_pool"), t)},
+        "lifecycle_launches": life_launches,
+        **{f"lifecycle_{k}": v for k, v in life_metrics.items()},
     }
     print("metrics " + json.dumps(metrics))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
@@ -3609,7 +3874,7 @@ def main() -> int:
         "route": "cuda",
         "source": "vsnca_tpu_torch/csrc/nca_step.cu",
         "replaces": rollout_rows,
-        "launches": f32_launches + edge_launches["nca_step_tc"],
+        "launches": f32_launches + edge_launches["nca_step_tc"] + life_launches["nca_step"],
         "max_abs_err": max_err,
         "ms": timing["f32"]["kernel_ms_per_step"],
         "plain_ms": timing["f32"]["plain_ms_per_step"],
@@ -3707,7 +3972,7 @@ def main() -> int:
         "source": "vsnca_tpu_torch/csrc/nca_step.cu",
         "replaces": "vsnca_tpu/ops/pallas_step.py:731 (fused_rollout_chw, "
                     "_make_kernel_roll_ms :308)",
-        "launches": ms_styl_launches,
+        "launches": ms_styl_launches + life_launches["nca_step_ms"],
         "max_abs_err": ms_err,
         "ms": ms_times["nca_step_ms_b1_bf16"][0],
         "plain_ms": ms_times["nca_step_ms_b1_bf16"][1],

@@ -1209,3 +1209,77 @@ def test_cnca_gate_is_the_plain_gate_bit_for_bit(cuda, hidden, use_life):
     assert xs.data_ptr() % 16 != 0
     fc.launch_gate(xs, ns, out, None, cfg)
     assert torch.equal(out, fc.cnca_gate_reference(x, xn, cfg)[0])
+
+
+# ------------------------------------------------------ the export and the CLI lifecycle
+
+@pytest.mark.parametrize("case", ["edges", "multiscale"])
+def test_validate_export_on_card_matches_cpu(cuda, tmp_path, case):
+    """validate_export at 64^2 x 8 steps on the card: both rollouts through
+    the rollout kernel (nca_step for scales (0,), nca_step_ms for (0, 1)),
+    each step one launch; the weights within half a uint8 step; the state
+    and rgb differences within 1e-4 of the same call on the CPU."""
+    import json
+
+    from vsnca_tpu_torch.export.webgl import save_webgl_model
+    from vsnca_tpu_torch.export.webgl_sim import validate_export
+
+    if case == "edges":
+        cfg = NCAConfig(c_in=12, fc_dim=96, conditioning="edges", padding_mode="circular")
+        flags, kernel = dict(edge_conditioning=True), "nca_step"
+    else:
+        cfg = NCAConfig(c_in=16, fc_dim=128, conditioning="pos_emb", padding_mode="circular",
+                        perception_scales=(0, 1))
+        flags, kernel = dict(pos_emb=True, n_perception_scales=2), "nca_step_ms"
+    params = dynca.dynca_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    path = str(tmp_path / "model.json")
+    save_webgl_model(path, [params], ["m"], **flags)
+    with open(path) as f:
+        bound = max(layer["scale"] for layer in json.load(f)["layers"]) / 510.0 + 1e-6
+    before = dict(fs.KERNEL_LAUNCHES)
+    got = validate_export(path, params, cfg, size=64, n_steps=8, seed=3, device="cuda")
+    after = dict(fs.KERNEL_LAUNCHES)
+    want = validate_export(path, params, cfg, size=64, n_steps=8, seed=3, device="cpu")
+    assert {k: after[k] - before[k] for k in after if after[k] != before[k]} == {kernel: 16}
+    assert got["weight_max_abs_diff"] <= bound and want["weight_max_abs_diff"] <= bound
+    for k in ("state_max_abs_diff", "rgb_mean_abs_diff"):
+        assert abs(got[k] - want[k]) <= 1e-4, (k, got, want)
+
+
+def test_cli_checkpoint_round_trip_on_card(cuda, tmp_path):
+    """The training CLI on the card (edge_conditioned, 32^2, batch 1, 1
+    iteration, save_every 1, control videos): its checkpoint holds the
+    trained params and the NHWC pool, loads back onto the card exactly,
+    and --video-only on it writes the same control-video frames."""
+    import cv2
+
+    from vsnca_tpu_torch.convert import load_params_pickle, pool_from_jax
+    from vsnca_tpu_torch.export.checkpoint import load_checkpoint
+    from vsnca_tpu_torch.train import cli
+
+    def frames(path):
+        cap, out = cv2.VideoCapture(path), []
+        while True:
+            ok, f = cap.read()
+            if not ok:
+                break
+            out.append(f)
+        cap.release()
+        return np.stack(out)
+
+    out, again = str(tmp_path / "run"), str(tmp_path / "again")
+    common = ["--preset", "edge_conditioned", "--img-size", "32", "--device", "cuda"]
+    cli.main(common + ["--batch-size", "1", "--max-iterations", "1", "--save-every", "1",
+                       "--make-videos", "--out", out])
+    cli.main(common + ["--video-only", "--checkpoint", f"{out}/checkpoint", "--out", again])
+    state = load_checkpoint(f"{out}/checkpoint")
+    assert state["pool"].shape == (256, 32, 32, 12) and int(state["iteration"]) == 1
+    params = load_params_pickle(f"{out}/checkpoint", "cuda")
+    for k, v in params.items():
+        assert v.device.type == "cuda"
+        np.testing.assert_array_equal(v.cpu().numpy(), state["params"][k])
+    pool = pool_from_jax(state["pool"], "cuda")
+    assert pool.shape == (256, 12, 32, 32) and bool(torch.isfinite(pool).all())
+    for name in ("style_img.mp4", "black_img.mp4"):
+        a, b = frames(f"{out}/videos/{name}"), frames(f"{again}/videos/{name}")
+        assert a.shape == (64, 32, 32, 3) and np.array_equal(a, b)

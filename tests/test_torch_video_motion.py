@@ -257,5 +257,7 @@ def test_preprocess_video_reads_a_gif(tmp_path):
     want = j_preprocess_video(path, (16, 16), max_frames=3)
     assert got.shape == (3, 16, 16, 3)
     np.testing.assert_array_equal(got, want)
-    with pytest.raises(ValueError, match="GIF only"):
-        preprocess_video(str(tmp_path / "clip.mp4"))
+    with pytest.raises(ValueError, match="unsupported video format"):
+        preprocess_video(str(tmp_path / "clip.webm"))
+    with pytest.raises(ValueError, match="no frames decoded"):
+        preprocess_video(str(tmp_path / "missing.mp4"))

@@ -14,9 +14,15 @@ layout and names so each module has an obvious counterpart:
   its ImageEncoder, as plain functions on tensors.
 - ``infer``    — persistent-state video stylizer and its HTTP server; the
   interactive grower of the encoder-conditioned NCA.
-- ``train``    — the static_texture DyNCA trainer and the encoder trainer,
-  each with its CLI.
-- ``convert``  — parameters from the JAX package (numpy arrays, pickles).
+- ``train``    — the DyNCA trainer (the five presets) and the encoder
+  trainer, each with its CLI; the video-motion and vector-field protocols.
+- ``export``   — checkpoints in the JAX package's pickle layout (both
+  packages read each other's), the WebGL JSON export and its validator.
+- ``utils``    — the video writer and the stylization drivers, flow images,
+  plots, the metrics logger, experiment-directory helpers; ``apps`` the
+  static results browser.
+- ``convert``  — parameters from the JAX package and back (numpy arrays,
+  pickles).
 
 Conventions that differ from the JAX package: states, frames-in-flight and
 conditioning maps are NCHW (``[B, C, H, W]``), the layout of the TPU fused

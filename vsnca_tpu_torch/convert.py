@@ -3,22 +3,22 @@
 The JAX package's DyNCA parameters are a plain dict of arrays in the layout
 the port keeps (``w1: [P, F]``, ``b1: [F]``, ``w2: [F, C]``, ``b2: [C]``), so
 carrying them across is a copy; its VGG16 kernels are HWIO and become OIHW;
-its ConditionedNCA tree becomes the port's flat dict.
-Its pickle checkpoints
-(``vsnca_tpu/export/checkpoint.py``, the ``state.pkl`` backend) hold numpy
-arrays only and load without JAX. Orbax checkpoints are not read here.
+its ConditionedNCA tree becomes the port's flat dict and back; its DyNCA
+pool is NHWC and becomes NCHW. Its pickle checkpoints
+(``vsnca_tpu/export/checkpoint.py``, the ``state.pkl`` backend) load
+without JAX through the port's ``export.checkpoint.load_checkpoint``;
+orbax checkpoints are refused there.
 """
 
 from __future__ import annotations
 
-import os
-import pickle
 from typing import Dict, List
 
 import numpy as np
 import torch
 
 from vsnca_tpu_torch.device import resolve_device
+from vsnca_tpu_torch.export.checkpoint import load_checkpoint
 
 
 def params_from_jax(np_params: dict, device=None) -> Dict[str, torch.Tensor]:
@@ -74,15 +74,46 @@ def cnca_params_from_jax(np_params: dict, device=None) -> Dict[str, torch.Tensor
     return out
 
 
+def cnca_params_to_jax(params: dict) -> dict:
+    """The inverse of ``cnca_params_from_jax``: the port's flat
+    ConditionedNCA dict (tensors or arrays) → the JAX package's tree of
+    float32 numpy arrays (1x1 kernels [1, 1, in, out], convolutions HWIO).
+    Also maps any dict keyed alike (Adam's moments)."""
+
+    def a(k, perm=None):
+        v = params[k]
+        v = np.array(v.detach().cpu() if hasattr(v, "detach") else v, dtype=np.float32)
+        return v.transpose(perm).copy() if perm is not None else v
+
+    out = {"perception_w": a("perception_w")}
+    for name in ("update1", "update2", "update3"):
+        out[name] = {"w": a(f"{name}.w")[None, None]}
+        if f"{name}.b" in params:
+            out[name]["b"] = a(f"{name}.b")
+    out["encoder"] = {"embed1": {"w": a("encoder.embed1.w", (2, 3, 1, 0)),
+                                 "b": a("encoder.embed1.b")},
+                      "embed2": {"w": a("encoder.embed2.w", (2, 3, 1, 0))}}
+    return out
+
+
 def load_params_pickle(path: str, device=None) -> Dict[str, torch.Tensor]:
-    """The ``params`` of a pickle checkpoint: ``path`` is the checkpoint
-    directory (holding ``state.pkl``) or the file itself. Unpickling can run
-    code: load only checkpoints you wrote."""
-    if os.path.isdir(path):
-        path = os.path.join(path, "state.pkl")
-    with open(path, "rb") as f:
-        state = pickle.load(f)
-    return params_from_jax(state["params"], device)
+    """The ``params`` of a pickle checkpoint of either package, in the
+    port's layout: ``path`` is the checkpoint directory (holding
+    ``state.pkl``) or the file itself. A ConditionedNCA tree (the JAX
+    layout, which both CLIs write) becomes the port's flat dict; flat
+    dicts (DyNCA, or an older port encoder checkpoint) load as they are."""
+    np_params = load_checkpoint(path)["params"]
+    if isinstance(np_params.get("encoder"), dict):  # the JAX ConditionedNCA tree
+        return cnca_params_from_jax(np_params, device)
+    return params_from_jax(np_params, device)
+
+
+def pool_from_jax(np_pool, device=None) -> torch.Tensor:
+    """A DyNCA pool as checkpoints hold it, NHWC [N, H, W, C] → the port's
+    NCHW float32 tensor on ``device``."""
+    dev = resolve_device(device)
+    return torch.from_numpy(np.array(np_pool, dtype=np.float32)).permute(0, 3, 1, 2) \
+        .contiguous().to(dev)
 
 
 def msoe_from_jax(np_msoe: dict, device=None) -> Dict[str, torch.Tensor]:

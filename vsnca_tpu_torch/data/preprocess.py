@@ -1,8 +1,8 @@
 """Image and video preprocessing — the port's own copy of
 ``vsnca_tpu/data/preprocess.py``: center-crop to a square, resize, [0, 1];
 NHWC float32 numpy arrays, as the JAX package returns them (the trainer
-moves them to the device as NCHW). GIF videos decode through PIL; mp4/avi
-(OpenCV in the JAX package) are not ported. The appearance-frame helpers
+moves them to the device as NCHW). GIF videos decode through PIL, mp4/avi
+through OpenCV, as in the JAX package. The appearance-frame helpers
 (``compute_flow_strengths``, ``select_frame_by_vgg_median``) take NCHW
 tensors, as the port's models do.
 """
@@ -120,18 +120,36 @@ def synthetic_video(img_size=(128, 128), n_frames: int = 8, seed: int = 0) -> np
 
 def preprocess_video(path: str, img_size=(128, 128), normal_rgb=False,
                      max_frames=None) -> np.ndarray:
-    """GIF → [T, H, W, 3] in [-1, 1] ([0, 1] with ``normal_rgb``), each
-    frame center-cropped and resized (preprocess.py:73)."""
+    """GIF/mp4/avi → [T, H, W, 3] in [-1, 1] ([0, 1] with ``normal_rgb``),
+    each frame center-cropped and resized (preprocess.py:73). GIFs decode
+    through PIL, mp4 and avi through OpenCV, as in the JAX package."""
     from PIL import Image, ImageSequence
 
-    if not path.endswith(".gif"):
-        raise ValueError(f"unsupported video format: {path} (GIF only; mp4/avi decode "
-                         "is not ported)")
     frames = []
-    for frame in ImageSequence.Iterator(Image.open(path)):
-        frames.append(preprocess_pil_image(frame, img_size)[0])
-        if max_frames and len(frames) >= max_frames:
-            break
+    if path.endswith(".gif"):
+        for frame in ImageSequence.Iterator(Image.open(path)):
+            frames.append(preprocess_pil_image(frame, img_size)[0])
+            if max_frames and len(frames) >= max_frames:
+                break
+    elif path.endswith((".avi", ".mp4")):
+        import cv2
+
+        cap = cv2.VideoCapture(path)
+        try:
+            while cap.isOpened():
+                ret, frame = cap.read()
+                if not ret:
+                    break
+                frame = cv2.cvtColor(frame, cv2.COLOR_BGR2RGB)
+                frames.append(preprocess_pil_image(Image.fromarray(frame), img_size)[0])
+                if max_frames and len(frames) >= max_frames:
+                    break
+        finally:
+            cap.release()
+    else:
+        raise ValueError(f"unsupported video format: {path}")
+    if not frames:
+        raise ValueError(f"no frames decoded from {path}")
     seq = np.stack(frames)
     return seq if normal_rgb else seq * 2.0 - 1.0
 

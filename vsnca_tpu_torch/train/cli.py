@@ -10,7 +10,7 @@ Usage (on the card; ``--device cpu`` runs the plain path):
     python -m vsnca_tpu_torch.train.cli --preset vector_field_motion \
         [--motion-field circular] [--max-iterations N] [--out out/vf]
     python -m vsnca_tpu_torch.train.cli --preset video_motion \
-        [--target-video clip.gif] [--max-iterations N] [--out out/vm]
+        [--target-video clip.mp4] [--max-iterations N] [--out out/vm]
 
 ``edge_conditioned`` and ``extra_channels`` train on content frames (a
 folder of PNG/JPEG images, or 8 synthetic drifting frames): each iteration
@@ -18,19 +18,29 @@ draws a batch of them with replacement from this script's
 RandomState(seed), as the JAX CLI does, for the auxiliary term and, as
 their channel-mean grayscale, for the edge map or the content channel.
 
-``video_motion`` fits a target video (a GIF, or a synthetic 16-frame
-drifting texture): MSOE from ``weights/msoe.npz`` or its seeded fallback,
+``video_motion`` fits a target video (a GIF, mp4 or avi, or a synthetic
+16-frame drifting texture): MSOE from ``weights/msoe.npz`` or its seeded fallback,
 the target's VGG16 and MSOE features computed once, each iteration's
 step_n drawn by the trainer (at least 65, so that two frames are tapped)
 and the reference's tap schedule (a frame after steps 1, 65, ...), the
 target window's start drawn from this script's own RandomState(seed).
 
-Writes ``<out>/args.json`` and, at the end, ``<out>/checkpoint/state.pkl``
-in the JAX package's pickle layout (``vsnca_tpu/export/checkpoint.py``:
-{params, opt_state, pool, iteration} as numpy arrays), which
-``convert.load_params_pickle`` reads; pool states are NCHW. Orbax
-checkpoints, ``--save-every`` previews, videos and ``--dp`` are not ported
-yet (ROADMAP.md A5, A9, A10).
+Writes ``<out>/args.json``, ``<out>/metrics.jsonl`` (and TensorBoard
+events where ``torch.utils.tensorboard`` imports) through
+``utils.logging.MetricsLogger``, and every ``--save-every`` iterations (the
+preset's 50 unless given; at ``i % save_every == 0``, as the JAX CLI)
+``<out>/artifacts/``: ``step_<i>.png``, a 64-step preview from a fresh seed
+state, and ``loss_plot.png`` where matplotlib is installed; and
+``<out>/checkpoint/state.pkl`` with ``metadata.json``, again at the end,
+in the JAX CLI's pickle layout (``export/checkpoint.py``: params, Adam's
+state, the pool NHWC, the iteration), which both packages read.
+``--make-videos`` then writes ``<out>/videos/``: the control videos
+(the style image and a black image as content, 64 frames each) and, with
+``--eval-videos DIR``, every mp4/gif of DIR stylized. ``--video-only
+--checkpoint DIR`` skips training and writes the videos from a checkpoint
+of either package. The preview's seed state and masks come from fixed int
+seeds (``PREVIEW_SEEDS``) in place of the JAX CLI's keys. ``--dp`` is not
+ported yet (ROADMAP.md A10).
 """
 
 from __future__ import annotations
@@ -39,7 +49,6 @@ import argparse
 import dataclasses
 import json
 import os
-import pickle
 import time
 
 import numpy as np
@@ -56,7 +65,7 @@ def setup_args(argv=None):
     p.add_argument("--target-images", default=None,
                    help="folder of content/conditioning frames (conditioned presets)")
     p.add_argument("--target-video", default=None,
-                   help="target dynamics video, a GIF (video_motion preset)")
+                   help="target dynamics video, GIF/mp4/avi (video_motion preset)")
     p.add_argument("--motion-field", default="circular",
                    help="target field of the vector_field_motion preset")
     p.add_argument("--img-size", type=int, default=None)
@@ -66,31 +75,69 @@ def setup_args(argv=None):
     p.add_argument("--seed", type=int, default=42)
     p.add_argument("--out", default="out/run")
     p.add_argument("--log-every", type=int, default=10)
+    p.add_argument("--save-every", type=int, default=None,
+                   help="iterations between previews and checkpoints (the preset's otherwise)")
+    p.add_argument("--video-only", action="store_true",
+                   help="skip training: load --checkpoint and only generate videos")
+    p.add_argument("--checkpoint", default=None,
+                   help="checkpoint directory that --video-only reads")
+    p.add_argument("--make-videos", action="store_true",
+                   help="after training: control videos, and stylize the --eval-videos folder")
+    p.add_argument("--eval-videos", default=None,
+                   help="folder of mp4/gif to stylize into <out>/videos")
     p.add_argument("--device", default=None, help="cuda (the default) or cpu")
     p.add_argument("--no-precompute", action="store_true",
                    help="recompute the target's VGG16 (and MSOE) features every iteration")
     return p.parse_args(argv)
 
 
-def save_checkpoint(path: str, trainer, nca_cfg) -> None:
-    """The trainer's state as numpy arrays in ``path/state.pkl`` plus
-    ``metadata.json`` (the JAX package's pickle backend layout)."""
-    os.makedirs(path, exist_ok=True)
-    adam = trainer.optimizer.adam
-    opt_state = {}
-    for name, p in trainer.params.items():
-        st = adam.state.get(p, {})
-        opt_state[name] = {k: np.asarray(v.detach().cpu()) for k, v in st.items()}
-    state = {
-        "params": {k: np.asarray(v.detach().cpu()) for k, v in trainer.params.items()},
-        "opt_state": opt_state,
-        "pool": np.asarray(trainer.pool.states.cpu()),
-        "iteration": trainer.iteration,
-    }
-    with open(os.path.join(path, "state.pkl"), "wb") as f:
-        pickle.dump(state, f)
-    with open(os.path.join(path, "metadata.json"), "w") as f:
-        json.dump({"nca": dataclasses.asdict(nca_cfg)}, f, indent=2, default=str)
+# the preview's seed state and update masks, in place of the JAX CLI's keys
+# [0, 1] and [0, 2]
+PREVIEW_SEEDS = (1, 2)
+PREVIEW_STEPS = 64
+
+
+def checkpoint_state(trainer) -> dict:
+    """The trainer's state in the JAX CLI's layout: params, Adam's state
+    (``NormalizedAdam.state_arrays``), the pool NHWC, the iteration."""
+    return {"params": trainer.params, "opt_state": trainer.optimizer.state_arrays(),
+            "pool": trainer.pool.states.permute(0, 2, 3, 1), "iteration": trainer.iteration}
+
+
+def preview(params, nca_cfg, hw, aux_gs, device) -> np.ndarray:
+    """``PREVIEW_STEPS`` steps from a fresh seed state, as the JAX CLI's
+    artifact dump rolls (cli.py:292-309): the content's grayscale (``aux_gs``
+    [B, 1, H, W], zeros without content) appended for an extra channel and
+    feeding the edge map. Returns [1, H, W, 3] in [0, 1]."""
+    from vsnca_tpu_torch.models.dynca import dynca_rollout, dynca_seed, make_conditioning
+
+    state_seed, mask_seed = PREVIEW_SEEDS
+    x = dynca_seed(nca_cfg, 1, hw, torch.Generator().manual_seed(state_seed), device)
+    gray = aux_gs[:1] if aux_gs is not None else torch.zeros((1, 1) + tuple(hw), device=device)
+    if nca_cfg.n_seed_channels < nca_cfg.c_in:
+        x = torch.cat([x, gray], dim=1)
+    cond = make_conditioning(nca_cfg, hw, cond_img=gray if nca_cfg.conditioning == "edges"
+                             else None, batch=1, device=device)
+    with torch.no_grad():
+        _, rgb = dynca_rollout(params, x, mask_seed, nca_cfg, PREVIEW_STEPS, cond)
+    return ((rgb.clamp(-1.0, 1.0) + 1.0) / 2.0).permute(0, 2, 3, 1).cpu().numpy()
+
+
+def write_videos(out: str, params, nca_cfg, style01: np.ndarray, hw, step_n: int,
+                 eval_videos, device) -> None:
+    """The control videos and, with ``eval_videos``, that folder stylized,
+    into ``out/videos`` (cli.py:159-178, 336-353)."""
+    from vsnca_tpu_torch.utils.video_writer import (
+        evaluate_folder_of_videos,
+        generate_control_videos,
+    )
+
+    video_dir = os.path.join(out, "videos")
+    generate_control_videos(video_dir, params, nca_cfg, style01, step_n=step_n, device=device)
+    if eval_videos:
+        evaluate_folder_of_videos(eval_videos, video_dir, params, nca_cfg, hw, step_n=step_n,
+                                  device=device)
+    print(f"videos written to {video_dir}")
 
 
 def main(argv=None):
@@ -103,13 +150,21 @@ def main(argv=None):
         synthetic_style_image,
         synthetic_video,
     )
+    from vsnca_tpu_torch.convert import load_params_pickle
     from vsnca_tpu_torch.device import resolve_device
+    from vsnca_tpu_torch.export.checkpoint import save_checkpoint
     from vsnca_tpu_torch.losses.appearance import precompute_target_style_features
     from vsnca_tpu_torch.models.dynca import param_count
     from vsnca_tpu_torch.models.vgg import load_vgg16
     from vsnca_tpu_torch.train.presets import PRESETS
     from vsnca_tpu_torch.train.trainer import DyNCATrainer
+    from vsnca_tpu_torch.utils.display import plotting_available, save_train_artifacts
+    from vsnca_tpu_torch.utils.logging import MetricsLogger
 
+    if args.checkpoint and not args.video_only:
+        raise SystemExit("--checkpoint is read by --video-only only")
+    if args.video_only and not args.checkpoint:
+        raise SystemExit("--video-only requires --checkpoint")
     device = resolve_device(args.device)
     preset_kwargs = {"img_size": args.img_size} if args.img_size else {}
     if args.preset == "vector_field_motion":
@@ -117,7 +172,8 @@ def main(argv=None):
     nca_cfg, loss_cfg, train_cfg = PRESETS[args.preset](**preset_kwargs)
     overrides = {"seed": args.seed}
     for field, value in (("max_iterations", args.max_iterations),
-                         ("batch_size", args.batch_size), ("lr", args.lr)):
+                         ("batch_size", args.batch_size), ("lr", args.lr),
+                         ("save_every", args.save_every)):
         if value is not None:
             overrides[field] = value
     train_cfg = dataclasses.replace(train_cfg, **overrides)
@@ -133,7 +189,9 @@ def main(argv=None):
         style = synthetic_style_image(hw, train_cfg.batch_size)
     else:
         style = preprocess_style_image(args.style_image, hw, train_cfg.batch_size)
-    style = torch.from_numpy(style * 2.0 - 1.0).permute(0, 3, 1, 2).contiguous().to(device)
+    style = style * 2.0 - 1.0
+    style01 = (style[0] + 1.0) / 2.0  # the control videos' style image, as the JAX CLI's
+    style = torch.from_numpy(style).permute(0, 3, 1, 2).contiguous().to(device)
 
     target_frames = None
     if args.target_images:
@@ -155,6 +213,13 @@ def main(argv=None):
     if target_video is not None:
         target_video = torch.from_numpy(target_video).permute(0, 3, 1, 2).contiguous().to(device)
 
+    video_steps = loss_cfg.nca_base_num_steps
+    if args.video_only:
+        params = load_params_pickle(args.checkpoint, device)
+        write_videos(args.out, params, nca_cfg, style01, hw, video_steps, args.eval_videos,
+                     device)
+        return
+
     vgg, vgg_pretrained = load_vgg16(device=device)
     print(f"VGG16 weights: {'pretrained' if vgg_pretrained else 'RANDOM FALLBACK'}")
     msoe = None
@@ -166,6 +231,9 @@ def main(argv=None):
     trainer = DyNCATrainer(nca_cfg, loss_cfg, train_cfg, vgg_params=vgg, msoe_params=msoe,
                            device=device)
     print(f"DyNCA param count: {param_count(trainer.params)}; device {device}")
+    plots = plotting_available()
+    if train_cfg.save_every and not plots:
+        print("matplotlib is not installed: the artifacts hold no loss plot")
 
     style_feats = None
     if loss_cfg.appearance_weight and not args.no_precompute:
@@ -184,45 +252,62 @@ def main(argv=None):
             print("skipping the motion-feature precompute: the video is past the memory "
                   "budget; the target window's features are recomputed every iteration")
 
-    rng = np.random.RandomState(args.seed)
-    t0 = time.time()
-    for i in range(train_cfg.max_iterations):
-        inputs = {"target_style": style}
-        if style_feats is not None:
-            inputs["target_style_features"] = style_feats
-        if target_frames is not None:
-            idx = rng.choice(target_frames.shape[0], train_cfg.batch_size, replace=True)
-            aux = target_frames[torch.as_tensor(idx, device=device)]
-            inputs["aux_imgs"] = aux
-            inputs["aux_gs"] = aux.mean(dim=1, keepdim=True)
-        iter_kw = {}
-        if loss_cfg.video_motion_weight:
-            from vsnca_tpu_torch.models.dynca import tap_schedule
+    logger = MetricsLogger(args.out, config={"preset": args.preset})
+    try:
+        rng = np.random.RandomState(args.seed)
+        t0 = time.time()
+        for i in range(train_cfg.max_iterations):
+            inputs = {"target_style": style}
+            if style_feats is not None:
+                inputs["target_style_features"] = style_feats
+            if target_frames is not None:
+                idx = rng.choice(target_frames.shape[0], train_cfg.batch_size, replace=True)
+                aux = target_frames[torch.as_tensor(idx, device=device)]
+                inputs["aux_imgs"] = aux
+                inputs["aux_gs"] = aux.mean(dim=1, keepdim=True)
+            iter_kw = {}
+            if loss_cfg.video_motion_weight:
+                from vsnca_tpu_torch.models.dynca import tap_schedule
 
-            # the reference's schedule (fit_video_motion.py:229-235): frames
-            # after steps 1, 65, ..., a frameless tail to step_n
-            step_n = max(trainer.sample_step_n(), 65)
-            chunks, tail = tap_schedule(step_n, 64)
-            nf = len(chunks)
-            iter_kw = dict(step_n=step_n, tap_chunks=chunks, tail_steps=tail)
-            start = rng.randint(0, max(target_video.shape[0] - nf, 1))
-            if motion_feats is not None:
-                inputs["target_motion_features"] = motion_feats[start:start + nf - 1]
-            else:
-                window = target_video[start:start + nf]
-                inputs["target_motion_frames"] = window[:, None].expand(
-                    (nf, train_cfg.batch_size) + tuple(window.shape[1:]))
-        sync = (i % args.log_every == 0) or (i == train_cfg.max_iterations - 1)
-        log = trainer.train_iteration(inputs, sync=sync, **iter_kw)
-        if sync and i % args.log_every == 0:
-            rate = (i + 1) / (time.time() - t0)
-            terms = " ".join(f"{k}={v:.4f}" for k, v in log.logs.items())
-            print(f"iter {i:5d} loss={log.loss:.4f} {terms} ({rate:.2f} it/s)",
-                  flush=True)
+                # the reference's schedule (fit_video_motion.py:229-235): frames
+                # after steps 1, 65, ..., a frameless tail to step_n
+                step_n = max(trainer.sample_step_n(), 65)
+                chunks, tail = tap_schedule(step_n, 64)
+                nf = len(chunks)
+                iter_kw = dict(step_n=step_n, tap_chunks=chunks, tail_steps=tail)
+                start = rng.randint(0, max(target_video.shape[0] - nf, 1))
+                if motion_feats is not None:
+                    inputs["target_motion_features"] = motion_feats[start:start + nf - 1]
+                else:
+                    window = target_video[start:start + nf]
+                    inputs["target_motion_frames"] = window[:, None].expand(
+                        (nf, train_cfg.batch_size) + tuple(window.shape[1:]))
+            sync = (i % args.log_every == 0) or (i == train_cfg.max_iterations - 1)
+            log = trainer.train_iteration(inputs, sync=sync, **iter_kw)
+            if sync and i % args.log_every == 0:
+                rate = (i + 1) / (time.time() - t0)
+                terms = " ".join(f"{k}={v:.4f}" for k, v in log.logs.items())
+                print(f"iter {i:5d} loss={log.loss:.4f} {terms} ({rate:.2f} it/s)",
+                      flush=True)
+                logger.log_scalars(i, {"loss": log.loss, "it_per_sec": rate, **log.logs})
+            if train_cfg.save_every and i % train_cfg.save_every == 0:
+                save_train_artifacts(
+                    os.path.join(args.out, "artifacts"), i,
+                    generated=preview(trainer.params, nca_cfg, hw, inputs.get("aux_gs"), device),
+                    loss_log=[float(h.loss) for h in trainer.history] if plots else None,
+                )
+                save_checkpoint(os.path.join(args.out, "checkpoint"), checkpoint_state(trainer),
+                                metadata={"nca": dataclasses.asdict(nca_cfg)})
 
-    save_checkpoint(os.path.join(args.out, "checkpoint"), trainer, nca_cfg)
+        save_checkpoint(os.path.join(args.out, "checkpoint"), checkpoint_state(trainer),
+                        metadata={"nca": dataclasses.asdict(nca_cfg)})
+    finally:
+        logger.close()
     print(f"done: {trainer.iteration} iterations, final loss "
           f"{trainer.history[-1].loss:.4f}")
+    if args.make_videos:
+        write_videos(args.out, trainer.params, nca_cfg, style01, hw, video_steps,
+                     args.eval_videos, device)
 
 
 if __name__ == "__main__":

@@ -9,8 +9,10 @@ Without ``--image-dir`` the goal images are the 8 frames of the synthetic
 drifting texture, as in the JAX CLI. Writes ``<out>/args.json`` and, every
 ``--save-every`` epochs and at the end (also after Ctrl-C or a NaN loss),
 ``<out>/checkpoint/state.pkl`` ({params, opt_state, iteration} as numpy
-arrays; the params in the port's flat layout, which
-``convert.load_params_pickle`` reads) with ``metadata.json``.
+arrays, through ``export/checkpoint.py``; the params, and Adam's moments,
+in the JAX package's tree layout, so that both packages read it:
+``convert.load_params_pickle`` gives the port's flat dict) with
+``metadata.json``.
 """
 
 from __future__ import annotations
@@ -19,10 +21,8 @@ import argparse
 import dataclasses
 import json
 import os
-import pickle
 import time
 
-import numpy as np
 import torch
 
 
@@ -53,22 +53,17 @@ def setup_args(argv=None):
     return p.parse_args(argv)
 
 
-def save_checkpoint(path: str, trainer, cfg) -> None:
-    """The trainer's params, Adam state and iteration as numpy arrays in
-    ``path/state.pkl``, the config in ``path/metadata.json``."""
-    os.makedirs(path, exist_ok=True)
-    adam = trainer.optimizer.adam
-    state = {
-        "params": {k: np.asarray(v.detach().cpu()) for k, v in trainer.params.items()},
-        "opt_state": {name: {k: np.asarray(v.detach().cpu())
-                             for k, v in adam.state.get(p, {}).items()}
-                      for name, p in trainer.params.items()},
-        "iteration": trainer.iteration,
-    }
-    with open(os.path.join(path, "state.pkl"), "wb") as f:
-        pickle.dump(state, f)
-    with open(os.path.join(path, "metadata.json"), "w") as f:
-        json.dump({"cfg": dataclasses.asdict(cfg)}, f, indent=2)
+def checkpoint_state(trainer) -> dict:
+    """The trainer's state in the JAX encoder CLI's layout: params and
+    Adam's moments as the JAX tree (``convert.cnca_params_to_jax``), the
+    iteration."""
+    from vsnca_tpu_torch.convert import cnca_params_to_jax
+
+    adam = trainer.optimizer.state_arrays()
+    return {"params": cnca_params_to_jax(trainer.params),
+            "opt_state": {"count": adam["count"], "mu": cnca_params_to_jax(adam["mu"]),
+                          "nu": cnca_params_to_jax(adam["nu"])},
+            "iteration": trainer.iteration}
 
 
 def main(argv=None):
@@ -82,6 +77,7 @@ def main(argv=None):
         synthetic_video,
     )
     from vsnca_tpu_torch.device import resolve_device
+    from vsnca_tpu_torch.export.checkpoint import save_checkpoint
     from vsnca_tpu_torch.models.vgg import load_vgg16
     from vsnca_tpu_torch.train.encoder_trainer import ConditionedNCATrainer
 
@@ -119,7 +115,8 @@ def main(argv=None):
           f"device {device}")
 
     def save():
-        save_checkpoint(os.path.join(args.out, "checkpoint"), trainer, cfg)
+        save_checkpoint(os.path.join(args.out, "checkpoint"), checkpoint_state(trainer),
+                        metadata={"cfg": dataclasses.asdict(cfg)})
 
     t0 = time.time()
     try:

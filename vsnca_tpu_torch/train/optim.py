@@ -13,6 +13,7 @@ from __future__ import annotations
 
 from typing import Dict, Sequence
 
+import numpy as np
 import torch
 
 
@@ -62,6 +63,19 @@ class NormalizedAdam:
     @property
     def lr(self) -> float:
         return self.adam.param_groups[0]["lr"]
+
+    def state_arrays(self) -> dict:
+        """Adam's state as numpy arrays: ``{"count": updates taken, "mu":
+        {name: first moment}, "nu": {name: second moment}}``, the fields of
+        optax's ``ScaleByAdamState`` (zeros before the first update)."""
+        mu, nu, count = {}, {}, 0
+        for name, p in self.params.items():
+            st = self.adam.state.get(p)
+            if st:
+                count = int(st["step"])
+            mu[name] = (st["exp_avg"] if st else torch.zeros_like(p)).detach().cpu().numpy()
+            nu[name] = (st["exp_avg_sq"] if st else torch.zeros_like(p)).detach().cpu().numpy()
+        return {"count": np.asarray(count, np.int32), "mu": mu, "nu": nu}
 
 
 def make_optimizer(params: Dict[str, torch.Tensor], lr: float,

@@ -8,25 +8,71 @@
    appearance log so far over 50 (``losses.orchestrator.set_loss_weight``),
    in place: unlike the video-motion protocol, no model, pool or optimizer
    is re-initialized;
-3. the NaN abort is the trainer's.
-
-The artifact dumps (1x and 2x control videos, the flow image and the
-vector-field plots, fit_vector_field_motion.py:285-298) and
-``synthesize_texture_video`` need the video writer and the display helpers,
-which are not ported yet (ROADMAP.md A9): ``save_every`` with an
-``out_dir`` raises.
+3. every ``save_every`` iterations (``(i + 1) % save_every == 0``) with an
+   ``out_dir``, dump artifacts (fit_vector_field_motion.py:285-298): the
+   texture synthesized at 1x and 2x size (``video_last.mp4``,
+   ``video_large_last.mp4``), the MSOE flow of its last two frames as a
+   colorwheel image (``flow_gen<i>.jpg``) and, where matplotlib is
+   installed, the generated and target fields' streamplots
+   (``vec_field_gen<i>.png``, ``vec_field_target.png``);
+4. the NaN abort is the trainer's.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Optional
 
+import numpy as np
 import torch
 
 from vsnca_tpu_torch.config import LossConfig, NCAConfig, TrainConfig
 from vsnca_tpu_torch.losses.orchestrator import set_loss_weight
 from vsnca_tpu_torch.train.trainer import DyNCATrainer
+
+
+def synthesize_texture_video(
+    params: dict,
+    nca_cfg: NCAConfig,
+    img_size,
+    path: str,
+    n_frames: int = 30,
+    step_n: int = 24,
+    size_factor: float = 1.0,
+    fps: float = 30.0,
+    seed: int = 0,
+    device=None,
+):
+    """Roll the learned dynamic texture from a fresh seed state, emitting one
+    frame every ``step_n`` steps (fit_vector_field_motion.py:172-187's
+    save_video: pure synthesis, no content conditioning; the state persists
+    across frames). ``size_factor`` scales the grid (the reference saves 1x
+    and 2x videos). ``seed`` draws the seed state and keys the masks of one
+    continuous rollout (frame i's steps are absolute steps i * step_n ...),
+    in place of the JAX function's split keys. Returns the frames, [H, W, 3]
+    in [0, 1]."""
+    from vsnca_tpu_torch.device import resolve_device
+    from vsnca_tpu_torch.models.dynca import dynca_rollout, dynca_seed, make_conditioning
+    from vsnca_tpu_torch.utils.video_writer import VideoWriter
+
+    dev = resolve_device(device)
+    h = int(img_size[0] * size_factor)
+    w = int(img_size[1] * size_factor)
+    state = dynca_seed(nca_cfg, 1, (h, w), torch.Generator().manual_seed(seed), dev)
+    if nca_cfg.n_seed_channels < nca_cfg.c_in:
+        state = torch.cat([state, torch.zeros((1, nca_cfg.c_in - nca_cfg.n_seed_channels, h, w),
+                                              device=dev)], dim=1)
+    cond = make_conditioning(nca_cfg, (h, w), batch=1, device=dev)
+    frames = []
+    with VideoWriter(path, fps=fps) as vw, torch.no_grad():
+        for i in range(n_frames):
+            state, rgb = dynca_rollout(params, state, seed, nca_cfg, step_n, cond,
+                                       first_step=i * step_n)
+            frame = (rgb[0].clamp(-1.0, 1.0).permute(1, 2, 0).cpu().numpy()) * 0.5 + 0.5
+            vw.add(frame)
+            frames.append(frame)
+    return frames
 
 
 @dataclasses.dataclass
@@ -45,10 +91,6 @@ class VectorFieldProtocol:
     device: Optional[str] = None
 
     def __post_init__(self):
-        if self.save_every and self.out_dir:
-            raise NotImplementedError(
-                "the vector-field protocol's artifact dumps need the video writer, which is "
-                "not ported yet (ROADMAP.md A9); pass save_every=0 or out_dir=None")
         self._appearance_log: list = []
         self.recalibrations: list = []  # (iteration, new weight)
         self._style_feats = None
@@ -81,6 +123,46 @@ class VectorFieldProtocol:
                                                 appearance_loss_log=self._appearance_log)
                 self.recalibrations.append((i, self.loss_cfg.vector_field_motion_weight))
                 trainer.rebuild_loss(self.loss_cfg)
+            if self.save_every and self.out_dir and (i + 1) % self.save_every == 0:
+                self._dump_artifacts(trainer, msoe_params, i)
             if callback and i % log_every == 0:
                 callback("train", i, log)
         return trainer
+
+    def _dump_artifacts(self, trainer: DyNCATrainer, msoe_params, i: int):
+        """1x/2x videos + flow image + generated/target vector-field
+        streamplots (fit_vector_field_motion.py:285-298); the streamplots
+        only where matplotlib is installed."""
+        from PIL import Image
+
+        from vsnca_tpu_torch.losses.vector_field import get_motion_vector_field_by_name
+        from vsnca_tpu_torch.models.msoe import motion_pair_from_rgb, msoe_forward
+        from vsnca_tpu_torch.utils.display import plotting_available, save_image_grid
+        from vsnca_tpu_torch.utils.flow_viz import flow_to_image, plot_vec_field
+
+        os.makedirs(self.out_dir, exist_ok=True)
+        kw = dict(n_frames=self.video_frames, step_n=self.loss_cfg.nca_base_num_steps,
+                  device=trainer.device)
+        frames = synthesize_texture_video(
+            trainer.params, self.nca_cfg, self.train_cfg.img_size,
+            os.path.join(self.out_dir, "video_last.mp4"), size_factor=1.0, **kw)
+        synthesize_texture_video(
+            trainer.params, self.nca_cfg, self.train_cfg.img_size,
+            os.path.join(self.out_dir, "video_large_last.mp4"), size_factor=2.0, **kw)
+        plots = plotting_available()
+        if msoe_params is not None and len(frames) >= 2:
+            a, b = (torch.from_numpy(f * 2.0 - 1.0).permute(2, 0, 1)[None].to(trainer.device)
+                    for f in frames[-2:])
+            with torch.no_grad():
+                pair = motion_pair_from_rgb(a, b, self.loss_cfg.motion_img_size)
+                flow = msoe_forward(msoe_params, pair)[0].permute(1, 2, 0).cpu().numpy()
+            save_image_grid(flow_to_image(flow)[None].astype(np.float32) / 255.0,
+                            os.path.join(self.out_dir, f"flow_gen{i}.jpg"))
+            if plots:
+                Image.fromarray(plot_vec_field(flow, name="generated")).save(
+                    os.path.join(self.out_dir, f"vec_field_gen{i}.png"))
+        if plots:
+            target = get_motion_vector_field_by_name(self.loss_cfg.motion_vector_field_name,
+                                                     self.loss_cfg.motion_img_size)[0].numpy()
+            Image.fromarray(plot_vec_field(target, name="target")).save(
+                os.path.join(self.out_dir, "vec_field_target.png"))
