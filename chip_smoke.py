@@ -113,7 +113,18 @@ exit and no result line:
    ``save_every`` 1 writes its 1x and 2x videos and flow images, 770
    tensor-core nca_step launches; timed: the CLI's wall time, a
    checkpoint's write time and bytes, the control videos' frames/s and
-   validate_export's device time;
+   validate_export's device time. The multi-device paths, each in 2 gloo
+   ranks sharing cuda:0 (NCCL takes one rank a card): ``DyNCATrainer(mesh=
+   ...)`` at static_texture (128^2, batch 4) and edge_conditioned (256^2,
+   batch 2) against one process (each rank's pair kernels sum(step_n)
+   times, the first write-back within TOL, static_texture's losses and
+   parameters within TRAIN_TOL), the CLI's ``--dp 1`` over NCCL and ``--dp
+   2`` refused on one card; ``spatial_rollout`` of the video_motion cell
+   (6-row halo) and the served edges cell (1-row halo) at 256^2 against the
+   dense rollout; ``MultiStyleTrainer`` with 4 static_texture models on the
+   card and 2 over a model axis of 2 ranks; every example's ``main`` at
+   64^2 on the kernels; timed: the iterations, the gradient all-reduce, the
+   sharded step and its halo bytes, the fleet, each example's wall time;
 4. times with CUDA events (median of repeats after warm-up): kernel and plain
    ms/step at 256^2 and 512^2, stylizer frames/s, the cell-update rate of
    ``bench.py``'s primary metric; on the host clock the server's frames/s and
@@ -3317,6 +3328,395 @@ def time_edge_kernels(torch, fs, ft, trainer):
               f"the bound by device time")
     return out
 
+# ---------------------------------------------------------------------------
+# multi-device paths: data-parallel training, the spatial rollout, the fleet,
+# the examples. Two ranks share the one card over gloo (NCCL takes one rank a
+# card); the CLI's --dp 1 runs NCCL with one rank.
+
+DP_STEPS = (32, 128, 128)  # the data-parallel cells' iterations
+SPATIAL_STEPS = 24  # a served frame's steps
+
+
+def launch_sum(counts: dict, *names) -> int:
+    """The launches of ``names`` (``ranks._counts()``' keys) in one rank."""
+    return sum(counts.get(n, 0) for n in names)
+
+
+def host_ms(torch, fn) -> float:
+    """One call of ``fn`` on the host clock, the card synchronized."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3
+
+
+def phase_data_parallel(torch, presets, DyNCATrainer, load_vgg16, load_msoe,
+                        synthetic_style_image, synthetic_video,
+                        precompute_target_style_features):
+    """``DyNCATrainer(mesh=...)`` in 2 gloo ranks on cuda:0 against the
+    one-process trainer, at full width: static_texture (c12/fc96, pos_emb,
+    128^2, batch 4 = 2 a rank, pool 256, Gram) and edge_conditioned
+    (c12/fc96, edges, 256^2, batch 2 = 1 a rank, pool 256, OT + auxiliary
+    VGG + vector field + overflow, one content draw as the CLI's first), 3
+    iterations at step_n 32, 128, 128. Every rank launches nca_step (the
+    chain forward), nca_bwd_mlp and nca_bwd_adjoint sum(step_n) times (and
+    edge_conditioned the tensor-core nca_step once an iteration, its
+    pre-roll); the first step matches the one-process step: its pool
+    write-back (the same masks and parameters) within TOL, and for
+    static_texture its loss and its averaged gradient within TRAIN_TOL (the
+    slots sum in another order; edge_conditioned's OT subsamples each
+    rank's rows, so its loss and gradient differ by design); both ranks
+    hold the same parameters. Then the CLI's
+    ``--dp 1`` over NCCL (2 iterations; its checkpoint loads) and ``--dp 2``
+    refused on one card. Returns (launches by kernel over both ranks,
+    timings)."""
+    import shutil
+
+    from vsnca_tpu_torch.convert import load_params_pickle
+    from vsnca_tpu_torch.parallel.mesh import run_ranks
+    from vsnca_tpu_torch.parallel.ranks import dp_train_rank
+
+    jobs, refs = [], []
+    rng = np.random.RandomState(0)
+    for name in ("static_texture", "edge_conditioned"):
+        nca, loss, train = presets.PRESETS[name]()
+        hw = train.img_size
+        style = synthetic_style_image(hw, train.batch_size) * 2.0 - 1.0
+        inputs = {"target_style": np.ascontiguousarray(style.transpose(0, 3, 1, 2))}
+        if name == "edge_conditioned":
+            frames = synthetic_video(hw, 8)
+            aux = frames[rng.choice(8, train.batch_size, replace=True)]
+            inputs["aux_imgs"] = np.ascontiguousarray(aux.transpose(0, 3, 1, 2))
+            inputs["aux_gs"] = inputs["aux_imgs"].mean(axis=1, keepdims=True)
+        jobs.append(dict(nca=nca, loss=loss, train=train, seed=train.seed, inputs=inputs,
+                         style_features=True, load_msoe=name == "edge_conditioned",
+                         iterations=[{"step_n": n} for n in DP_STEPS]))
+        refs.append(name)
+    t0 = time.perf_counter()
+    ranks = run_ranks(dp_train_rank, 2, "gloo", ["cuda:0", "cuda:0"], args=(jobs,),
+                      timeout=900)
+    spawn_s = time.perf_counter() - t0
+
+    vgg, _ = load_vgg16(device="cuda")
+    msoe, _ = load_msoe(device="cuda")
+    launches = {"nca_step_chain": 0, "nca_bwd_mlp": 0, "nca_bwd_adjoint": 0, "nca_step": 0}
+    checks, timing = {}, {"spawn_s": spawn_s}
+    total = sum(DP_STEPS)
+    for j, (job, name) in enumerate(zip(jobs, refs)):
+        one = DyNCATrainer(job["nca"], job["loss"], job["train"], vgg_params=vgg,
+                           msoe_params=msoe if job["load_msoe"] else None, device="cuda")
+        inputs = {k: torch.from_numpy(v).cuda() for k, v in job["inputs"].items()}
+        inputs["target_style_features"] = precompute_target_style_features(
+            vgg, inputs["target_style"], job["loss"].appearance_loss_type,
+            job["train"].img_size)
+        losses, one_ms, first_pool, first_grads = [], [], None, None
+        for n in DP_STEPS:
+            one_ms.append(host_ms(torch, lambda: losses.append(
+                one.train_iteration(inputs, step_n=n).loss)))
+            if first_pool is None:
+                first_pool = one.pool.gather(one.last_batch_idx).clone()
+                first_grads = {k: v.grad.clone() for k, v in one.params.items()}
+        r0, r1 = ranks[0][j], ranks[1][j]
+        dp_losses = [log["loss"] for log in r0["logs"]]
+        first_err = float((torch.from_numpy(r0["first_rows"]).cuda() - first_pool).abs().max())
+        param_err = max(scaled_err(torch.from_numpy(r0["params"][k]).cuda(), v.detach())
+                        for k, v in one.params.items())
+        grad_err = max(scaled_err(torch.from_numpy(r0["first_grads"][k]).cuda(), v)
+                       for k, v in first_grads.items())
+        loss_err = abs(dp_losses[0] - losses[0]) / abs(losses[0])
+        for r, rank in enumerate(ranks):
+            c = rank[j]["launches"]
+            checks[f"{name} rank {r}: nca_step == nca_bwd_mlp == nca_bwd_adjoint == "
+                   f"sum(step_n)"] = (c["train:nca_step"] == c["train:nca_bwd_mlp"]
+                                      == c["train:nca_bwd_adjoint"] == total)
+            launches["nca_step_chain"] += c["train:nca_step"]
+            launches["nca_bwd_mlp"] += c["train:nca_bwd_mlp"]
+            launches["nca_bwd_adjoint"] += c["train:nca_bwd_adjoint"]
+            launches["nca_step"] += c["step:nca_step"]
+            if name == "edge_conditioned":
+                checks[f"{name} rank {r}: the pre-roll's tensor-core nca_step once an "
+                       "iteration"] = c["step:nca_step"] == len(DP_STEPS)
+        checks[f"{name}: first write-back within TOL of one process"] = \
+            first_err <= TOL["float32"]
+        checks[f"{name}: losses finite"] = bool(np.all(np.isfinite(dp_losses)))
+        checks[f"{name}: both ranks hold the same parameters"] = all(
+            np.array_equal(r0["params"][k], r1["params"][k]) for k in r0["params"])
+        if name == "static_texture":
+            checks[f"{name}: first loss within TRAIN_TOL"] = loss_err <= TRAIN_TOL["float32"]
+            checks[f"{name}: first gradient within TRAIN_TOL"] = \
+                grad_err <= TRAIN_TOL["float32"]
+        ar = r0["allreduce_ms"]
+        timing[name] = {"dp_ms": r0["ms"], "one_ms": one_ms, "allreduce_ms": ar,
+                        "first_writeback_err": first_err, "first_grad_err": grad_err,
+                        "first_loss_err": loss_err, "param_err_after": param_err}
+        print(f"  {name}: 2 ranks on cuda:0, iterations {DP_STEPS}: "
+              f"{', '.join(f'{t:.3f}' for t in r0['ms'])} ms (host clock, rank 0) against one "
+              f"process {', '.join(f'{t:.3f}' for t in one_ms)} ms; gradient all-reduce "
+              f"(gloo, through host memory) median {statistics.median(ar):.3f} ms of "
+              f"{len(ar)}; losses {dp_losses} vs {losses} (first: relative {loss_err:.3g}); "
+              f"first write-back max |diff| {first_err:.3g}; first gradient {grad_err:.3g} "
+              f"of its largest; parameters after {len(DP_STEPS)} steps {param_err:.3g} of "
+              f"their largest (not held: the normalized Adam step and cuDNN's VGG16 "
+              f"backward order)")
+        del one, inputs
+    torch.cuda.empty_cache()
+
+    out = "out/chip_smoke_dp1"
+    shutil.rmtree(out, ignore_errors=True)
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "vsnca_tpu_torch.train.cli", "--preset", "static_texture",
+         "--max-iterations", "2", "--log-every", "1", "--dp", "1", "--out", out],
+        capture_output=True, text=True, timeout=600)
+    timing["cli_dp1_s"] = time.perf_counter() - t0
+    print("\n".join(f"    {line}" for line in r.stdout.strip().splitlines()))
+    if r.returncode != 0:
+        print(r.stderr[-4000:])
+        raise SystemExit(f"the training CLI with --dp 1 exited {r.returncode}")
+    checks["CLI --dp 1 (NCCL, one rank): checkpoint loads"] = \
+        tuple(load_params_pickle(f"{out}/checkpoint", "cpu")["w1"].shape) == (50, 96)
+    shutil.rmtree(out)
+    n_cards = torch.cuda.device_count()
+    r = subprocess.run(
+        [sys.executable, "-m", "vsnca_tpu_torch.train.cli", "--preset", "static_texture",
+         "--max-iterations", "1", "--dp", str(n_cards + 1), "--out", out],
+        capture_output=True, text=True, timeout=600)
+    refusal = f"--dp {n_cards + 1} needs {n_cards + 1} CUDA devices, {n_cards} visible"
+    checks[f"CLI --dp {n_cards + 1} refused: '{refusal}'"] = (r.returncode != 0
+                                                              and refusal in r.stderr)
+    shutil.rmtree(out, ignore_errors=True)
+    print(f"  CLI --dp 1 over NCCL: {timing['cli_dp1_s']:.1f} s (process start included); "
+          f"the rank spawn and both cells: {spawn_s:.1f} s")
+    for k, v in checks.items():
+        print(f"  {k}: {'ok' if v else 'FAIL'}")
+    if not all(checks.values()):
+        raise SystemExit("data-parallel phase failed")
+    return launches, timing
+
+
+def phase_spatial(torch, presets, dynca_init, make_conditioning, dynca_rollout, fs):
+    """``spatial_rollout`` in 2 gloo ranks on cuda:0, 128 rows each, against
+    the dense rollout on the card, 24 steps at update_rate 0.5 (the served
+    rate), b1: the video_motion cell (c16/fc128, pos_emb, scales (0, 1),
+    circular, 256^2, a 6-row halo) and the served edges cell (c12/fc96,
+    edges, circular, 256^2, a 1-row halo). Held within TOL["float32"] of
+    the dense plain rollout (the same masks: keyed by the global pixel) and
+    of the dense rollout kernels; plain ops only (no kernel launch in the
+    ranks). Returns timings."""
+    from vsnca_tpu_torch.parallel.mesh import run_ranks
+    from vsnca_tpu_torch.parallel.ranks import spatial_rank
+
+    cells = []
+    g = torch.Generator().manual_seed(5)
+    for name, cfg in (("video_motion", presets.video_motion()[0]),
+                      ("edges", presets.edge_conditioned()[0])):
+        params = dynca_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+        x = torch.rand((1, cfg.c_in, 256, 256), generator=g) - 0.5
+        if cfg.conditioning == "edges":
+            cond = make_conditioning(cfg, (256, 256), cond_img=torch.rand((1, 1, 256, 256),
+                                                                          generator=g))
+        else:
+            cond = make_conditioning(cfg, (256, 256), batch=1, device="cpu")
+        cells.append((name, cfg, params, x, cond))
+    jobs = [dict(cfg=cfg, params={k: v.numpy() for k, v in p.items()}, x=x.numpy(),
+                 cond=cond.numpy(), seed=9, n_steps=SPATIAL_STEPS, update_rate=0.5, reps=3)
+            for _, cfg, p, x, cond in cells]
+    ranks = run_ranks(spatial_rank, 2, "gloo", ["cuda:0", "cuda:0"], args=(jobs,), timeout=600)
+    checks, timing = {}, {}
+    for j, (name, cfg, p, x, cond) in enumerate(cells):
+        pc = {k: v.cuda() for k, v in p.items()}
+        xc, cc = x.cuda(), cond.cuda()
+        got = torch.from_numpy(ranks[0][j]["state"]).cuda()
+        with torch.no_grad():
+            plain = dynca_rollout(pc, xc, 9, cfg, SPATIAL_STEPS, cc, update_rate=0.5,
+                                  rollout_path="xla")[0]
+            kern = dynca_rollout(pc, xc, 9, cfg, SPATIAL_STEPS, cc, update_rate=0.5)[0]
+            plain_ms = host_ms(torch, lambda: dynca_rollout(
+                pc, xc, 9, cfg, SPATIAL_STEPS, cc, update_rate=0.5, rollout_path="xla")) \
+                / SPATIAL_STEPS
+            kern_ms = cuda_ms(lambda: dynca_rollout(pc, xc, 9, cfg, SPATIAL_STEPS, cc,
+                                                    update_rate=0.5), 2) / SPATIAL_STEPS
+        err_plain = float((got - plain).abs().max())
+        err_kern = float((got - kern).abs().max())
+        ms = [rk[j]["ms_per_step"] for rk in ranks]
+        hb = ranks[0][j]["halo_bytes"]
+        checks[f"{name}: within TOL of the dense plain rollout"] = err_plain <= TOL["float32"]
+        checks[f"{name}: within TOL of the dense rollout kernel"] = err_kern <= TOL["float32"]
+        checks[f"{name}: finite"] = bool(torch.isfinite(got).all())
+        timing[name] = {"ms_per_step": ms, "halo_bytes": hb, "dense_plain_ms": plain_ms,
+                        "dense_kernel_ms": kern_ms, "err_plain": err_plain,
+                        "err_kernel": err_kern}
+        print(f"  {name} ({cfg.c_in} ch, scales {tuple(cfg.perception_scales)}, halo "
+              f"{hb // (cfg.c_in * 256 * 4)} rows = {hb} B a side a step): sharded "
+              f"{ms[0]:.4f} / {ms[1]:.4f} ms a step (ranks 0 / 1, host clock) against the "
+              f"dense plain rollout {plain_ms:.4f} and the dense kernel {kern_ms:.4f}; max "
+              f"|diff| {err_plain:.3g} (plain), {err_kern:.3g} (kernel)")
+    for k, v in checks.items():
+        print(f"  {k}: {'ok' if v else 'FAIL'}")
+    if not all(checks.values()):
+        raise SystemExit("spatial phase failed")
+    return timing
+
+
+def phase_fleet(torch, ft, presets, DyNCATrainer, load_vgg16, synthetic_style_image,
+                precompute_target_style_features):
+    """``MultiStyleTrainer``: M = 4 static_texture models (seeds 0-3) at full
+    width on the card, 2 iterations at step_n 32 and 128, each model
+    through the kernel route (each pair kernel M x sum(step_n) times);
+    model 0's first step against ``DyNCATrainer(seed=0)``'s: its loss
+    and gradient within TRAIN_TOL, its pool write-back within TOL; then
+    M = 2 over a ``model`` axis of 2 gloo ranks on cuda:0, one model each,
+    each rank's losses against the one-process fleet's models 0 and 1
+    within TRAIN_TOL. Returns (launches by kernel, timings)."""
+    from vsnca_tpu_torch.parallel.mesh import run_ranks
+    from vsnca_tpu_torch.parallel.ranks import fleet_rank
+    from vsnca_tpu_torch.train.multi import MultiStyleTrainer
+
+    nca, loss, train = presets.static_texture()
+    vgg, _ = load_vgg16(device="cuda")
+    seeds, steps = (0, 1, 2, 3), (32, 128)
+    style = synthetic_style_image(train.img_size, train.batch_size) * 2.0 - 1.0
+    style = torch.from_numpy(style).permute(0, 3, 1, 2).contiguous().cuda()
+    styles = torch.stack([style] * len(seeds))
+    feats = precompute_target_style_features(vgg, style, loss.appearance_loss_type,
+                                             train.img_size)
+    inputs = {"target_style": styles, "target_style_features": [torch.stack([f] * len(seeds))
+                                                                for f in feats]}
+    fleet = MultiStyleTrainer(nca, loss, train, seeds, vgg_params=vgg, device="cuda")
+    alone = DyNCATrainer(nca, loss, train, vgg_params=vgg, seed=0, device="cuda")
+    reset_counts(ft)
+    logs, fleet_ms = [], []
+    for n in steps:
+        fleet_ms.append(host_ms(torch, lambda: logs.append(
+            fleet.train_iteration(inputs, step_n=n))))
+        if len(logs) == 1:  # the reference's launches are not the fleet's
+            saved = dict(ft.KERNEL_LAUNCHES)
+            first = ({k: v.grad.clone() for k, v in fleet.params[0].items()},
+                     fleet.pools[0].states.clone())
+            alone_loss = alone.train_iteration({"target_style": style,
+                                                "target_style_features": feats},
+                                               step_n=n).loss
+            ft.KERNEL_LAUNCHES.update(saved)
+    launches = {k: ft.KERNEL_LAUNCHES[k] for k in ("nca_step", "nca_bwd_mlp", "nca_bwd_adjoint")}
+    loss_err = abs(float(logs[0].losses[0]) - alone_loss) / abs(alone_loss)
+    grad_err = max(scaled_err(g, alone.params[k].grad) for k, g in first[0].items())
+    pool_err = float((first[1] - alone.pool.states).abs().max())
+    job = dict(nca=nca, loss=loss, train=train, seeds=seeds[:2],
+               inputs={"target_style": styles[:2].cpu().numpy()},
+               iterations=[{"step_n": n} for n in steps])
+    ranks = run_ranks(fleet_rank, 2, "gloo", ["cuda:0", "cuda:0"], args=(job,), timeout=600)
+    rank_err = max(abs(float(a[m]) - float(b.losses[m])) / abs(float(b.losses[m]))
+                   for a, b in zip(ranks[0]["losses"], logs) for m in range(2))
+    total = sum(steps)
+    checks = {
+        "M = 4: each pair kernel M x sum(step_n) times": all(
+            v == len(seeds) * total for v in launches.values()),
+        "M = 4: losses finite": all(np.isfinite(log.losses).all() for log in logs),
+        "model 0's first step: loss and gradient within TRAIN_TOL of DyNCATrainer(seed=0)":
+            loss_err <= TRAIN_TOL["float32"] and grad_err <= TRAIN_TOL["float32"],
+        "model 0's first write-back within TOL": pool_err <= TOL["float32"],
+        "model axis of 2 ranks: losses within TRAIN_TOL of the one-process fleet":
+            rank_err <= TRAIN_TOL["float32"],
+        "model axis: each rank's pair kernels sum(step_n) times": all(
+            rk["launches"]["train:nca_step"] == rk["launches"]["train:nca_bwd_mlp"]
+            == rk["launches"]["train:nca_bwd_adjoint"] == total for rk in ranks),
+        "model axis: every rank sees the fleet's 2 losses": all(
+            len(l) == 2 for rk in ranks for l in rk["losses"]),
+    }
+    for rk in ranks:
+        launches["nca_step"] += rk["launches"]["train:nca_step"]
+        launches["nca_bwd_mlp"] += rk["launches"]["train:nca_bwd_mlp"]
+        launches["nca_bwd_adjoint"] += rk["launches"]["train:nca_bwd_adjoint"]
+    timing = {"fleet_ms": fleet_ms, "rank_ms": [rk["ms"] for rk in ranks],
+              "model0_first_loss_err": loss_err, "model0_first_grad_err": grad_err,
+              "model0_first_writeback_err": pool_err, "rank_loss_err": rank_err}
+    print(f"  M = 4 at 128^2 b4: iterations at step_n {steps} {fleet_ms[0]:.3f}, "
+          f"{fleet_ms[1]:.3f} ms (host clock, the first with warm-up); model 0's first step "
+          f"vs DyNCATrainer(seed=0): loss {loss_err:.3g} relative, gradient {grad_err:.3g} "
+          f"of its largest, write-back max |diff| {pool_err:.3g}; M = 2 over 2 ranks: "
+          f"{', '.join(f'{t:.3f}' for t in ranks[0]['ms'])} ms (rank 0), losses within "
+          f"{rank_err:.3g}")
+    for k, v in checks.items():
+        print(f"  {k}: {'ok' if v else 'FAIL'}")
+    if not all(checks.values()):
+        raise SystemExit("fleet phase failed")
+    del fleet, alone
+    torch.cuda.empty_cache()
+    return launches, timing
+
+
+def phase_examples(torch, fs, ft, fc, dynca_init):
+    """Every example's ``main(argv)`` on the card at a small size and few
+    iterations, synthetic data: export_webgl (a random edges checkpoint,
+    validate_export at 64^2 x 24), interactive_growth (64^2), learning_proof
+    (64^2, 4 iterations), train_encoder (64^2, 2 epochs), train_vector_field
+    (64^2, 2 iterations), train_video_motion (64^2, warmup 1, 1 main
+    iteration, the final evaluation). Each runs on the kernels (its launches
+    counted; none 0 where the example rolls or trains) and returns finite
+    results. Returns (launches by kernel over all examples, wall s by
+    example)."""
+    import shutil
+
+    from vsnca_tpu_torch.config import NCAConfig
+    from vsnca_tpu_torch.examples import (
+        export_webgl,
+        interactive_growth,
+        learning_proof,
+        train_encoder,
+        train_vector_field,
+        train_video_motion,
+    )
+    from vsnca_tpu_torch.export.checkpoint import save_checkpoint
+
+    root = "out/chip_smoke_examples"
+    shutil.rmtree(root, ignore_errors=True)
+    cfg = NCAConfig(c_in=12, fc_dim=96, conditioning="edges")
+    save_checkpoint(f"{root}/ck", {"params": dynca_init(torch.Generator().manual_seed(0), cfg,
+                                                        device="cpu"), "iteration": 0})
+    runs = [
+        ("export_webgl", export_webgl.main,
+         [f"{root}/ck", f"{root}/web/model.json", "--conditioning", "edges"],
+         lambda r: r["weight_max_abs_diff"] < 1e-3 and np.isfinite(r["state_max_abs_diff"])),
+        ("interactive_growth", interactive_growth.main, ["--out", f"{root}/growth"],
+         lambda r: os.path.getsize(r) > 0),
+        ("learning_proof", learning_proof.main,
+         ["--size", "64", "--iters", "4", "--test-frames", "2", "--out", f"{root}/proof"],
+         lambda r: np.isfinite(r["losses"]).all() and np.isfinite(r["errors"]).all()),
+        ("train_encoder", train_encoder.main,
+         ["--image-size", "64", "--epochs", "2", "--out", f"{root}/encoder"],
+         lambda r: np.isfinite(r[1]).all()),
+        ("train_vector_field", train_vector_field.main,
+         ["--img-size", "64", "--iterations", "2", "--out", f"{root}/vf"],
+         lambda r: np.isfinite(r.history[-1].loss)),
+        ("train_video_motion", train_video_motion.main,
+         ["--img-size", "64", "--iterations", "1", "--warmup", "1", "--out", f"{root}/vm"],
+         lambda r: np.isfinite(r[1]["video_motion_loss_mean"])),
+    ]
+    launches, wall, checks = {}, {}, {}
+    for name, main_fn, argv, ok in runs:
+        reset_counts(fs, ft, fc)
+        t0 = time.perf_counter()
+        result = main_fn(argv)
+        torch.cuda.synchronize()
+        wall[name] = time.perf_counter() - t0
+        counts = {**{f"step:{k}": v for k, v in fs.KERNEL_LAUNCHES.items()},
+                  **{f"train:{k}": v for k, v in ft.KERNEL_LAUNCHES.items()},
+                  **{f"cnca:{k}": v for k, v in fc.KERNEL_LAUNCHES.items()}}
+        for k, v in counts.items():
+            launches[k] = launches.get(k, 0) + v
+        used = {k: v for k, v in counts.items() if v}
+        checks[f"{name}: finite results"] = bool(ok(result))
+        checks[f"{name}: ran on the kernels"] = bool(used)
+        print(f"  {name}: {wall[name]:.2f} s wall; launches {used}")
+    shutil.rmtree(root, ignore_errors=True)
+    for k, v in checks.items():
+        print(f"  {k}: {'ok' if v else 'FAIL'}")
+    if not all(checks.values()):
+        raise SystemExit("examples phase failed")
+    return launches, wall
+
+
 def main() -> int:
     import torch
 
@@ -3505,6 +3905,23 @@ def main() -> int:
           "static_texture cell through the NHWC CHW pair (K = 16)")
     layout_launches = phase_tpu_layout_path(torch, fs, ft, presets, dynca_init,
                                             make_conditioning, edge_cfg, edge_params)
+    print("[3] data-parallel training: DyNCATrainer(mesh=...) in 2 gloo ranks sharing cuda:0 "
+          "(static_texture 128^2 b4, edge_conditioned 256^2 b2) against one process; the CLI's "
+          "--dp 1 over NCCL and --dp 2 refused on one card")
+    dp_launches, dp_timing = phase_data_parallel(
+        torch, presets, DyNCATrainer, load_vgg16, load_msoe, synthetic_style_image,
+        synthetic_video, precompute_target_style_features)
+    print("[3] spatial rollout: spatial_rollout in 2 gloo ranks on cuda:0, 128 rows each, "
+          "against the dense rollout (video_motion cell and served edges cell, 256^2)")
+    spatial_timing = phase_spatial(torch, presets, dynca_init, make_conditioning,
+                                   dynca_rollout, fs)
+    print("[3] fleet: MultiStyleTrainer, 4 static_texture models at 128^2 b4 on the card, "
+          "then 2 over a model axis of 2 gloo ranks")
+    fleet_launches, fleet_timing = phase_fleet(torch, ft, presets, DyNCATrainer, load_vgg16,
+                                               synthetic_style_image,
+                                               precompute_target_style_features)
+    print("[3] examples: each vsnca_tpu_torch.examples main on the card, small sizes")
+    ex_launches, ex_wall = phase_examples(torch, fs, ft, fc, dynca_init)
 
     print("[4] times (CUDA events, median of 5 rounds after warm-up)")
     timing = {}
@@ -3849,6 +4266,10 @@ def main() -> int:
            for label, t in vgg_pool_ms.items() for which, v in zip(("eq_pool", "torch_pool"), t)},
         "lifecycle_launches": life_launches,
         **{f"lifecycle_{k}": v for k, v in life_metrics.items()},
+        "data_parallel": dp_timing,
+        "spatial": spatial_timing,
+        "fleet": fleet_timing,
+        "examples_s": ex_wall,
     }
     print("metrics " + json.dumps(metrics))
     print(f"chip_smoke: every phase passed in {time.perf_counter() - t_start:.1f} s")
@@ -4008,6 +4429,28 @@ def main() -> int:
         ("nca_step_bf16_state", "vsnca_tpu/ops/pallas_step.py:731 (fused_rollout_chw algo "
          "'padded' and state_dtype 'bfloat16', _make_kernel :498)"),
     )]
+    # this slice's launches: the data-parallel ranks, the fleet and the examples
+    ex = lambda *names: sum(ex_launches.get(n, 0) for n in names)  # noqa: E731
+    slice_launches = {
+        "nca_step": dp_launches["nca_step"] + ex("step:nca_step"),
+        "nca_step_chain": dp_launches["nca_step_chain"] + fleet_launches["nca_step"]
+        + ex("train:nca_step", "step:nca_step_chain"),
+        "nca_bwd_mlp": dp_launches["nca_bwd_mlp"] + fleet_launches["nca_bwd_mlp"]
+        + ex("train:nca_bwd_mlp"),
+        "nca_bwd_adjoint": dp_launches["nca_bwd_adjoint"] + fleet_launches["nca_bwd_adjoint"]
+        + ex("train:nca_bwd_adjoint"),
+        "nca_step_ms_chain": ex("train:nca_step_ms"),
+        "nca_bwd_mlp_ms": ex("train:nca_bwd_mlp_ms"),
+        "nca_bwd_adjoint_ms": ex("train:nca_bwd_adjoint_ms"),
+        "nca_step_ms": ex("step:nca_step_ms", "step:nca_step_ms_chain"),
+        "nca_step_mat": ex("step:nca_step_mat"),
+        "nca_step_mat_chain": ex("step:nca_step_mat_chain"),
+        "nca_step_bf16_state": ex("step:nca_step_bf16_state"),
+        **{k: ex(f"cnca:{k}") for k in fc.KERNEL_LAUNCHES},
+    }
+    for entry in kernels:
+        entry["launches"] += slice_launches.get(entry["name"], 0)
+    print(f"  this slice's launches (data-parallel ranks, fleet, examples): {slice_launches}")
     for entry in kernels:
         # the kernels whose products run on the tensor cores, and nca_step_mat
         # in either form, are held to the bound at the tensor cores' peak; the

@@ -19,6 +19,8 @@ the JAX package's copies where both write the same thing:
 
 import json
 import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -160,13 +162,24 @@ def test_metrics_logger_and_experiment_helpers_equal_jax(tmp_path):
         assert (tmp_path / "sa" / n).read_bytes() == (tmp_path / "sb" / n).read_bytes()
 
 
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+
+def _run_cli(args):
+    """``python -m vsnca_tpu_torch.train.cli ARGS`` in a subprocess, as a
+    user runs it: that process imports no JAX, so TensorBoard's TensorFlow
+    never loads beside jaxlib (the pair can crash one process)."""
+    r = subprocess.run([sys.executable, "-m", "vsnca_tpu_torch.train.cli"] + args, cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    assert r.returncode == 0, r.stdout[-2000:] + r.stderr[-4000:]
+    return r.stdout
+
+
 @pytest.fixture(scope="module")
 def cli_run(tmp_path_factory):
     """The CLI's lifecycle at edge_conditioned's widths, 32^2, batch 1, on the
     CPU: 2 iterations with a preview and checkpoint each, the control videos
     and one evaluation clip; then --video-only on that checkpoint."""
-    from vsnca_tpu_torch.train import cli
-
     root = tmp_path_factory.mktemp("cli")
     evals = root / "evals"
     with VideoWriter(str(evals / "clip.mp4"), fps=10) as w:
@@ -174,10 +187,10 @@ def cli_run(tmp_path_factory):
             w.add((f + 1.0) / 2.0)
     out, again = str(root / "runs" / "edges"), str(root / "runs" / "again")
     common = ["--preset", "edge_conditioned", "--img-size", "32", "--device", "cpu"]
-    cli.main(common + ["--batch-size", "1", "--max-iterations", "2", "--save-every", "1",
+    _run_cli(common + ["--batch-size", "1", "--max-iterations", "2", "--save-every", "1",
                        "--log-every", "1", "--make-videos", "--eval-videos", str(evals),
                        "--out", out])
-    cli.main(common + ["--video-only", "--checkpoint", f"{out}/checkpoint", "--out", again])
+    _run_cli(common + ["--video-only", "--checkpoint", f"{out}/checkpoint", "--out", again])
     return root, out, again
 
 
@@ -202,6 +215,8 @@ def test_cli_writes_every_artifact(cli_run):
                                       _decode(os.path.join(out, "videos", name)))
     with open(os.path.join(out, "checkpoint", "metadata.json")) as f:
         assert json.load(f)["nca"]["conditioning"] == "edges"
+    events = os.listdir(os.path.join(out, "tensorboard"))
+    assert any(n.startswith("events.out.tfevents.") for n in events), events
 
 
 def test_cli_checkpoint_reads_in_jax_and_exports_alike(cli_run):
@@ -274,6 +289,9 @@ def test_cli_and_protocol_skip_only_the_plots_without_matplotlib(tmp_path, monke
     from vsnca_tpu_torch.train.vector_field_protocol import VectorFieldProtocol
 
     monkeypatch.setattr(display, "plotting_available", lambda: False)
+    # the CLI runs in this process (for the patch above): TensorBoard takes its
+    # own stub in place of TensorFlow, which can crash a process beside jaxlib
+    monkeypatch.setitem(sys.modules, "tensorflow", None)
     out = tmp_path / "run"
     cli.main(["--preset", "static_texture", "--img-size", "16", "--batch-size", "1",
               "--max-iterations", "1", "--save-every", "1", "--device", "cpu",

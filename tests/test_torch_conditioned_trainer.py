@@ -34,6 +34,7 @@ previous iterations' rounding); the recalibrated weights rtol 1e-6.
 import dataclasses
 import json
 import os
+import sys
 
 import numpy as np
 import pytest
@@ -255,6 +256,9 @@ def test_cli_content_draw_and_motion_field(tmp_path, monkeypatch):
         return run(self, inputs, **kw)
 
     monkeypatch.setattr(DyNCATrainer, "train_iteration", recording)
+    # the CLI runs in this process (for the patch above): TensorBoard takes its
+    # own stub in place of TensorFlow, which can crash a process beside jaxlib
+    monkeypatch.setitem(sys.modules, "tensorflow", None)
     out = str(tmp_path / "edges")
     cli.main(["--preset", "edge_conditioned", "--img-size", "32", "--max-iterations", "2",
               "--device", "cpu", "--seed", "3", "--out", out])

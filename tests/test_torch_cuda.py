@@ -1283,3 +1283,130 @@ def test_cli_checkpoint_round_trip_on_card(cuda, tmp_path):
     for name in ("style_img.mp4", "black_img.mp4"):
         a, b = frames(f"{out}/videos/{name}"), frames(f"{again}/videos/{name}")
         assert a.shape == (64, 32, 32, 3) and np.array_equal(a, b)
+
+
+def _two_ranks_on_the_card(fn, arg):
+    """``fn(arg)`` in 2 gloo ranks sharing cuda:0 (NCCL takes one rank a
+    card), the kernels built here first so that the ranks only load them."""
+    from vsnca_tpu_torch.ops import _build
+    from vsnca_tpu_torch.parallel.mesh import run_ranks
+
+    _build.build(_build.SOURCES)
+    return run_ranks(fn, 2, "gloo", ["cuda:0", "cuda:0"], args=(arg,), timeout=600)
+
+
+def test_fused_dp_pair_on_card_matches_the_whole_batch(cuda):
+    """Each rank runs the training pair's kernels on its half of the batch:
+    the states and (scaled by the rank count) the x gradient equal the
+    whole batch's bits; the averaged parameter gradient is within
+    TRAIN_TOL of the whole batch's (the slots sum in another order)."""
+    from vsnca_tpu_torch.ops import fused_train as ft
+    from vsnca_tpu_torch.parallel.ranks import fused_dp_rank
+
+    cfg = NCAConfig(c_in=12, fc_dim=96, conditioning="pos_emb", padding_mode="circular",
+                    update_rate=0.5)
+    params = dynca.dynca_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    x = torch.rand((4, 12, 32, 32), generator=g) - 0.5
+    gy = torch.randn((4, 12, 32, 32), generator=g)
+    cond = dynca.make_conditioning(cfg, (32, 32), batch=4, device="cpu")
+    ranks = _two_ranks_on_the_card(fused_dp_rank, dict(
+        cfg=cfg, params={k: v.numpy() for k, v in params.items()}, x=x.numpy(),
+        gy=gy.numpy(), cond=cond.numpy(), seed=77, n_steps=8))
+    pc = {k: v.cuda().requires_grad_() for k, v in params.items()}
+    xc = x.cuda().requires_grad_()
+    state = ft.fused_rollout_train(pc, xc, 77, cfg, 8, cond.cuda(), cond_no_grad=True)
+    ((state * gy.cuda()).sum() / 4).backward()
+    np.testing.assert_array_equal(ranks[0]["state"], state.detach().cpu().numpy())
+    np.testing.assert_array_equal(ranks[0]["grad_x"] / 2, xc.grad.cpu().numpy())
+    for k, v in pc.items():
+        want = v.grad.cpu().numpy()
+        assert np.abs(ranks[0]["grads"][k] - want).max() <= 1e-4 * np.abs(want).max(), k
+    for rank in ranks:
+        c = rank["launches"]
+        assert c["train:nca_step"] == c["train:nca_bwd_mlp"] == c["train:nca_bwd_adjoint"] == 8
+
+
+def test_dp_trainer_on_card_matches_one_process(cuda):
+    """``DyNCATrainer(mesh=...)`` in 2 ranks on the card (static_texture's
+    cell at 32^2, batch 4, Gram + overflow, VGG16's fallback, 2
+    iterations): each rank launches the pair's kernels sum(step_n) times;
+    the first write-back is the one-process one; losses and parameters
+    within TRAIN_TOL (1e-4)."""
+    import dataclasses
+
+    from vsnca_tpu_torch.models.vgg import load_vgg16
+    from vsnca_tpu_torch.parallel.ranks import dp_train_rank
+    from vsnca_tpu_torch.train import presets
+    from vsnca_tpu_torch.train.trainer import DyNCATrainer
+
+    nca, loss, train = presets.static_texture(img_size=32)
+    train = dataclasses.replace(train, pool_size=8)
+    style = np.random.RandomState(3).rand(4, 3, 32, 32).astype(np.float32) * 2 - 1
+    steps = (8, 16)
+    ranks = _two_ranks_on_the_card(dp_train_rank, [dict(
+        nca=nca, loss=loss, train=train, inputs={"target_style": style},
+        iterations=[{"step_n": n} for n in steps], keep_pools=True)])
+    one = DyNCATrainer(nca, loss, train, vgg_params=load_vgg16(device="cuda")[0],
+                       device="cuda")
+    losses, first = [], None
+    for n in steps:
+        losses.append(one.train_iteration({"target_style": torch.from_numpy(style).cuda()},
+                                          step_n=n).loss)
+        first = one.pool.states.cpu().numpy() if first is None else first
+    got = ranks[0][0]
+    np.testing.assert_array_equal(got["pools"][0], first)
+    np.testing.assert_allclose([log["loss"] for log in got["logs"]], losses, rtol=1e-4)
+    for k, v in one.params.items():
+        want = v.detach().cpu().numpy()
+        assert np.abs(got["params"][k] - want).max() <= 1e-4 * np.abs(want).max(), k
+    for rank in ranks:
+        c = rank[0]["launches"]
+        assert c["train:nca_step"] == c["train:nca_bwd_mlp"] == c["train:nca_bwd_adjoint"] \
+            == sum(steps)
+
+
+@pytest.mark.parametrize("cell", ["edges", "video_motion"])
+def test_spatial_rollout_on_card_matches_the_dense_rollout(cuda, cell):
+    """2 ranks of 32 rows on the card (a 1-row halo for the edges cell, 6
+    for the video_motion cell's scales (0, 1)), 8 steps at rate 0.5, within
+    TOL of the dense plain rollout on the card, with no kernel launched."""
+    from vsnca_tpu_torch.parallel.ranks import spatial_rank
+    from vsnca_tpu_torch.train import presets
+
+    cfg = (presets.edge_conditioned() if cell == "edges" else presets.video_motion())[0]
+    params = dynca.dynca_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    g = torch.Generator().manual_seed(2)
+    x = torch.rand((2, cfg.c_in, 64, 48), generator=g) - 0.5
+    cond = torch.rand((2, cfg.c_cond, 64, 48), generator=g) - 0.5
+    ranks = _two_ranks_on_the_card(spatial_rank, [dict(
+        cfg=cfg, params={k: v.numpy() for k, v in params.items()}, x=x.numpy(),
+        cond=cond.numpy(), seed=5, n_steps=8, update_rate=0.5)])
+    with torch.no_grad():
+        want, _ = dynca.dynca_rollout({k: v.cuda() for k, v in params.items()}, x.cuda(), 5,
+                                      cfg, 8, cond.cuda(), update_rate=0.5,
+                                      rollout_path="xla")
+    np.testing.assert_allclose(ranks[0][0]["state"], want.cpu().numpy(), rtol=0, atol=1e-4)
+
+
+def test_fleet_on_card_takes_the_kernels(cuda):
+    """``MultiStyleTrainer`` with 2 models on the card: each model through
+    the pair's kernels, 2 x sum(step_n) launches of each."""
+    import dataclasses
+
+    from vsnca_tpu_torch.models.vgg import load_vgg16
+    from vsnca_tpu_torch.ops import fused_train as ft
+    from vsnca_tpu_torch.train import presets
+    from vsnca_tpu_torch.train.multi import MultiStyleTrainer
+
+    nca, loss, train = presets.static_texture(img_size=32)
+    train = dataclasses.replace(train, pool_size=8)
+    fleet = MultiStyleTrainer(nca, loss, train, (0, 1),
+                              vgg_params=load_vgg16(device="cuda")[0], device="cuda")
+    style = torch.rand((2, 4, 3, 32, 32), generator=torch.Generator().manual_seed(1)) * 2 - 1
+    before = dict(ft.KERNEL_LAUNCHES)
+    for n in (8, 16):
+        log = fleet.train_iteration({"target_style": style.cuda()}, step_n=n)
+        assert np.isfinite(log.losses).all()
+    for k in ("nca_step", "nca_bwd_mlp", "nca_bwd_adjoint"):
+        assert ft.KERNEL_LAUNCHES[k] - before[k] == 2 * 24, k

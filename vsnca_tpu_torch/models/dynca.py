@@ -93,8 +93,15 @@ def dynca_step(
     """One NCA step: x [B, C, H, W] → x + dx * mask, with ``mask`` a 0/1
     tensor that broadcasts to [B, 1, H, W] (the caller draws it; see
     ``ops.fused_step.update_mask``). The MLP runs in full float32."""
+    return dynca_update(params, x, perceive_multiscale(x, cfg.perception_scales,
+                                                       cfg.padding_mode), mask, cond)
+
+
+def dynca_update(params: dict, x: torch.Tensor, y: torch.Tensor, mask: torch.Tensor,
+                 cond: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The step after perception: x + MLP([y | cond]) * mask, in full
+    float32."""
     torch.backends.cuda.matmul.allow_tf32 = False
-    y = perceive_multiscale(x, cfg.perception_scales, cfg.padding_mode)
     if cond is not None:
         y = torch.cat([y, cond], dim=1)
     h = torch.relu(

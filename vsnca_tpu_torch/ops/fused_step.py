@@ -122,23 +122,25 @@ def _fmix32(h: torch.Tensor) -> torch.Tensor:
 
 
 def mask_bits(seed: int, batch: int, step: int, h: int, w: int,
-              device=None) -> torch.Tensor:
+              device=None, row0: int = 0) -> torch.Tensor:
     """The 32 hash bits of every pixel, int64 [H, W] in [0, 2^32).
 
     The batch index enters as ``prng_seed(seed + bidx)`` does in the TPU
     kernel (pallas_step.py:1439), the step as in ``_step_seed``
-    (pallas_train.py:82); then ``fmix32(fmix32(key) ^ pixel)``.
+    (pallas_train.py:82); then ``fmix32(fmix32(key) ^ pixel)``. ``row0``:
+    the rows are rows ``row0 ..`` of a taller grid (a spatial shard), whose
+    pixel indices they take.
     """
     key = _fmix32_int(seed + batch + step * _STEP_MUL)
-    pix = torch.arange(h * w, dtype=torch.int64, device=device)
+    pix = torch.arange(row0 * w, (row0 + h) * w, dtype=torch.int64, device=device)
     return _fmix32(pix ^ key).reshape(h, w)
 
 
 def update_mask(seed: int, batch: int, step: int, h: int, w: int,
-                update_rate: float, device=None) -> torch.Tensor:
+                update_rate: float, device=None, row0: int = 0) -> torch.Tensor:
     """float32 [H, W] of 0/1: 1 where the top 24 hash bits >= threshold."""
     thr = uniform_threshold(update_rate)
-    return ((mask_bits(seed, batch, step, h, w, device) >> 8) >= thr).float()
+    return ((mask_bits(seed, batch, step, h, w, device, row0) >> 8) >= thr).float()
 
 
 def stencil_folded_w1(w1: torch.Tensor, c: int) -> torch.Tensor:
@@ -675,11 +677,13 @@ def rounder(compute_dtype: str):
     return lambda t: t
 
 
-def batch_mask(seed: int, step: int, shape, update_rate: float, device) -> torch.Tensor:
-    """[B, 1, H, W] update masks of absolute step ``step`` for a batch."""
+def batch_mask(seed: int, step: int, shape, update_rate: float, device,
+               row0: int = 0) -> torch.Tensor:
+    """[B, 1, H, W] update masks of absolute step ``step`` for a batch
+    (rows ``row0 ..`` of a taller grid: see ``mask_bits``)."""
     b, _, h, w = shape
     return torch.stack(
-        [update_mask(seed, i, step, h, w, update_rate, device) for i in range(b)]
+        [update_mask(seed, i, step, h, w, update_rate, device, row0) for i in range(b)]
     )[:, None]
 
 

@@ -23,8 +23,14 @@ def stencil_3x3(x: torch.Tensor, kernels: Sequence, pad_mode: str) -> list:
     x: [B, C, H, W]; each kernel is a 3x3 array. Returns a list of
     [B, C, H, W] responses, one per kernel, from one padded buffer.
     """
-    h, w = x.shape[-2:]
-    p = pad2d(x, 1, pad_mode)
+    return stencil_sums(pad2d(x, 1, pad_mode), kernels)
+
+
+def stencil_sums(p: torch.Tensor, kernels: Sequence) -> list:
+    """``stencil_3x3`` on a grid already padded by one cell on each side
+    ([B, C, H + 2, W + 2] → [B, C, H, W] responses), in the same order of
+    taps, so a padded slab gives a whole grid's bits."""
+    h, w = p.shape[-2] - 2, p.shape[-1] - 2
     outs = []
     for k in kernels:
         acc = None
@@ -43,8 +49,13 @@ def stencil_3x3(x: torch.Tensor, kernels: Sequence, pad_mode: str) -> list:
 def perceive(x: torch.Tensor, pad_mode: str = "replicate") -> torch.Tensor:
     """Single-scale DyNCA perception: [x | sobel_x(x) | sobel_y(x) | lap(x)]
     concatenated along channels in the reference's block order."""
-    y1, y2, y3 = stencil_3x3(x, [SOBEL_X, SOBEL_Y, LAPLACIAN], pad_mode)
-    return torch.cat([x, y1, y2, y3], dim=1)
+    return perceive_padded(pad2d(x, 1, pad_mode))
+
+
+def perceive_padded(p: torch.Tensor) -> torch.Tensor:
+    """``perceive`` of the grid inside a one-cell padding ``p``."""
+    y1, y2, y3 = stencil_sums(p, [SOBEL_X, SOBEL_Y, LAPLACIAN])
+    return torch.cat([p[..., 1:-1, 1:-1], y1, y2, y3], dim=1)
 
 
 def perceive_multiscale(

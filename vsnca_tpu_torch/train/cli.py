@@ -39,8 +39,14 @@ state, the pool NHWC, the iteration), which both packages read.
 ``--eval-videos DIR``, every mp4/gif of DIR stylized. ``--video-only
 --checkpoint DIR`` skips training and writes the videos from a checkpoint
 of either package. The preview's seed state and masks come from fixed int
-seeds (``PREVIEW_SEEDS``) in place of the JAX CLI's keys. ``--dp`` is not
-ported yet (ROADMAP.md A10).
+seeds (``PREVIEW_SEEDS``) in place of the JAX CLI's keys.
+
+``--dp N`` trains data-parallel over N ranks (cli.py:189-203): on the card
+N processes over NCCL, one a card (it raises when fewer than N cards are
+visible, and never falls back to gloo or the CPU); with ``--device cpu`` N
+processes over gloo. The batch and the pool must divide N. Every rank
+trains ``DyNCATrainer(mesh=...)`` on its shard of the batch; rank 0 alone
+prints, logs and writes the artifacts, checkpoints and videos.
 """
 
 from __future__ import annotations
@@ -86,6 +92,9 @@ def setup_args(argv=None):
     p.add_argument("--eval-videos", default=None,
                    help="folder of mp4/gif to stylize into <out>/videos")
     p.add_argument("--device", default=None, help="cuda (the default) or cpu")
+    p.add_argument("--dp", type=int, default=0, metavar="N",
+                   help="data-parallel training over N ranks (0: one process); on the card "
+                        "one rank a card over NCCL, with --device cpu gloo ranks")
     p.add_argument("--no-precompute", action="store_true",
                    help="recompute the target's VGG16 (and MSOE) features every iteration")
     return p.parse_args(argv)
@@ -142,6 +151,41 @@ def write_videos(out: str, params, nca_cfg, style01: np.ndarray, hw, step_n: int
 
 def main(argv=None):
     args = setup_args(argv)
+    if args.dp and not args.video_only:
+        return train_dp(args)
+    return train(args)
+
+
+def train_dp(args) -> None:
+    """``--dp N``: N ranks, each running ``train`` with a ``data`` mesh."""
+    from vsnca_tpu_torch.parallel.mesh import rank_devices, run_ranks
+
+    device = torch.device(args.device or "cuda").type
+    if device == "cuda":
+        n = torch.cuda.device_count()
+        if n < args.dp:
+            raise RuntimeError(f"--dp {args.dp} needs {args.dp} CUDA devices, {n} visible "
+                               "(NCCL takes one rank a card)")
+        from vsnca_tpu_torch.ops import _build
+
+        _build.build(_build.SOURCES)  # once, before the ranks load the kernels
+    backend = "nccl" if device == "cuda" else "gloo"
+    run_ranks(_train_rank, args.dp, backend, rank_devices(args.dp, device), args=(args,),
+              timeout=None)
+
+
+def _train_rank(device: str, args) -> None:
+    from vsnca_tpu_torch.parallel.mesh import make_mesh
+
+    args = argparse.Namespace(**{**vars(args), "device": device})
+    train(args, make_mesh({"data": args.dp}))
+
+
+def train(args, mesh=None) -> None:
+    """The training run (or ``--video-only``) of the parsed ``args``;
+    ``mesh``: this rank's data mesh under ``--dp``."""
+    lead = mesh is None or mesh.index("data") == 0
+    say = print if lead else (lambda *a, **k: None)
 
     from vsnca_tpu_torch.data.preprocess import (
         preprocess_style_image,
@@ -178,11 +222,12 @@ def main(argv=None):
             overrides[field] = value
     train_cfg = dataclasses.replace(train_cfg, **overrides)
 
-    os.makedirs(args.out, exist_ok=True)
-    with open(os.path.join(args.out, "args.json"), "w") as f:
-        json.dump({"cli": vars(args), "nca": dataclasses.asdict(nca_cfg),
-                   "loss": dataclasses.asdict(loss_cfg),
-                   "train": dataclasses.asdict(train_cfg)}, f, indent=2)
+    if lead:
+        os.makedirs(args.out, exist_ok=True)
+        with open(os.path.join(args.out, "args.json"), "w") as f:
+            json.dump({"cli": vars(args), "nca": dataclasses.asdict(nca_cfg),
+                       "loss": dataclasses.asdict(loss_cfg),
+                       "train": dataclasses.asdict(train_cfg)}, f, indent=2)
 
     hw = train_cfg.img_size
     if args.style_image == "synthetic":
@@ -221,19 +266,20 @@ def main(argv=None):
         return
 
     vgg, vgg_pretrained = load_vgg16(device=device)
-    print(f"VGG16 weights: {'pretrained' if vgg_pretrained else 'RANDOM FALLBACK'}")
+    say(f"VGG16 weights: {'pretrained' if vgg_pretrained else 'RANDOM FALLBACK'}")
     msoe = None
     if loss_cfg.vector_field_motion_weight or loss_cfg.video_motion_weight:
         from vsnca_tpu_torch.models.msoe import load_msoe
 
         msoe, msoe_pretrained = load_msoe(device=device)
-        print(f"MSOE weights: {'pretrained' if msoe_pretrained else 'RANDOM FALLBACK'}")
+        say(f"MSOE weights: {'pretrained' if msoe_pretrained else 'RANDOM FALLBACK'}")
     trainer = DyNCATrainer(nca_cfg, loss_cfg, train_cfg, vgg_params=vgg, msoe_params=msoe,
-                           device=device)
-    print(f"DyNCA param count: {param_count(trainer.params)}; device {device}")
+                           device=device, mesh=mesh)
+    say(f"DyNCA param count: {param_count(trainer.params)}; device {device}"
+        + (f"; data-parallel over {args.dp} ranks" if mesh is not None else ""))
     plots = plotting_available()
     if train_cfg.save_every and not plots:
-        print("matplotlib is not installed: the artifacts hold no loss plot")
+        say("matplotlib is not installed: the artifacts hold no loss plot")
 
     style_feats = None
     if loss_cfg.appearance_weight and not args.no_precompute:
@@ -249,10 +295,10 @@ def main(argv=None):
         motion_feats = precompute_target_motion_features(msoe, target_video,
                                                          loss_cfg.motion_img_size)
         if motion_feats is None:
-            print("skipping the motion-feature precompute: the video is past the memory "
-                  "budget; the target window's features are recomputed every iteration")
+            say("skipping the motion-feature precompute: the video is past the memory "
+                "budget; the target window's features are recomputed every iteration")
 
-    logger = MetricsLogger(args.out, config={"preset": args.preset})
+    logger = MetricsLogger(args.out, config={"preset": args.preset}) if lead else None
     try:
         rng = np.random.RandomState(args.seed)
         t0 = time.time()
@@ -284,13 +330,13 @@ def main(argv=None):
                         (nf, train_cfg.batch_size) + tuple(window.shape[1:]))
             sync = (i % args.log_every == 0) or (i == train_cfg.max_iterations - 1)
             log = trainer.train_iteration(inputs, sync=sync, **iter_kw)
-            if sync and i % args.log_every == 0:
+            if sync and i % args.log_every == 0 and lead:
                 rate = (i + 1) / (time.time() - t0)
                 terms = " ".join(f"{k}={v:.4f}" for k, v in log.logs.items())
                 print(f"iter {i:5d} loss={log.loss:.4f} {terms} ({rate:.2f} it/s)",
                       flush=True)
                 logger.log_scalars(i, {"loss": log.loss, "it_per_sec": rate, **log.logs})
-            if train_cfg.save_every and i % train_cfg.save_every == 0:
+            if train_cfg.save_every and i % train_cfg.save_every == 0 and lead:
                 save_train_artifacts(
                     os.path.join(args.out, "artifacts"), i,
                     generated=preview(trainer.params, nca_cfg, hw, inputs.get("aux_gs"), device),
@@ -299,13 +345,14 @@ def main(argv=None):
                 save_checkpoint(os.path.join(args.out, "checkpoint"), checkpoint_state(trainer),
                                 metadata={"nca": dataclasses.asdict(nca_cfg)})
 
-        save_checkpoint(os.path.join(args.out, "checkpoint"), checkpoint_state(trainer),
-                        metadata={"nca": dataclasses.asdict(nca_cfg)})
+        if lead:
+            save_checkpoint(os.path.join(args.out, "checkpoint"), checkpoint_state(trainer),
+                            metadata={"nca": dataclasses.asdict(nca_cfg)})
     finally:
-        logger.close()
-    print(f"done: {trainer.iteration} iterations, final loss "
-          f"{trainer.history[-1].loss:.4f}")
-    if args.make_videos:
+        if logger is not None:
+            logger.close()
+    say(f"done: {trainer.iteration} iterations, final loss {trainer.history[-1].loss:.4f}")
+    if args.make_videos and lead:
         write_videos(args.out, trainer.params, nca_cfg, style01, hw, video_steps,
                      args.eval_videos, device)
 

@@ -1,5 +1,4 @@
-"""DyNCA training harness — the port's copy of ``vsnca_tpu/train/trainer.py``
-on one device.
+"""DyNCA training harness — the port's copy of ``vsnca_tpu/train/trainer.py``.
 
 ``make_train_step`` builds the step: the content-channel append of an
 ExtraChannels cell, conditioning, the one-step pre-roll without a gradient
@@ -14,8 +13,18 @@ step counts from the same seed), seed injection every K iterations, the NaN
 abort, the pool write-back and the history. The tapped (video-motion)
 schedule runs as the JAX trainer's does (trainer.py:161-288): one call of
 the training pair with in-kernel taps where the pair applies, else one
-rollout a chunk; appearance scores every tapped frame. Device meshes are
-not ported yet (ROADMAP.md queue A10).
+rollout a chunk; appearance scores every tapped frame.
+
+Data parallelism (``mesh``, a ``parallel.mesh.Mesh`` with a ``data`` axis;
+trainer.py:48-58, 444-530): every rank keeps the parameters, Adam's state
+and the whole pool, draws the same pool indices, step counts and seeds,
+and trains on its shard of the batch (``parallel/train_dp.py``); the
+parameters' gradient is averaged over the ranks inside the backward
+(``parallel/fused_dp.py::MeanGradOver``), before the normalization and Adam,
+so every rank takes the same update; the loss and logs are averaged before
+the NaN abort, so every rank aborts together; the new states of the global
+batch are gathered into every rank's pool. The port's trainer never runs the
+segment-checkpointed CHW pair, which JAX skips under a mesh (:232).
 """
 
 from __future__ import annotations
@@ -38,6 +47,9 @@ from vsnca_tpu_torch.models.dynca import (
     rollout_taps,
     to_rgb,
 )
+from vsnca_tpu_torch.parallel.fused_dp import rank_seed, replicated_params
+from vsnca_tpu_torch.parallel.mesh import all_reduce_mean, replicate
+from vsnca_tpu_torch.parallel.train_dp import make_dp_train_step
 from vsnca_tpu_torch.pool.sample_pool import DevicePool, inject_seed_into_batch
 from vsnca_tpu_torch.train.optim import NormalizedAdam, make_optimizer
 
@@ -58,7 +70,8 @@ def _tap_plan(n_motion_frames: int, tap_every: int, tap_chunks, tail_steps):
 
 
 def make_train_step(nca_cfg: NCAConfig, loss_state: LossState,
-                    remat: str = "per_step", rollout_path: str = "auto"):
+                    remat: str = "per_step", rollout_path: str = "auto", mesh=None,
+                    data_axis: str = "data"):
     """The train step ``step(params, optimizer, states, seed, inputs, *,
     step_n, n_motion_frames=0, tap_every=0, tap_chunks=(), tail_steps=0,
     mark=None) -> (params, optimizer, new_states, loss, logs)``. ``params``
@@ -100,7 +113,14 @@ def make_train_step(nca_cfg: NCAConfig, loss_state: LossState,
     as it begins — "rollout forward", "loss forward", "loss backward",
     "rollout backward" (from a hook on the final state's gradient, in the
     backward's thread), "optimizer" — and with "end"; a caller can record
-    a CUDA event in it to time the parts."""
+    a CUDA event in it to time the parts.
+
+    ``mesh``/``data_axis``: data-parallel mode. ``states`` and the
+    batch-leading inputs are then this rank's shard
+    (``parallel.train_dp.make_dp_train_step`` places them); the masks are
+    those of the shard's rows of the global batch (``rank_seed``); the
+    parameters' gradient is averaged over the axis in the backward; the
+    returned loss and logs are the ranks' mean, the new states the shard's."""
     if rollout_path not in ROLLOUT_PATHS:
         raise ValueError(f"rollout_path must be one of {ROLLOUT_PATHS}")
     loss_fn = make_loss_fn(loss_state)
@@ -116,6 +136,11 @@ def make_train_step(nca_cfg: NCAConfig, loss_state: LossState,
                    n_motion_frames: int = 0, tap_every: int = 0, tap_chunks=(),
                    tail_steps: int = 0, mark: Optional[Callable[[str], None]] = None):
         mark = mark or (lambda name: None)
+        p, roll_seed, pre_seed = params, seed, seed ^ PREROLL_SEED_XOR
+        if mesh is not None:
+            p = replicated_params(params, mesh, data_axis)
+            roll_seed = rank_seed(seed, mesh, data_axis, states.shape[0])
+            pre_seed = rank_seed(pre_seed, mesh, data_axis, states.shape[0])
         if nca_cfg.n_seed_channels < nca_cfg.c_in:
             # the ExtraChannels content channel (experiments.py:211)
             states = torch.cat([states, inputs["aux_gs"]], dim=1)
@@ -127,19 +152,19 @@ def make_train_step(nca_cfg: NCAConfig, loss_state: LossState,
         rgb_before = None
         if cfg.vector_field_motion_weight != 0:
             with torch.no_grad():
-                pre, _ = dynca_rollout(params, states, seed ^ PREROLL_SEED_XOR, nca_cfg, 1,
-                                       cond, rollout_path=pre_path)
+                pre, _ = dynca_rollout(params, states, pre_seed, nca_cfg, 1, cond,
+                                       rollout_path=pre_path)
             rgb_before = to_rgb(pre, nca_cfg.c_out)
         plan = _tap_plan(n_motion_frames, tap_every, tap_chunks, tail_steps)
         input_dict = {"step_n": step_n}
         if plan is None:
-            state_after, rgb_after = dynca_rollout(params, states, seed, nca_cfg, step_n,
+            state_after, rgb_after = dynca_rollout(p, states, roll_seed, nca_cfg, step_n,
                                                    cond, remat=remat,
                                                    rollout_path=rollout_path)
             input_dict["generated_image_list"] = [rgb_after]
         else:
             chunks, tail = plan
-            state_after, taps = rollout_taps(params, states, seed, nca_cfg, chunks, tail,
+            state_after, taps = rollout_taps(p, states, roll_seed, nca_cfg, chunks, tail,
                                              cond, remat, rollout_path)
             frames = [to_rgb(t, nca_cfg.c_out) for t in taps]
             rgb_after = frames[-1]
@@ -181,8 +206,13 @@ def make_train_step(nca_cfg: NCAConfig, loss_state: LossState,
         mark("end")
         # the pool write-back strips appended channels (experiments.py:269)
         new_states = state_after.detach()[:, :nca_cfg.n_seed_channels]
-        return (params, optimizer, new_states, loss.detach(),
-                {k: v.detach() for k, v in logs.items()})
+        loss, logs = loss.detach(), {k: v.detach() for k, v in logs.items()}
+        if mesh is not None:  # the global batch's mean, on every rank
+            names = sorted(logs)
+            vec = all_reduce_mean(torch.stack([loss] + [logs[k] for k in names]).float(),
+                                  mesh.group(data_axis))
+            loss, logs = vec[0], dict(zip(names, vec[1:]))
+        return params, optimizer, new_states, loss, logs
 
     return train_step
 
@@ -199,10 +229,13 @@ class DyNCATrainer:
 
     def __init__(self, nca_cfg: NCAConfig, loss_cfg: LossConfig,
                  train_cfg: TrainConfig, vgg_params=None, msoe_params=None,
-                 seed: Optional[int] = None, device=None):
+                 seed: Optional[int] = None, device=None, mesh=None):
         """Parameters and pool seeds come from ``torch.Generator(seed)``
         (drawn on the CPU); batch indices and rollout lengths from
-        ``np.random.RandomState(seed)``, as in the JAX trainer."""
+        ``np.random.RandomState(seed)``, as in the JAX trainer. ``mesh``: a
+        ``parallel.mesh.Mesh`` whose first axis is the data axis — the
+        trainer then runs data-parallel (see the module docstring); the
+        batch and the pool must divide the axis size."""
         self.device = resolve_device(device)
         self.nca_cfg = nca_cfg
         self.train_cfg = train_cfg
@@ -219,8 +252,16 @@ class DyNCATrainer:
         self.pool = DevicePool(dynca_seed(nca_cfg, train_cfg.pool_size,
                                           train_cfg.img_size, self.generator,
                                           self.device))
-        self._train_step = make_train_step(nca_cfg, self.loss_state, train_cfg.remat,
-                                           train_cfg.rollout_path)
+        self.mesh = mesh
+        if mesh is not None:
+            axis = mesh.axis_names[0]
+            n = mesh.size(axis)
+            for name in ("batch_size", "pool_size"):
+                if getattr(train_cfg, name) % n:
+                    raise ValueError(f"{name} {getattr(train_cfg, name)} must divide evenly "
+                                     f"over the {n}-rank '{axis}' mesh axis")
+            replicate(self.params, mesh)
+        self._train_step = self._make_step()
         self._seed_template = dynca_seed(nca_cfg, 1, train_cfg.img_size,
                                          self.generator, self.device)
         self.iteration = 0
@@ -229,8 +270,17 @@ class DyNCATrainer:
     def rebuild_loss(self, new_cfg: LossConfig) -> None:
         """Swap the loss weights (the video-motion calibration)."""
         self.loss_state = dataclasses.replace(self.loss_state, cfg=new_cfg)
-        self._train_step = make_train_step(self.nca_cfg, self.loss_state,
-                                           self.train_cfg.remat, self.train_cfg.rollout_path)
+        self._train_step = self._make_step()
+
+    def _make_step(self):
+        if self.mesh is None:
+            return make_train_step(self.nca_cfg, self.loss_state, self.train_cfg.remat,
+                                   self.train_cfg.rollout_path)
+        axis = self.mesh.axis_names[0]
+        return make_dp_train_step(
+            make_train_step(self.nca_cfg, self.loss_state, self.train_cfg.remat,
+                            self.train_cfg.rollout_path, mesh=self.mesh, data_axis=axis),
+            self.mesh, axis)
 
     def sample_step_n(self) -> int:
         """Random rollout length snapped to the nearest bucket."""
