@@ -900,6 +900,44 @@ def test_chain_form_widths_match_plain_and_repeat(cuda, c_in, c_cond, fc_dim, mu
     assert torch.equal(runs[0], runs[1])
 
 
+# [B, H, W] of the served step's cases: fewer 16 x 16 tiles than the grid's
+# block slots (256^2 b1), more (128^2 b8), and ragged edge tiles (520 x 300)
+SERVED_SHAPES = [(1, 256, 256), (8, 128, 128), (3, 520, 300)]
+
+
+@pytest.mark.parametrize("shape", SERVED_SHAPES)
+@pytest.mark.parametrize("pad_mode", ["circular", "replicate", "zeros"])
+def test_served_step_is_the_plain_step_bit_for_bit(cuda, pad_mode, shape):
+    """The served step (nca_step's chain form under bf16 compute with a
+    float32 state, fused_step.chain_form) at the served widths (c12/fc96,
+    edges) and rate 0.5, 24 steps: every step the plain step's bits, and two
+    launches the same bits; each output buffer starts as NaN, so a tile the
+    kernel's walk over tiles skips shows."""
+    cfg = NCAConfig(c_in=12, fc_dim=96, padding_mode=pad_mode, conditioning="edges",
+                    update_rate=0.5)
+    assert fs.chain_form(fs.rollout_form(cfg), "bfloat16")
+    params = dynca.dynca_init(torch.Generator().manual_seed(0), cfg, device=cuda)
+    g = torch.Generator().manual_seed(1)
+    params["b2"] = (0.01 * torch.randn(12, generator=g)).to(cuda)
+    b, h, w = shape
+    x = (torch.rand((b, 12, h, w), generator=g) - 0.5).to(cuda)
+    cond = (torch.rand((b, 3, h, w), generator=g) - 0.5).to(cuda)
+    packed = fs.pack_weights(params, 12, 3, "bfloat16")
+    thr = fs.uniform_threshold(0.5)
+    src = x
+    for step in range(24):
+        outs = [torch.full_like(x, float("nan")) for _ in range(2)]
+        before = fs.KERNEL_LAUNCHES["nca_step_chain"]
+        for o in outs:
+            fs.launch_step(src, o, cond, packed, pad_mode, "bfloat16", 7, step, thr, chain=True)
+        assert fs.KERNEL_LAUNCHES["nca_step_chain"] == before + 2
+        want = fs.reference_step(src, cond, packed, pad_mode, "bfloat16", 7, step, 0.5)
+        assert torch.equal(outs[0], want), f"step {step}"
+        assert torch.equal(outs[0], outs[1]), f"step {step}"
+        assert not torch.equal(outs[0], src)
+        src = outs[0]
+
+
 @pytest.mark.parametrize("preset", ["static_texture", "video_motion"])
 def test_gate_stress_pair_matches_plain(cuda, preset):
     """The static_texture (c12/fc96, scales (0,)) and video_motion (c16/fc128,

@@ -28,6 +28,7 @@ from vsnca_tpu_torch.config import NCAConfig
 from vsnca_tpu_torch.convert import params_from_jax
 from vsnca_tpu_torch.models import dynca
 from vsnca_tpu_torch.ops import fused_step as fs
+from vsnca_tpu_torch.ops.perception import perceive
 
 torch.set_num_threads(1)
 
@@ -192,6 +193,34 @@ def test_pack_weights_matches_flat_pad_weights(compute_dtype):
     np.testing.assert_array_equal(pb1[:30].numpy(), np.asarray(b1))
     np.testing.assert_array_equal(pb2.numpy(), np.asarray(b2)[:12])
     assert not pw1[:, 30:].any() and not pb1[30:].any() and not pw2[30:].any()
+
+
+def _bf16_bits_survive(t: torch.Tensor) -> bool:
+    return torch.equal(t.to(torch.bfloat16).float().view(torch.int32), t.view(torch.int32))
+
+
+@pytest.mark.parametrize("c_in,conditioning", [(12, "edges"), (12, "pos_emb"), (13, None)])
+def test_served_step_operands_are_bf16_values(c_in, conditioning):
+    """The premise of the served kernel's operands (nca_step_kernel_served,
+    at the widths it is built for): under bf16 compute, pack_weights' W1 and
+    W2, and the plain step's rounded percept and hidden activations
+    (rounder('bfloat16'), where reference_step applies it), are bf16 values,
+    so a round trip through torch.bfloat16 keeps every bit."""
+    cfg = NCAConfig(c_in=c_in, fc_dim=96, conditioning=conditioning)
+    params = dynca.dynca_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    g = torch.Generator().manual_seed(1)
+    x = torch.rand((2, c_in, 24, 40), generator=g) - 0.5
+    cond = torch.rand((2, cfg.c_cond, 24, 40), generator=g) - 0.5 if cfg.c_cond else None
+    w1, b1, w2, _ = fs.pack_weights(params, c_in, cfg.c_cond, "bfloat16")
+    assert _bf16_bits_survive(w1) and _bf16_bits_survive(w2)
+    rnd = fs.rounder("bfloat16")
+    p = perceive(x, cfg.padding_mode)
+    p = p if cond is None else torch.cat([p, cond], dim=1)
+    assert not _bf16_bits_survive(p)  # the rounding is what makes them bf16 values
+    p = rnd(p)
+    hid = rnd(torch.relu(torch.einsum("bphw,pf->bfhw", p, w1) + b1[:, None, None]))
+    assert _bf16_bits_survive(p) and _bf16_bits_survive(hid)
+    assert hid.count_nonzero() > 0
 
 
 # ------------------------------------------------------ wrapper contract

@@ -26,7 +26,8 @@
 // bf16 (989 TFLOP/s) ~0.16 us, as float32 FMAs on the CUDA cores (67
 // TFLOP/s) ~12 us.
 //
-// Two forms of the step, one template and one launch each:
+// Two forms of the step, one template and one launch each (and the served
+// step's own kernel, below):
 //
 // nca_step_kernel — the rollout (every rollout entry, the stylizers and
 // the server) but where the chain form runs: the MLP on the tensor cores. A 16 x 16 block of 256 threads (8
@@ -57,11 +58,11 @@
 //
 // The chain form — nca_step_kernel<BF16, MS, float, true> — the training
 // pair's forward and its segment recompute, and the scales-(0,) rollout
-// under bf16 compute with a float32 state (the served step: its percept is
-// rounded to bf16 every step, so a one-ulp difference of state flips
-// percept roundings, and the tensor-core form drifted 2.07e-3 from the
-// plain version over 24 steps at 256^2 against a 1e-3 tolerance;
-// fused_step.py::chain_form): the same
+// under bf16 compute with a float32 state at widths no served kernel (below)
+// is built for (the served step: its percept is rounded to bf16 every step,
+// so a one-ulp difference of state flips percept roundings, and the
+// tensor-core form drifted 2.07e-3 from the plain version over 24 steps at
+// 256^2 against a 1e-3 tolerance; fused_step.py::chain_form): the same
 // staging and percept columns, then the MLP as float32 FMAs on the CUDA
 // cores in the plain version's order (z1 over the percept rows in order,
 // then the bias; dx over the units in order), so the pair's states, and
@@ -81,6 +82,37 @@
 // c12/fc96/cc2), else a warp reads one float4 of it a row, the same address
 // in every lane, through L1 (112.7 KB at c16/fc128/cc2 MS): a second block
 // an SM pays for the L1 reads there, not where two fit anyway.
+//
+// nca_step_kernel_served<C, cc> — the served step: the chain form's
+// function, FMAs and order (so its bits) for the scales-(0,) rollout under
+// bf16 compute with a float32 state, built for the widths NCA_SERVED_WIDTHS
+// lists (c12 with the edges' 3 or pos_emb's 2 conditioning channels, c13
+// without); nca_step_launch's chain form takes it there.
+// The CUDA cores' float32 FMAs bound it: 6,048 a pixel at c12/fc96/cc3,
+// 0.379 ms for [8, 12, 512, 512] at 67 TFLOP/s. Its design:
+//   * persistent blocks: the grid is min(tiles, blocks an SM x SMs); a block
+//     walks the 16 x 16 tiles t = blockIdx.x, + gridDim.x, ... and stages
+//     W1, W2 and the biases once (the chain form stages those 28 KB for every
+//     256 pixels: ~230 MB of L2 reads a step at 8 x 512^2);
+//   * the next tile's halo and conditioning are copied (cp.async, the
+//     padding resolved once a row) into the second of two tile buffers while
+//     the block computes the current one: one barrier a tile, and the first
+//     tile's percept overlaps the weights' copies;
+//   * a thread owns two adjacent pixels of a row and keeps their whole
+//     percept (4C + cc values each, rounded to bf16) in registers, so the
+//     MLP reads only weights from shared memory: one broadcast float4 of W1
+//     a row feeds 8 FMAs (4 units x 2 pixels), three float4s of W2 a unit
+//     feed 24. The second layer runs in the same thread, over the units in
+//     order, after each chunk of 4 units: no relu(z1) round trip through
+//     shared memory, no barrier inside the MLP, no FMA on a padding channel;
+//   * mask, residual (the state read from the tile's centre) and a float2
+//     store of the two pixels.
+// 128 threads a block, 168 registers (ptxas), 60.4 KB of shared memory at
+// c12/fc96/cc3 (W1 19.1 KB, W2 4.5 KB, biases, two tiles of 18.2 KB): three
+// blocks an SM. What paces it is the shared-memory pipe: a broadcast float4
+// read holds it ~4 cycles, and each weight feeds 2 FMAs a thread, so the
+// FMAs run at about half their peak (PERF.md §6 has the times and the
+// variants measured: more pixels a thread, as bf16 pairs, lost occupancy).
 //
 // bf16 mode rounds (round to nearest even) exactly where the TPU kernel
 // casts to its compute dtype: the percept (pallas_step.py:1176), the hidden
@@ -149,6 +181,10 @@
 // Shared memory at c12/fc96/cc3: W_eff 44.4 KB + W2, biases 8.1 KB +
 // offsets and tiles 19.9 KB = 72.4 KB, and the chain form's chunk 32.8 KB
 // more; two blocks an SM.
+
+#include <algorithm>
+#include <map>
+#include <mutex>
 
 #include "nca_common.cuh"
 #include "nca_mma.cuh"
@@ -551,6 +587,7 @@ nca_step_kernel(const T* __restrict__ x, T* __restrict__ out,
         }
       }
     }
+    // phase: the chain's bias, mask, residual and store
   } else {
     // This warp's 32 pixels (tile rows 2 warp, 2 warp + 1) as two m16 tiles:
     // z1 for a chunk of 32 units, then dx += relu(z1) W2 over the chunk's two
@@ -636,6 +673,327 @@ nca_step_kernel(const T* __restrict__ x, T* __restrict__ out,
   }
 }
 
+// The served step (see the header): C and cc are the template's CT and CCT,
+// P = 4 CT + CCT percept rows. Shared memory, float32, in this order:
+//   w1s [F4 / 4][P] float4   W1, four adjacent units of a row in a float4,
+//                            the rows of a chunk of four units contiguous
+//   w2s [F4][LW2]            W2 (unit-major), zero past C
+//   b1s [F4], b2s [LW2]
+//   tiles 2 x ([CT, 18, 18] state halo tile, [CCT, 16, 16] conditioning)
+// LW2 = CT rounded up to 4. A block walks tiles t = blockIdx.x, + gridDim.x,
+// ...; tile t is 16 x 16 pixels of batch item t / (tiles an item), row-major.
+#define SV_THREADS 128  // a 16 x 16 tile, a thread two adjacent pixels of a row
+
+template <int CT, int CCT>
+struct Served {
+  static constexpr int P = 4 * CT + CCT;
+  static constexpr int LW2 = (CT + 3) & ~3;
+  static constexpr int TILE = CT * NCA_HALO * NCA_HALO + CCT * NCA_TILE * NCA_TILE;
+  static size_t smem(int F4) {
+    return sizeof(float) * ((size_t)P * F4 + (size_t)F4 * LW2 + F4 + LW2 + 2 * TILE);
+  }
+};
+
+// Tile t's state halo (the padding mode resolves it, as stage_tile_async
+// does) and its conditioning pixels (zeros past the grid) into buf, by
+// cp.async; the caller waits and synchronises. A thread copies one column of
+// the halo (tid % 18) on rows tid / 18, + 7, + 14 of every channel: the
+// padding is resolved once a row, not once a value.
+template <int CT, int CCT>
+__device__ __forceinline__ void served_stage(float* buf, const float* x, const float* cond,
+                                             int t, int ntx, int per, int H, int W,
+                                             int pad_mode, int tid) {
+  constexpr int SLOTS = SV_THREADS / NCA_HALO;  // rows staged at once
+  const int b = t / per, r = t - b * per, by = r / ntx, bx = r - by * ntx;
+  const size_t HW = (size_t)H * W;
+  const int q = tid % NCA_HALO, r0 = tid / NCA_HALO;
+  if (r0 < SLOTS) {
+    const int gx = pad_index(bx * NCA_TILE - 1 + q, W, pad_mode);
+    int off[(NCA_HALO + SLOTS - 1) / SLOTS];
+#pragma unroll
+    for (int j = 0; j * SLOTS < NCA_HALO; ++j) {
+      const int row = r0 + j * SLOTS;
+      const int gy = row < NCA_HALO ? pad_index(by * NCA_TILE - 1 + row, H, pad_mode) : -1;
+      off[j] = gy < 0 || gx < 0 ? -1 : gy * W + gx;
+    }
+    const float* xc = x + (size_t)b * CT * HW;
+#pragma unroll 4
+    for (int c = 0; c < CT; ++c, xc += HW) {
+#pragma unroll
+      for (int j = 0; j * SLOTS < NCA_HALO; ++j) {
+        const int row = r0 + j * SLOTS;
+        float* d = buf + (c * NCA_HALO + row) * NCA_HALO + q;
+        if (off[j] >= 0)
+          cp_async4(d, xc + off[j]);
+        else if (row < NCA_HALO)
+          *d = 0.f;
+      }
+    }
+  }
+  float* ct = buf + CT * NCA_HALO * NCA_HALO;
+  for (int i = tid; i < CCT * NCA_TILE * NCA_TILE; i += SV_THREADS) {
+    const int j = i >> 8, gy = by * NCA_TILE + ((i >> 4) & 15), gx = bx * NCA_TILE + (i & 15);
+    if (gy < H && gx < W)
+      cp_async4(ct + i, cond + ((size_t)b * CCT + j) * HW + (size_t)gy * W + gx);
+    else
+      ct[i] = 0.f;
+  }
+}
+
+template <int CT, int CCT>
+__global__ void __launch_bounds__(SV_THREADS, 3)  // 168 registers: three blocks an SM
+nca_step_kernel_served(const float* __restrict__ x, float* __restrict__ out,
+                       const float* __restrict__ cond, const float* __restrict__ w1,
+                       const float* __restrict__ b1, const float* __restrict__ w2,
+                       const float* __restrict__ b2, int B, int H, int W, int F4,
+                       int pad_mode, uint32_t seed, uint32_t step, uint32_t thr) {
+  using S = Served<CT, CCT>;
+  constexpr int P = S::P, LW2 = S::LW2;
+  extern __shared__ __align__(16) float smem[];
+  float* w1s = smem;
+  float* w2s = w1s + P * F4;
+  float* b1s = w2s + F4 * LW2;
+  float* b2s = b1s + F4;
+  float* tiles = b2s + LW2;
+
+  const int tid = threadIdx.x;
+  const int ty = tid >> 3, tx = 2 * (tid & 7);
+  const int ntx = (W + NCA_TILE - 1) / NCA_TILE;
+  const int per = ntx * ((H + NCA_TILE - 1) / NCA_TILE), ntiles = per * B;
+  const size_t HW = (size_t)H * W;
+
+  // Tile blockIdx.x, then the weights, once a block, each a group of copies:
+  // W1's float4 (unit group q, row k) from row k of w1 (16-byte copies: F4
+  // and w1 are), W2's rows padded with zeros (16-byte copies where C is a
+  // multiple of 4 and w2 aligned).
+  if ((int)blockIdx.x < ntiles)
+    served_stage<CT, CCT>(tiles, x, cond, blockIdx.x, ntx, per, H, W, pad_mode, tid);
+  cp_async_commit();
+  for (int i = tid; i < P * (F4 / 4); i += SV_THREADS) {
+    const int q = i / P, k = i - q * P;
+    cp_async16(w1s + 4 * i, w1 + (size_t)k * F4 + 4 * q);
+  }
+  if (LW2 == CT && reinterpret_cast<uintptr_t>(w2) % 16 == 0) {
+    for (int i = tid; i < F4 * CT / 4; i += SV_THREADS) cp_async16(w2s + 4 * i, w2 + 4 * i);
+  } else {
+    for (int i = tid; i < F4 * LW2; i += SV_THREADS) {
+      const int f = i / LW2, c = i - f * LW2;
+      if (c < CT)
+        cp_async4(w2s + i, w2 + f * CT + c);
+      else
+        w2s[i] = 0.f;
+    }
+  }
+  for (int i = tid; i < F4; i += SV_THREADS) cp_async4(b1s + i, b1 + i);
+  if (tid < LW2) b2s[tid] = tid < CT ? b2[tid] : 0.f;
+  cp_async_commit();
+
+  const bool vec = W % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 8 == 0;
+#pragma unroll 1
+  for (int t = blockIdx.x, it = 0; t < ntiles; t += gridDim.x, ++it) {
+    const float* tile = tiles + (it & 1) * S::TILE;
+    // Tile t has landed (at the first, the weights may not have: the percept
+    // does not read them); every thread is past the previous tile, so its
+    // buffer takes the next one.
+    if (it == 0)
+      cp_async_wait_group<1>();
+    else
+      cp_async_wait_all();
+    __syncthreads();  // tile t has landed
+    if (t + (int)gridDim.x < ntiles)
+      served_stage<CT, CCT>(tiles + ((it + 1) & 1) * S::TILE, x, cond, t + gridDim.x, ntx,
+                            per, H, W, pad_mode, tid);
+    cp_async_commit();
+
+    // The two pixels' percept in registers, rounded to bf16: row k * CT + c
+    // is block k (raw, sx, sy, lap) of channel c, row 4 CT + j conditioning
+    // channel j; the stencils as pixel_percept computes them.
+    float pc[P][2];
+#pragma unroll
+    for (int c = 0; c < CT; ++c) {
+      const float* tc = tile + (c * NCA_HALO + ty) * NCA_HALO + tx;
+      float v[3][4];
+#pragma unroll
+      for (int r = 0; r < 3; ++r) {
+        const float2 lo = *reinterpret_cast<const float2*>(tc + r * NCA_HALO);
+        const float2 hi = *reinterpret_cast<const float2*>(tc + r * NCA_HALO + 2);
+        v[r][0] = lo.x;
+        v[r][1] = lo.y;
+        v[r][2] = hi.x;
+        v[r][3] = hi.y;
+      }
+#pragma unroll
+      for (int p = 0; p < 2; ++p) {
+        float sx, sy, lap;
+        stencils<4>(&v[0][p], sx, sy, lap);
+        pc[c][p] = bf16_round(v[1][p + 1]);
+        pc[CT + c][p] = bf16_round(sx);
+        pc[2 * CT + c][p] = bf16_round(sy);
+        pc[3 * CT + c][p] = bf16_round(lap);
+      }
+    }
+#pragma unroll
+    for (int j = 0; j < CCT; ++j) {
+      const float2 cv = *reinterpret_cast<const float2*>(
+          tile + CT * NCA_HALO * NCA_HALO + j * NCA_TILE * NCA_TILE + ty * NCA_TILE + tx);
+      pc[4 * CT + j][0] = bf16_round(cv.x);
+      pc[4 * CT + j][1] = bf16_round(cv.y);
+    }
+    if (it == 0) {
+      cp_async_wait_group<1>();
+      __syncthreads();  // the weights
+    }
+    // phase: the percept in registers
+
+    // The MLP, four units a chunk in unit order: z1 as the chain over the
+    // rows in order (a broadcast float4 of W1 feeds 8 FMAs), + b1, relu,
+    // rounded to bf16; then dx += W2^T h over the chunk's units in order.
+    float dx[CT][2];
+#pragma unroll
+    for (int c = 0; c < CT; ++c) dx[c][0] = dx[c][1] = 0.f;
+#pragma unroll 1
+    for (int f0 = 0; f0 < F4; f0 += 4) {
+      const float4* wq = reinterpret_cast<const float4*>(w1s) + (f0 / 4) * P;
+      float a[4][2];
+#pragma unroll
+      for (int u = 0; u < 4; ++u) a[u][0] = a[u][1] = 0.f;
+#pragma unroll
+      for (int k = 0; k < P; ++k) {
+        const float4 w = wq[k];
+#pragma unroll
+        for (int p = 0; p < 2; ++p) {
+          a[0][p] = __fmaf_rn(w.x, pc[k][p], a[0][p]);
+          a[1][p] = __fmaf_rn(w.y, pc[k][p], a[1][p]);
+          a[2][p] = __fmaf_rn(w.z, pc[k][p], a[2][p]);
+          a[3][p] = __fmaf_rn(w.w, pc[k][p], a[3][p]);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        const float bu = b1s[f0 + u];
+#pragma unroll
+        for (int p = 0; p < 2; ++p) a[u][p] = bf16_round(fmaxf(__fadd_rn(a[u][p], bu), 0.f));
+        const float4* wr = reinterpret_cast<const float4*>(w2s + (f0 + u) * LW2);
+#pragma unroll
+        for (int q = 0; q < LW2 / 4; ++q) {
+          const float4 w = wr[q];
+          const float wv[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            if (4 * q + e < CT) {
+#pragma unroll
+              for (int p = 0; p < 2; ++p)
+                dx[4 * q + e][p] = __fmaf_rn(wv[e], a[u][p], dx[4 * q + e][p]);
+            }
+          }
+        }
+      }
+    }
+    // phase: the MLP
+
+    // Mask and the float32 residual add from the tile's centre (the state's
+    // own values): x + (dx + b2), as the plain version adds.
+    const int b = t / per, r = t - b * per, by = r / ntx, bx = r - by * ntx;
+    const int gy = by * NCA_TILE + ty, gx = bx * NCA_TILE + tx;
+    if (gy < H && gx < W) {
+      const bool in1 = gx + 1 < W;
+      const uint32_t pix = (uint32_t)(gy * W + gx);
+      const bool on0 = (mask_bits(seed, (uint32_t)b, step, pix) >> 8) >= thr;
+      const bool on1 = (mask_bits(seed, (uint32_t)b, step, pix + 1) >> 8) >= thr;
+      const float* xc = tile + (ty + 1) * NCA_HALO + tx + 1;
+      float* ob = out + (size_t)b * CT * HW + (size_t)gy * W + gx;
+#pragma unroll
+      for (int c = 0; c < CT; ++c) {
+        const float x0 = xc[c * NCA_HALO * NCA_HALO], x1 = xc[c * NCA_HALO * NCA_HALO + 1];
+        const float v0 = on0 ? __fadd_rn(x0, __fadd_rn(dx[c][0], b2s[c])) : x0;
+        const float v1 = on1 ? __fadd_rn(x1, __fadd_rn(dx[c][1], b2s[c])) : x1;
+        if (vec && in1) {
+          *reinterpret_cast<float2*>(ob + c * HW) = make_float2(v0, v1);
+        } else {
+          ob[c * HW] = v0;
+          if (in1) ob[c * HW + 1] = v1;
+        }
+      }
+    }
+    // phase: mask, residual and store
+  }
+}
+
+// Blocks an SM and SMs of the card for the served kernel at smem bytes
+// (the dynamic shared-memory attribute set to it), asked once per device and
+// size.
+template <int CT, int CCT>
+static void served_slots(size_t smem, int* per_sm, int* sms) {
+  static std::mutex lock;
+  static std::map<std::pair<int, size_t>, std::pair<int, int>> known;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  std::lock_guard<std::mutex> hold(lock);
+  auto it = known.find({dev, smem});
+  if (it == known.end()) {
+    auto kernel = nca_step_kernel_served<CT, CCT>;
+    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    int n = 0, m = 0;
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, SV_THREADS, smem);
+    cudaDeviceGetAttribute(&m, cudaDevAttrMultiProcessorCount, dev);
+    it = known.emplace(std::make_pair(dev, smem), std::make_pair(n, m)).first;
+  }
+  *per_sm = it->second.first;
+  *sms = it->second.second;
+}
+
+template <int CT, int CCT>
+static void launch_served(cudaStream_t s, const float* x, float* out, const float* cond,
+                          const float* w1, const float* b1, const float* w2, const float* b2,
+                          int B, int H, int W, int F4, int pad_mode, unsigned int seed,
+                          unsigned int step, unsigned int thr) {
+  const size_t smem = Served<CT, CCT>::smem(F4);
+  int per_sm = 0, sms = 0;
+  served_slots<CT, CCT>(smem, &per_sm, &sms);
+  const long long tiles =
+      (long long)B * ((H + NCA_TILE - 1) / NCA_TILE) * ((W + NCA_TILE - 1) / NCA_TILE);
+  const int grid = (int)std::min<long long>(tiles, (long long)std::max(per_sm, 1) * sms);
+  nca_step_kernel_served<CT, CCT><<<grid, SV_THREADS, smem, s>>>(
+      x, out, cond, w1, b1, w2, b2, B, H, W, F4, pad_mode, seed, step, thr);
+}
+
+// The widths a served kernel is built for: (C, cc) of edge_conditioned (the
+// model the stylizer ships), of static_texture and vector_field_motion
+// (pos_emb), and of extra_channels.
+#define NCA_SERVED_WIDTHS NCA_SERVED(12, 3) NCA_SERVED(12, 2) NCA_SERVED(13, 0)
+
+// The served kernel for these widths, where one is built for them: whether
+// it launched.
+static bool served(cudaStream_t s, const float* x, float* out, const float* cond,
+                   const float* w1, const float* b1, const float* w2, const float* b2, int B,
+                   int C, int H, int W, int cc, int F4, int pad_mode, unsigned int seed,
+                   unsigned int step, unsigned int thr) {
+#define NCA_SERVED(CT, CCT)                                                                \
+  if (C == CT && cc == CCT) {                                                              \
+    launch_served<CT, CCT>(s, x, out, cond, w1, b1, w2, b2, B, H, W, F4, pad_mode, seed,  \
+                           step, thr);                                                     \
+    return true;                                                                           \
+  }
+  NCA_SERVED_WIDTHS
+#undef NCA_SERVED
+  return false;
+}
+
+// The served kernel's blocks an SM and shared memory at these widths, where
+// one is built for them: whether one is.
+static bool served_occupancy(int C, int cc, int F4, int* blocks, size_t* smem) {
+#define NCA_SERVED(CT, CCT)                             \
+  if (C == CT && cc == CCT) {                           \
+    int sms = 0;                                        \
+    *smem = Served<CT, CCT>::smem(F4);                  \
+    served_slots<CT, CCT>(*smem, blocks, &sms);         \
+    return true;                                        \
+  }
+  NCA_SERVED_WIDTHS
+#undef NCA_SERVED
+  return false;
+}
+
 template <bool BF16, bool MS, typename T = float, bool CHAIN = false, bool MAT = false>
 static void launch(dim3 grid, size_t smem, cudaStream_t s, const T* x, T* out,
                    const T* cond, const float* w1, const float* b1, const float* w2,
@@ -702,10 +1060,12 @@ int nca_step_launch(const float* x, float* out, const float* cond,
     if (bf16 && ms)
       launch<true, true, float, true>(grid, smem, s, x, out, cond, w1, b1, w2, b2, C, H, W,
                                       cc, F4, pad_mode, seed, step, thr);
-    else if (bf16)
-      launch<true, false, float, true>(grid, smem, s, x, out, cond, w1, b1, w2, b2, C, H,
-                                       W, cc, F4, pad_mode, seed, step, thr);
-    else if (ms)
+    else if (bf16) {
+      if (!served(s, x, out, cond, w1, b1, w2, b2, B, C, H, W, cc, F4, pad_mode, seed, step,
+                  thr))  // widths no served kernel is built for
+        launch<true, false, float, true>(grid, smem, s, x, out, cond, w1, b1, w2, b2, C, H,
+                                         W, cc, F4, pad_mode, seed, step, thr);
+    } else if (ms)
       launch<false, true, float, true>(grid, smem, s, x, out, cond, w1, b1, w2, b2, C, H,
                                        W, cc, F4, pad_mode, seed, step, thr);
     else
@@ -791,10 +1151,12 @@ int nca_step_occupancy(int C, int cc, int F4, int bf16, int ms, int form,
                        int* blocks, int* smem_bytes) {
   if (bad_sizes(C, cc, F4, 0)) return (int)cudaErrorInvalidValue;
   const bool mat = form == 3;
-  const size_t smem = step_smem(C, cc, F4, ms && !mat, form == 2 || (mat && bf16), mat);
+  size_t smem = step_smem(C, cc, F4, ms && !mat, form == 2 || (mat && bf16), mat);
   *smem_bytes = (int)smem;
   using bf = __nv_bfloat16;
-  if (mat)
+  if (form == 2 && bf16 && !ms && served_occupancy(C, cc, F4, blocks, &smem))
+    *smem_bytes = (int)smem;
+  else if (mat)
     *blocks = bf16 ? blocks_per_sm(nca_step_kernel<true, false, float, true, true>, smem)
                    : blocks_per_sm(nca_step_kernel<false, false, float, false, true>, smem);
   else if (form == 1)

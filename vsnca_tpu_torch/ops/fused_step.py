@@ -357,7 +357,18 @@ def chain_form(form: str, compute_dtype: str) -> bool:
     those shapes. Under float32 compute ``nca_step_mat``'s tensor-core form
     (split TF32) stays within 4.8e-6 of it against 1e-4. The multiscale step
     (whose average damps the flips: 7.0e-4 over 24 steps at 256^2 b3), the
-    float32 steps and the bf16-state step run on the tensor cores."""
+    float32 steps and the bf16-state step run on the tensor cores.
+
+    The scales-(0,) chain form is every served bf16 rollout's step, so at
+    the presets' widths (c12 with 3 or 2 conditioning channels, c13
+    without) it launches a kernel of its own,
+    ``nca_step_kernel_served``, with the chain form's FMAs in the chain
+    form's order: persistent blocks that stage the weights once and walk
+    16 x 16 tiles, the next tile's halo copied under the current tile's MLP,
+    two pixels a thread with their percept in registers. 168 registers,
+    60.4 KB of shared memory at c12/fc96/cc3, three blocks an SM; bound by
+    the float32 FMAs (0.379 ms for [8, 12, 512, 512]), paced by the
+    shared-memory reads of the weights (csrc/nca_step.cu, PERF.md)."""
     return form in ("nca_step", "nca_step_mat") and compute_dtype == "bfloat16"
 
 
@@ -376,7 +387,10 @@ def launch_step(src: torch.Tensor, dst: torch.Tensor, cond: Optional[torch.Tenso
     plain version's order instead (``nca_step_chain``, ``nca_step_ms_chain``,
     ``nca_step_mat_chain``): the training pair's forward, whose states, and
     so its relu gates, must be the plain pair's bits (see csrc/nca_step.cu),
-    and the bf16 scales-(0,) and folded-stencil rollouts (``chain_form``).
+    and the bf16 scales-(0,) and folded-stencil rollouts (``chain_form``);
+    the scales-(0,) one under bf16 compute runs ``nca_step_kernel_served``
+    where it is built for the widths (``chain_form`` says which), counted as
+    ``nca_step_chain`` too: the same arithmetic and bits.
     ``nca_step_mat``'s chain form exists under bf16 compute only; without
     ``chain`` it runs the tensor-core form under either compute type.
     Counts the launch in ``LAUNCHES`` and ``KERNEL_LAUNCHES``."""

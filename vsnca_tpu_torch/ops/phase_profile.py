@@ -1,6 +1,7 @@
 """Where the time goes inside the redesigned kernels: a per-phase clock
-profile of the rollout step ``nca_step_ms`` (its tensor-core and chain
-forms) and ``nca_step_mat`` (the folded stencil, both forms), of the training
+profile of the served step (``nca_step_kernel_served``, ``served``), of the
+rollout step ``nca_step_ms`` (its tensor-core and chain forms) and
+``nca_step_mat`` (the folded stencil, both forms), of the training
 backward's ``nca_bwd_mlp(_ms)``, ``nca_bwd_adjoint`` and
 ``nca_bwd_adjoint_ms``, and of ``cnca_update``, ``cnca_gate``,
 ``cnca_bwd_mlp`` and ``cnca_bwd_adjoint`` on the card.
@@ -19,8 +20,9 @@ barrier includes the wait for the block's slowest warp; one that ends at a
 ``// phase:`` mark (the step's z1 and second layer, a chunk of units at a
 time, and its store; the staging and the last phase of ``cnca_update``; the
 issue of the next pass's copies and the combine of ``nca_bwd_adjoint_ms``)
-counts thread 0's warp alone; so do the
-staging, adjoint and store marks of the single-scale adjoints, whose
+counts thread 0's warp alone (the served step's, summed over a block's
+tiles, too); so do the staging, adjoint and store marks of the
+single-scale adjoints, whose
 waiting phase ends at the barrier after a channel's copies, and
 ``cnca_gate``'s staging, life-mask and store marks. A phase in a
 loop (the adjoints' passes or channels) sums over its iterations. The
@@ -42,7 +44,7 @@ import torch
 from vsnca_tpu_torch.ops import _build
 
 OUT = _build.BUILD_DIR / "profile"
-KERNELS = {"nca_step": ("nca_step_kernel(",),
+KERNELS = {"nca_step": ("nca_step_kernel(", "nca_step_kernel_served("),
            "nca_train": ("nca_bwd_mlp_kernel(", "nca_bwd_adjoint_kernel(",
                          "nca_bwd_adjoint_ms_kernel("),
            "nca_cnca": ("cnca_update_kernel(", "cnca_gate_kernel(", "cnca_bwd_mlp_kernel(",
@@ -116,16 +118,51 @@ def build() -> Dict[str, Dict[str, Tuple[int, List[str]]]]:
     return labels
 
 
-def _report(lib, phases: Tuple[int, List[str]], n_blocks: int, reps: int, title: str) -> None:
+def _report(lib, phases: Tuple[int, List[str]], n_blocks: int, reps: int, title: str,
+            per: str = "a block") -> None:
     first, labels = phases
     buf = (ctypes.c_ulonglong * MAX_PHASES)()
     lib.read_phase_clocks(buf)
     clocks = [buf[first + i] for i in range(len(labels))]
     total = sum(clocks) or 1
-    print(f"{title}: mean clocks a block by phase (the barrier that ends it)")
+    print(f"{title}: mean clocks {per} by phase (the barrier that ends it)")
     for i, label in enumerate(labels):
         print(f"  {i}: {clocks[i] / (n_blocks * reps):9.0f} ({100 * clocks[i] / total:4.1f}%)  "
               f"{label or '__syncthreads()'}")
+
+
+def served(labels: Dict[str, Dict[str, Tuple[int, List[str]]]], reps: int = 10) -> None:
+    """The served step, ``nca_step``'s chain form under bf16 compute at the
+    edge_conditioned widths (c12/fc96/edges), at the serving cells' shapes
+    [1, 12, 256, 256] and [8, 12, 512, 512]: clocks by phase of a 16 x 16
+    tile (a block walks several where the grid holds fewer blocks than
+    tiles)."""
+    from vsnca_tpu_torch.config import NCAConfig
+    from vsnca_tpu_torch.models.dynca import dynca_init
+    from vsnca_tpu_torch.ops import fused_step as fs
+    from vsnca_tpu_torch.ops import fused_train as ft
+
+    lib = _build._LIBS["nca_step"]
+    cfg = NCAConfig(c_in=12, fc_dim=96, padding_mode="circular", conditioning="edges")
+    params = dynca_init(torch.Generator().manual_seed(0), cfg, device="cuda")
+    packed = fs.pack_weights(params, 12, 3, "bfloat16")
+    thr = fs.uniform_threshold(0.5)
+    for b, h, w in ((1, 256, 256), (8, 512, 512)):
+        g = torch.Generator().manual_seed(3)
+        x = (torch.rand((b, 12, h, w), generator=g) - 0.5).cuda()
+        cond = (torch.rand((b, 3, h, w), generator=g) - 0.5).cuda()
+        dst = torch.empty_like(x)
+        run = lambda: fs.launch_step(x, dst, cond, packed, "circular", "bfloat16", 5, 17,  # noqa
+                                     thr, chain=True)
+        run()  # warm-up
+        torch.cuda.synchronize()
+        lib.read_phase_clocks((ctypes.c_ulonglong * MAX_PHASES)())
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+        _report(lib, labels["nca_step"]["nca_step_kernel_served"], ft.n_blocks(b, h, w), reps,
+                f"nca_step_kernel_served c12/fc96/edges {h}x{w} b{b} bfloat16",
+                "a 16 x 16 tile")
 
 
 def main(reps: int = 10) -> None:
@@ -140,6 +177,7 @@ def main(reps: int = 10) -> None:
         raise SystemExit("phase_profile needs a CUDA device")
     labels = build()
     print(torch.cuda.get_device_name(0))
+    served(labels, reps)
     thr = fs.uniform_threshold(0.5)
     lib = _build._LIBS["nca_step"]
     for b, cdt, chain in ((3, "float32", False), (1, "bfloat16", False), (3, "float32", True)):
