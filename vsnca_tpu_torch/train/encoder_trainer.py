@@ -46,6 +46,8 @@ from vsnca_tpu_torch.models.conditioned_nca import (
     conditioned_nca_grow,
     conditioned_nca_init,
     conditioned_nca_seed,
+    encode_goal,
+    grow_from_encoding,
 )
 from vsnca_tpu_torch.models.vgg import vgg16_content_features, vgg16_style_features
 from vsnca_tpu_torch.ops.fused_cnca import check_supported
@@ -222,9 +224,11 @@ class ConditionedNCATrainer:
         cfg = self.cfg
         self.optimizer.zero_grad()
         seed = int(torch.randint(0, 2**30 - 1, (), generator=self.generator))
+        mark("encode")
+        goal = encode_goal(self.params, cfg, targets)
         mark("rollout forward")
-        grown = conditioned_nca_grow(self.params, batch, targets, seed, cfg, num_steps,
-                                     self.grow_remat, self.rollout_path)
+        grown = grow_from_encoding(self.params, batch, goal, seed, cfg, num_steps,
+                                   self.grow_remat, self.rollout_path)
         mark("loss forward")
         loss, logs = self.loss_fn(grown, grown[:, : cfg.num_target_channels], targets,
                                   self.generator)
@@ -242,11 +246,19 @@ class ConditionedNCATrainer:
     def train_iteration(self, batch_size: int = 8, num_steps: Optional[int] = None,
                         mark: Optional[Callable[[str], None]] = None):
         """One epoch: sample a pool batch (2 forced fresh seeds), train it
-        twice, write it back. ``mark``, when given, is called with the name
-        of each part of each of the two train steps as it begins ("rollout
-        forward", "loss forward", "loss backward", "rollout backward" — from
-        a hook in the backward —, "optimizer") and with "end"; a caller can
-        record a CUDA event in it to time the parts."""
+        twice, write it back. ``num_steps``, when given, is the step count
+        of both train steps (else each draws its own). ``mark``, when given,
+        is called with the name of each part of each of the two train steps
+        as it begins, and with "end" after the step's update; a caller can
+        record a CUDA event in it to time the parts:
+
+        - "encode": the ImageEncoder's forward on the goal images;
+        - "rollout forward": the grow from the batch and the encoding;
+        - "loss forward": overflow, appearance and content;
+        - "loss backward": the backward through the losses;
+        - "rollout backward" (from a hook in the backward): the grow's
+          backward, then the encoder's;
+        - "optimizer": the gradient normalization and Adam."""
         mark = mark or (lambda name: None)
         idxs = self.py_rng.sample(range(self._pool_size()), batch_size)
         targets = self.dataset.sample(self.rng, batch_size)
