@@ -106,7 +106,11 @@
 //     order, after each chunk of 4 units: no relu(z1) round trip through
 //     shared memory, no barrier inside the MLP, no FMA on a padding channel;
 //   * mask, residual (the state read from the tile's centre) and a float2
-//     store of the two pixels.
+//     store of the two pixels;
+//   * the mask's seed is the argument, or, where seed_ptr is not null, the
+//     word it points to, read once a block (nca_step_launch's seed_ptr): a
+//     CUDA graph fixes the arguments at capture, so a replayed frame passes
+//     its seed through device memory.
 // 128 threads a block, 168 registers (ptxas), 60.4 KB of shared memory at
 // c12/fc96/cc3 (W1 19.1 KB, W2 4.5 KB, biases, two tiles of 18.2 KB): three
 // blocks an SM. What paces it is the shared-memory pipe: a broadcast float4
@@ -746,10 +750,12 @@ nca_step_kernel_served(const float* __restrict__ x, float* __restrict__ out,
                        const float* __restrict__ cond, const float* __restrict__ w1,
                        const float* __restrict__ b1, const float* __restrict__ w2,
                        const float* __restrict__ b2, int B, int H, int W, int F4,
-                       int pad_mode, uint32_t seed, uint32_t step, uint32_t thr) {
+                       int pad_mode, uint32_t seed, uint32_t step, uint32_t thr,
+                       const uint32_t* __restrict__ seed_ptr) {
   using S = Served<CT, CCT>;
   constexpr int P = S::P, LW2 = S::LW2;
   extern __shared__ __align__(16) float smem[];
+  __shared__ uint32_t seed_s;  // the mask's seed, read once a block
   float* w1s = smem;
   float* w2s = w1s + P * F4;
   float* b1s = w2s + F4 * LW2;
@@ -786,6 +792,7 @@ nca_step_kernel_served(const float* __restrict__ x, float* __restrict__ out,
   }
   for (int i = tid; i < F4; i += SV_THREADS) cp_async4(b1s + i, b1 + i);
   if (tid < LW2) b2s[tid] = tid < CT ? b2[tid] : 0.f;
+  if (tid == 0) seed_s = seed_ptr != nullptr ? *seed_ptr : seed;
   cp_async_commit();
 
   const bool vec = W % 2 == 0 && reinterpret_cast<uintptr_t>(out) % 8 == 0;
@@ -898,8 +905,9 @@ nca_step_kernel_served(const float* __restrict__ x, float* __restrict__ out,
     if (gy < H && gx < W) {
       const bool in1 = gx + 1 < W;
       const uint32_t pix = (uint32_t)(gy * W + gx);
-      const bool on0 = (mask_bits(seed, (uint32_t)b, step, pix) >> 8) >= thr;
-      const bool on1 = (mask_bits(seed, (uint32_t)b, step, pix + 1) >> 8) >= thr;
+      const uint32_t sd = seed_s;
+      const bool on0 = (mask_bits(sd, (uint32_t)b, step, pix) >> 8) >= thr;
+      const bool on1 = (mask_bits(sd, (uint32_t)b, step, pix + 1) >> 8) >= thr;
       const float* xc = tile + (ty + 1) * NCA_HALO + tx + 1;
       float* ob = out + (size_t)b * CT * HW + (size_t)gy * W + gx;
 #pragma unroll
@@ -919,20 +927,26 @@ nca_step_kernel_served(const float* __restrict__ x, float* __restrict__ out,
   }
 }
 
-// Blocks an SM and SMs of the card for the served kernel at smem bytes
-// (the dynamic shared-memory attribute set to it), asked once per device and
-// size.
+// Blocks an SM and SMs of the card for the served kernel at smem bytes, asked
+// once per device and size. The dynamic shared-memory attribute is the
+// kernel's, not a launch's: it is raised to the largest size asked for on the
+// device and never lowered, so a size known here stays launchable after a
+// smaller one (another fc_dim at the same widths) was asked for.
 template <int CT, int CCT>
 static void served_slots(size_t smem, int* per_sm, int* sms) {
   static std::mutex lock;
   static std::map<std::pair<int, size_t>, std::pair<int, int>> known;
+  static std::map<int, size_t> allowed;  // the attribute as set, by device
   int dev = 0;
   cudaGetDevice(&dev);
   std::lock_guard<std::mutex> hold(lock);
   auto it = known.find({dev, smem});
   if (it == known.end()) {
     auto kernel = nca_step_kernel_served<CT, CCT>;
-    cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (smem > allowed[dev]) {
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      allowed[dev] = smem;
+    }
     int n = 0, m = 0;
     cudaOccupancyMaxActiveBlocksPerMultiprocessor(&n, kernel, SV_THREADS, smem);
     cudaDeviceGetAttribute(&m, cudaDevAttrMultiProcessorCount, dev);
@@ -946,7 +960,7 @@ template <int CT, int CCT>
 static void launch_served(cudaStream_t s, const float* x, float* out, const float* cond,
                           const float* w1, const float* b1, const float* w2, const float* b2,
                           int B, int H, int W, int F4, int pad_mode, unsigned int seed,
-                          unsigned int step, unsigned int thr) {
+                          const unsigned int* seed_ptr, unsigned int step, unsigned int thr) {
   const size_t smem = Served<CT, CCT>::smem(F4);
   int per_sm = 0, sms = 0;
   served_slots<CT, CCT>(smem, &per_sm, &sms);
@@ -954,7 +968,7 @@ static void launch_served(cudaStream_t s, const float* x, float* out, const floa
       (long long)B * ((H + NCA_TILE - 1) / NCA_TILE) * ((W + NCA_TILE - 1) / NCA_TILE);
   const int grid = (int)std::min<long long>(tiles, (long long)std::max(per_sm, 1) * sms);
   nca_step_kernel_served<CT, CCT><<<grid, SV_THREADS, smem, s>>>(
-      x, out, cond, w1, b1, w2, b2, B, H, W, F4, pad_mode, seed, step, thr);
+      x, out, cond, w1, b1, w2, b2, B, H, W, F4, pad_mode, seed, step, thr, seed_ptr);
 }
 
 // The widths a served kernel is built for: (C, cc) of edge_conditioned (the
@@ -963,15 +977,15 @@ static void launch_served(cudaStream_t s, const float* x, float* out, const floa
 #define NCA_SERVED_WIDTHS NCA_SERVED(12, 3) NCA_SERVED(12, 2) NCA_SERVED(13, 0)
 
 // The served kernel for these widths, where one is built for them: whether
-// it launched.
+// it launched. seed_ptr: null, or where the seed is read from instead.
 static bool served(cudaStream_t s, const float* x, float* out, const float* cond,
                    const float* w1, const float* b1, const float* w2, const float* b2, int B,
                    int C, int H, int W, int cc, int F4, int pad_mode, unsigned int seed,
-                   unsigned int step, unsigned int thr) {
+                   const unsigned int* seed_ptr, unsigned int step, unsigned int thr) {
 #define NCA_SERVED(CT, CCT)                                                                \
   if (C == CT && cc == CCT) {                                                              \
     launch_served<CT, CCT>(s, x, out, cond, w1, b1, w2, b2, B, H, W, F4, pad_mode, seed,  \
-                           step, thr);                                                     \
+                           seed_ptr, step, thr);                                           \
     return true;                                                                           \
   }
   NCA_SERVED_WIDTHS
@@ -1037,21 +1051,42 @@ int nca_step_limits(int* c_max, int* cc_max, int* f_max) {
   return 0;
 }
 
+// The (C, cc) pairs nca_step_kernel_served is built for (NCA_SERVED_WIDTHS):
+// writes up to n of them to widths as C, cc, C, cc, ...; returns how many
+// there are.
+int nca_step_served_widths(int* widths, int n) {
+  int k = 0;
+#define NCA_SERVED(CT, CCT)  \
+  if (k < n) {               \
+    widths[2 * k] = CT;      \
+    widths[2 * k + 1] = CCT; \
+  }                          \
+  ++k;
+  NCA_SERVED_WIDTHS
+#undef NCA_SERVED
+  return k;
+}
+
 // One step: x [B, C, H, W] -> out [B, C, H, W] (distinct buffers). cond is
 // [B, cc, H, W] or null when cc == 0. w1 [4C + cc, F4] (16-byte aligned),
 // b1 [F4], w2 [F4, C], b2 [C], all float32, F4 a multiple of 4. pad_mode:
 // 0 circular, 1 replicate, 2 zeros. ms: perception_scales (0, 1)
 // (nca_step_ms; even H and W) instead of (0,). chain: the chain form (the
-// training pair's forward) instead of the tensor-core form. Returns the
-// launch's cudaGetLastError().
+// training pair's forward) instead of the tensor-core form. seed_ptr: null,
+// or a word in device memory the mask's seed is read from in place of seed,
+// so that a CUDA graph which captured the launch replays it with each
+// frame's seed; it takes the served kernel only (the chain form under bf16
+// compute, scales (0,), the widths nca_step_served_widths gives) and is
+// refused elsewhere. Returns the launch's cudaGetLastError().
 int nca_step_launch(const float* x, float* out, const float* cond,
                     const float* w1, const float* b1, const float* w2,
                     const float* b2, int B, int C, int H, int W, int cc,
                     int F4, int pad_mode, int bf16, int ms, int chain,
                     unsigned int seed, unsigned int step, unsigned int thr,
-                    void* stream) {
+                    void* stream, const unsigned int* seed_ptr) {
   if (bad_sizes(C, cc, F4, pad_mode) || (ms && (H % 2 || W % 2)) ||
-      reinterpret_cast<uintptr_t>(w1) % 16 != 0)  // W1 rows go by cp.async
+      reinterpret_cast<uintptr_t>(w1) % 16 != 0 ||  // W1 rows go by cp.async
+      (seed_ptr != nullptr && !(chain && bf16 && !ms)))
     return (int)cudaErrorInvalidValue;
   const dim3 grid = step_grid(B, H, W);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -1061,10 +1096,12 @@ int nca_step_launch(const float* x, float* out, const float* cond,
       launch<true, true, float, true>(grid, smem, s, x, out, cond, w1, b1, w2, b2, C, H, W,
                                       cc, F4, pad_mode, seed, step, thr);
     else if (bf16) {
-      if (!served(s, x, out, cond, w1, b1, w2, b2, B, C, H, W, cc, F4, pad_mode, seed, step,
-                  thr))  // widths no served kernel is built for
+      if (!served(s, x, out, cond, w1, b1, w2, b2, B, C, H, W, cc, F4, pad_mode, seed,
+                  seed_ptr, step, thr)) {  // widths no served kernel is built for
+        if (seed_ptr != nullptr) return (int)cudaErrorInvalidValue;
         launch<true, false, float, true>(grid, smem, s, x, out, cond, w1, b1, w2, b2, C, H,
                                          W, cc, F4, pad_mode, seed, step, thr);
+      }
     } else if (ms)
       launch<false, true, float, true>(grid, smem, s, x, out, cond, w1, b1, w2, b2, C, H,
                                        W, cc, F4, pad_mode, seed, step, thr);

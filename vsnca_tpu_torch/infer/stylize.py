@@ -9,6 +9,14 @@ perception_scales (0,) model, 'roll' (``nca_step_ms``) for (0, 1) at even
 sizes, and eager steps where no kernel applies. The RGB readout is clipped
 to [-1, 1] → [0, 1]. The state is NCHW ``[1, C, H, W]``, as on the TPU fused
 path; ``state_nhwc`` gives the JAX stylizer's layout.
+
+Where every step is a launch of the served kernel (``takes_graph``), a
+frame's whole device work (the edge map, the steps and the readout) is
+captured once as a CUDA graph, after one eager frame at the state and frame
+shape, and replayed each frame: the same kernels in the same order, so the
+same bits, without the host between them. A stylizer keeps the graph of the
+last shape only. ``FRAMES``, ``GRAPH_CAPTURES`` and ``GRAPH_REPLAYS`` count
+``step_frame`` calls, captures and replays in the process.
 """
 
 from __future__ import annotations
@@ -21,8 +29,25 @@ import torch
 from vsnca_tpu_torch.config import NCAConfig
 from vsnca_tpu_torch.device import resolve_device
 from vsnca_tpu_torch.models.dynca import dynca_rollout, dynca_seed, make_conditioning
+from vsnca_tpu_torch.ops import fused_step as fs
 from vsnca_tpu_torch.ops.fused_step import ROLLOUT_KERNELS, select_rollout_kernel
 from vsnca_tpu_torch.ops.resize import resize_bilinear
+
+FRAMES = 0  # step_frame calls
+GRAPH_CAPTURES = 0  # frame graphs captured
+GRAPH_REPLAYS = 0  # frames served by a graph replay
+
+
+def takes_graph(device_type: str, compute_dtype: str, route: Optional[str], c: int,
+                cc: int) -> bool:
+    """Whether ``VideoStylizer.step_frame`` serves frames by replaying a
+    CUDA graph: on a card, where every step launches
+    ``nca_step_kernel_served``, that is the scales-(0,) route 'flat'
+    (``fused_rollout_chw``'s ``nca_step``) in its chain form (``chain_form``:
+    bf16 compute) at a (C, c_cond) the built library's ``served_widths``
+    gives, as ``launch_step`` decides. Every other frame runs eagerly."""
+    return (device_type == "cuda" and route == "flat"
+            and fs.chain_form("nca_step", compute_dtype) and (c, cc) in fs.served_widths())
 
 
 class VideoStylizer:
@@ -33,7 +58,11 @@ class VideoStylizer:
     rollout; for edge conditioning it feeds the edge map. The per-frame mask
     seed is the frame counter, as on the TPU fused path. ``compute_dtype``
     is the rollout kernel's matmul operand type ("bfloat16", the served
-    setting, or "float32").
+    setting, or "float32"). The stylizer holds its own copy of ``params``,
+    taken at construction. Where ``takes_graph`` holds, those weights are
+    packed once and each frame after the first at a (state, frame) shape
+    replays the ``_FrameGraph`` of that shape; the state and RGB a frame
+    returns are new tensors either way, never written by a later frame.
     """
 
     def __init__(
@@ -47,7 +76,7 @@ class VideoStylizer:
         compute_dtype: str = "bfloat16",
     ):
         self.device = resolve_device(device)
-        self.params = {k: torch.as_tensor(v).to(self.device, torch.float32)
+        self.params = {k: torch.as_tensor(v).to(self.device, torch.float32, copy=True)
                        for k, v in params.items()}
         self.cfg = nca_cfg
         self.size = (size, size) if isinstance(size, int) else tuple(size)
@@ -57,6 +86,13 @@ class VideoStylizer:
         self._extra_channel = nca_cfg.n_seed_channels < nca_cfg.c_in
         self._frame_idx = 0
         self._kernel = select_rollout_kernel(nca_cfg, *self.size)
+        cc = 0 if self._extra_channel or nca_cfg.conditioning is None else nca_cfg.c_cond
+        self._graphed = takes_graph(self.device.type, compute_dtype, self._kernel,
+                                    nca_cfg.c_in, cc)
+        self._packed = (fs.pack_weights(self.params, nca_cfg.c_in, cc, compute_dtype)
+                        if self._graphed else None)
+        self._shape: Optional[tuple] = None  # (state shape, frame shape) of the last frame
+        self._graph: Optional[_FrameGraph] = None  # its graph, from its second frame on
         self.reset()
 
     def reset(self):
@@ -79,29 +115,120 @@ class VideoStylizer:
     def step_frame(self, frame) -> torch.Tensor:
         """Advance one content frame [1, H, W, 3] in [-1, 1] (array or
         tensor) → stylized RGB [1, H, W, 3] in [0, 1] on ``self.device``."""
-        f = torch.as_tensor(frame, dtype=torch.float32).to(self.device)
+        global FRAMES
+        FRAMES += 1
+        f = torch.as_tensor(frame, dtype=torch.float32)
+        self._frame_idx += 1
+        if self._graphed:
+            shape = (tuple(self.state.shape), tuple(f.shape))
+            if shape == self._shape:
+                if self._graph is None:
+                    self._graph = _FrameGraph(self, *shape)
+                return self._graph.serve(self, f)
+            # a new shape: the last one's graph goes, and this frame runs
+            # eagerly, which warms the launcher for the capture
+            self._shape, self._graph = shape, None
+        self.state, rgb = self._frame(f.to(self.device), self.state, self._rollout)
+        return rgb
+
+    def _rollout(self, h: torch.Tensor, cond: Optional[torch.Tensor]) -> torch.Tensor:
+        """The frame's ``step_n`` steps, eagerly, keyed by the frame counter."""
+        if self._kernel is None:
+            out, _ = dynca_rollout(self.params, h, self._frame_idx, self.cfg, self.step_n,
+                                   cond, rollout_path="xla")
+            return out
+        return ROLLOUT_KERNELS[self._kernel](
+            self.params, h, self._frame_idx, self.cfg, self.step_n, cond,
+            compute_dtype=self.compute_dtype,
+        )
+
+    def _frame(self, f: torch.Tensor, state: torch.Tensor, rollout):
+        """One frame's device work from the float32 frame ``f`` [B, H, W, 3]
+        on the device: gray, the conditioning, ``rollout(h, cond)`` and the
+        readout. Returns (the new state, the RGB)."""
         gray = f.mean(dim=-1, keepdim=True).permute(0, 3, 1, 2).contiguous()
         cond = None
         if not self._extra_channel and self.cfg.conditioning is not None:
             cond = make_conditioning(self.cfg, self.size, cond_img=gray,
                                      batch=f.shape[0])
-        h = self.state
+        h = state
         if self._extra_channel:
             h = torch.cat([h, gray], dim=1)
-        self._frame_idx += 1
-        if self._kernel is None:
-            out, _ = dynca_rollout(self.params, h, self._frame_idx, self.cfg, self.step_n,
-                                   cond, rollout_path="xla")
-        else:
-            out = ROLLOUT_KERNELS[self._kernel](
-                self.params, h, self._frame_idx, self.cfg, self.step_n, cond,
-                compute_dtype=self.compute_dtype,
-            )
+        out = rollout(h, cond)
         if self._extra_channel:
             out = out[:, : self.cfg.n_seed_channels].contiguous()
-        self.state = out
         rgb = out[:, : self.cfg.c_out].permute(0, 2, 3, 1) * 2.0
-        return (rgb.clamp(-1.0, 1.0) + 1.0) / 2.0
+        return out, (rgb.clamp(-1.0, 1.0) + 1.0) / 2.0
+
+
+class _FrameGraph:
+    """A stylizer's ``_frame`` for one (state shape, frame shape), captured
+    as a CUDA graph on a stream of the stylizer's device: it reads
+    ``frame``, ``state`` and ``seed`` (the mask seed, a word the served
+    kernel reads) and writes ``out`` and ``rgb``. The steps are
+    ``launch_step``'s served launches, ping-ponging between two buffers of
+    the graph's own pool, with the weights the stylizer packed."""
+
+    def __init__(self, styl: VideoStylizer, state_shape: tuple, frame_shape: tuple):
+        global GRAPH_CAPTURES
+        dev = styl.device
+        thr = fs.uniform_threshold(styl.cfg.update_rate)
+        recorded = 0
+
+        def rollout(h, cond):
+            nonlocal recorded
+            bufs = [torch.empty_like(h) for _ in range(min(styl.step_n, 2))]
+            src = h
+            for i in range(styl.step_n):
+                # launch_step launches on the device's current stream
+                recorded += (torch.cuda.current_stream(h.device) == self.stream
+                             and torch.cuda.is_current_stream_capturing())
+                fs.launch_step(src, bufs[i % 2], cond, styl._packed, styl.cfg.padding_mode,
+                               styl.compute_dtype, 0, i, thr, chain=True, seed_ptr=self.seed)
+                src = bufs[i % 2]
+            return src
+
+        counted = dict(fs.KERNEL_LAUNCHES), fs.LAUNCHES
+        with torch.cuda.device(dev):
+            self.frame = torch.empty(frame_shape, device=dev)
+            self.state = torch.empty(state_shape, device=dev)
+            self.seed = torch.zeros(1, dtype=torch.int32, device=dev)
+            self.stream = torch.cuda.Stream(dev)
+            self.graph = torch.cuda.CUDAGraph()
+            with torch.cuda.stream(self.stream):
+                self.graph.capture_begin(capture_error_mode="thread_local")
+                try:
+                    self.out, self.rgb = styl._frame(self.frame, self.state, rollout)
+                finally:
+                    self.graph.capture_end()
+        # the capture ran nothing: its launches are counted at each replay
+        self.kernel_launches = {k: n - counted[0][k] for k, n in fs.KERNEL_LAUNCHES.items()}
+        self.launches = fs.LAUNCHES - counted[1]
+        fs.KERNEL_LAUNCHES.update(counted[0])
+        fs.LAUNCHES = counted[1]
+        if recorded != self.launches:
+            raise RuntimeError(f"the frame graph recorded {recorded} of its "
+                               f"{self.launches} launches")
+        GRAPH_CAPTURES += 1
+
+    def serve(self, styl: VideoStylizer, f: torch.Tensor) -> torch.Tensor:
+        """Replay for the host or device frame ``f`` from ``styl.state`` with
+        the mask seed of ``styl``'s frame counter; sets ``styl.state`` and
+        returns the RGB, both copies."""
+        global GRAPH_REPLAYS
+        with torch.cuda.device(styl.device):
+            self.frame.copy_(f)
+            self.state.copy_(styl.state)
+            seed = styl._frame_idx & 0xFFFFFFFF  # the uint32 the kernel reads, as an int32
+            self.seed.fill_(seed - (1 << 32) if seed >= 1 << 31 else seed)
+            self.graph.replay()
+            styl.state = self.out.clone()
+            rgb = self.rgb.clone()
+        fs.LAUNCHES += self.launches
+        for k, n in self.kernel_launches.items():
+            fs.KERNEL_LAUNCHES[k] += n
+        GRAPH_REPLAYS += 1
+        return rgb
 
 
 def stylize_frames(

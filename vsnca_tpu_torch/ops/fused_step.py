@@ -375,7 +375,8 @@ def chain_form(form: str, compute_dtype: str) -> bool:
 def launch_step(src: torch.Tensor, dst: torch.Tensor, cond: Optional[torch.Tensor],
                 packed: Tuple[torch.Tensor, ...], padding_mode: str,
                 compute_dtype: str, seed: int, step: int, thr: int,
-                multiscale: bool = False, mat: bool = False, chain: bool = False) -> None:
+                multiscale: bool = False, mat: bool = False, chain: bool = False,
+                seed_ptr: Optional[torch.Tensor] = None) -> None:
     """One step launch on the current stream: ``src`` → ``dst`` (distinct
     contiguous CUDA buffers [B, C, H, W]) with the mask of absolute step
     ``step``; ``packed`` from ``pack_weights`` (with its ``mat`` for
@@ -393,7 +394,12 @@ def launch_step(src: torch.Tensor, dst: torch.Tensor, cond: Optional[torch.Tenso
     ``nca_step_chain`` too: the same arithmetic and bits.
     ``nca_step_mat``'s chain form exists under bf16 compute only; without
     ``chain`` it runs the tensor-core form under either compute type.
-    Counts the launch in ``LAUNCHES`` and ``KERNEL_LAUNCHES``."""
+    ``seed_ptr`` (a one-element int32 CUDA tensor, or None) launches
+    ``nca_step_kernel_served`` reading the mask seed from that word in
+    place of ``seed``, as a CUDA graph replay needs; it takes the served
+    step only (``chain`` under bf16 compute, float32 state, scales (0,), a
+    width of ``served_widths()``). Counts the launch in ``LAUNCHES`` and
+    ``KERNEL_LAUNCHES``."""
     global LAUNCHES
     w1, b1, w2, b2 = packed
     b, c, h, w = src.shape
@@ -405,7 +411,7 @@ def launch_step(src: torch.Tensor, dst: torch.Tensor, cond: Optional[torch.Tenso
     head = (ptr(src), ptr(dst), cond_ptr, ptr(w1), ptr(b1), ptr(w2), ptr(b2),
             b, c, h, w, cc, w1.shape[1], PAD_CODES[padding_mode],
             int(compute_dtype == "bfloat16"))
-    tail = (seed & 0xFFFFFFFF, step, thr)
+    tail, last = (seed & 0xFFFFFFFF, step, thr), ()
     if mat:
         if chain and compute_dtype != "bfloat16":
             raise ValueError("nca_step_mat has a chain form under bf16 compute only")
@@ -416,9 +422,12 @@ def launch_step(src: torch.Tensor, dst: torch.Tensor, cond: Optional[torch.Tenso
     else:
         name = ("nca_step_ms" if multiscale else "nca_step") + ("_chain" if chain else "")
         fn, ms = lib.nca_step_launch, (int(multiscale), int(chain))
+        last = (ctypes.c_void_p(None) if seed_ptr is None else ptr(seed_ptr),)
+    if seed_ptr is not None and (name != "nca_step_chain" or compute_dtype != "bfloat16"):
+        raise ValueError("a seed in device memory takes the served bf16 step only")
     with torch.cuda.device(src.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(src.device).cuda_stream)
-        err = fn(*head, *ms, *tail, stream)
+        err = fn(*head, *ms, *tail, stream, *last)
     if err != 0:
         raise RuntimeError(f"{name} launch failed: CUDA error {err}")
     LAUNCHES += 1
@@ -429,7 +438,7 @@ def _launcher() -> ctypes.CDLL:
     lib = _build.load("nca_step")
     if lib.nca_step_launch.argtypes is None:
         ptr, i32, u32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint
-        lib.nca_step_launch.argtypes = [ptr] * 7 + [i32] * 10 + [u32] * 3 + [ptr]
+        lib.nca_step_launch.argtypes = [ptr] * 7 + [i32] * 10 + [u32] * 3 + [ptr] * 2
         lib.nca_step_launch.restype = ctypes.c_int
         lib.nca_step_occupancy.argtypes = [i32] * 6 + [ctypes.POINTER(ctypes.c_int)] * 2
         lib.nca_step_occupancy.restype = ctypes.c_int
@@ -439,6 +448,8 @@ def _launcher() -> ctypes.CDLL:
             fn.restype = ctypes.c_int
         lib.nca_step_limits.argtypes = [ctypes.POINTER(ctypes.c_int)] * 3
         lib.nca_step_limits.restype = ctypes.c_int
+        lib.nca_step_served_widths.argtypes = [ctypes.POINTER(ctypes.c_int), i32]
+        lib.nca_step_served_widths.restype = ctypes.c_int
     return lib
 
 
@@ -467,6 +478,15 @@ def kernel_limits() -> Tuple[int, int, int]:
     vals = [ctypes.c_int() for _ in range(3)]
     _launcher().nca_step_limits(*[ctypes.byref(v) for v in vals])
     return tuple(v.value for v in vals)
+
+
+def served_widths() -> Tuple[Tuple[int, int], ...]:
+    """The (C, c_cond) pairs ``nca_step_kernel_served`` is built for, read
+    from the built library (``NCA_SERVED_WIDTHS`` in nca_step.cu): c12 with
+    3 or 2 conditioning channels, c13 without."""
+    vals = (ctypes.c_int * 32)()
+    n = min(_launcher().nca_step_served_widths(vals, 16), 16)
+    return tuple((vals[2 * i], vals[2 * i + 1]) for i in range(n))
 
 
 def fused_rollout_chw_reference(
