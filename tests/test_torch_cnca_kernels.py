@@ -14,7 +14,7 @@ squares, summed in another order than XLA's) rtol 1e-5; gradients rtol 1e-4 /
 atol 1e-5, as test_pallas_cnca.py holds the JAX pair to the JAX scan
 (measured at most ~1e-6, printed with ``-s``); against torch autograd
 rtol 1e-5 / atol 1e-6 (summation order only). The CUDA kernels are held
-against these plain versions by tests/test_torch_cuda.py and chip_smoke.py.
+against these plain versions by tests/test_torch_cuda.py.
 """
 
 import numpy as np

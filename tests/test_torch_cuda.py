@@ -2,7 +2,10 @@
 rollout step (``csrc/nca_step.cu``), the two backward kernels of the
 training pair (``csrc/nca_train.cu``), the whole pair, and a train step;
 the ConditionedNCA kernels (``csrc/nca_cnca.cu``), their pair, the grow
-routes and the grower.
+routes and the grower. Then the entry points on the card: the stylizer and
+the server, each preset's trainer and the encoder trainer with exact launch
+counts, the CLIs and their checkpoints, the protocols, the examples, the
+lifecycle and the multi-device paths.
 
 Needs a CUDA device and nvcc; every test skips without a card (the kernels
 have no CPU mode). This file imports neither JAX nor the JAX package, so on a
@@ -10,13 +13,13 @@ machine with a card and no JAX it runs on its own:
 
     python -m pytest --noconftest -q tests/test_torch_cuda.py
 
-Tolerances: float32 rtol 1e-4 / atol 1e-5 (summation order of the MLP);
-bfloat16 rtol 1e-3 / atol 1e-3 (same rounding places; one float32 ulp can
-flip a bf16 rounding). Masks are bit-identical, so rate < 1 is held to the
-same tolerances.
+Tolerances: ``ops/kernel_diff.py``'s ``TOL``, ``TRAIN_TOL``,
+``MS_STATE_TOL`` and ``CNCA_TOL``, which that tool holds the kernels to as
+well. Masks are bit-identical, so rate < 1 is held to the same tolerances.
 """
 
 import dataclasses
+import os
 
 import numpy as np
 import pytest
@@ -26,10 +29,9 @@ from vsnca_tpu_torch.config import NCAConfig
 from vsnca_tpu_torch.infer.stylize import VideoStylizer
 from vsnca_tpu_torch.models import dynca
 from vsnca_tpu_torch.ops import fused_step as fs
+from vsnca_tpu_torch.ops.kernel_diff import CNCA_TOL, MS_STATE_TOL, TOL, TRAIN_TOL
 
 pytestmark = pytest.mark.cuda
-
-TOL = {"float32": dict(rtol=1e-4, atol=1e-5), "bfloat16": dict(rtol=1e-3, atol=1e-3)}
 
 
 @pytest.fixture
@@ -107,17 +109,20 @@ def _train_case(cuda, conditioning, shape, seed=0):
     return cfg, params, x, gy, cond
 
 
-# Backward tolerances, relative to the largest element of the plain
-# version's output: float32 1e-5 (summation order: the kernel sums the
-# weight gradients per 256-pixel block, then over blocks); bfloat16 5e-3
-# (one float32 ulp before a bf16 rounding moves the value by 2^-8, as on
-# the CPU against JAX).
-TRAIN_TOL = {"float32": 1e-5, "bfloat16": 5e-3}
-
-
 def _close(got, want, tol):
     scale = float(want.abs().max()) + 1e-12
     torch.testing.assert_close(got / scale, want / scale, rtol=tol, atol=tol)
+
+
+# the training pair's three kernels by perception scales
+PAIR_KERNELS = {(0,): ("nca_step", "nca_bwd_mlp", "nca_bwd_adjoint"),
+                (0, 1): ("nca_step_ms", "nca_bwd_mlp_ms", "nca_bwd_adjoint_ms")}
+
+
+def _since(counts, before):
+    """The launches of ``counts`` (a KERNEL_LAUNCHES) since ``before``, by
+    kernel, of the kernels that launched."""
+    return {k: n - before[k] for k, n in counts.items() if n != before[k]}
 
 
 @pytest.mark.parametrize("compute_dtype", ["float32", "bfloat16"])
@@ -337,6 +342,57 @@ def test_edge_conditioned_train_step_on_card_matches_cpu(cuda):
     torch.testing.assert_close(sg, sc, **TOL["float32"])
 
 
+def test_video_motion_train_step_on_card_matches_cpu(cuda):
+    """One video_motion train step (c16/fc128, scales (0, 1), OT and
+    MotionOT on full VGG16 and MSOE from their seeded fallbacks) through the
+    multiscale pair with in-kernel taps against the same step on the CPU
+    (eager steps a chunk), float32, 32^2, batch 2, update rate 1, step_n 9
+    tapped every 4 steps, with the tolerances of
+    test_train_step_on_card_matches_cpu; every loss term rtol 1e-4."""
+    from vsnca_tpu_torch.losses.orchestrator import LossState
+    from vsnca_tpu_torch.losses.video_motion import precompute_target_motion_features
+    from vsnca_tpu_torch.models.msoe import msoe_random_init
+    from vsnca_tpu_torch.models.vgg import vgg16_random_init
+    from vsnca_tpu_torch.ops import fused_train as ft
+    from vsnca_tpu_torch.train.optim import make_optimizer
+    from vsnca_tpu_torch.train.presets import video_motion
+    from vsnca_tpu_torch.train.trainer import make_train_step
+
+    nca, loss_cfg, _ = video_motion(32)
+    cfg = dataclasses.replace(nca, update_rate=1.0)
+    params = dynca.dynca_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    vgg = vgg16_random_init(torch.Generator().manual_seed(16), device="cpu")
+    msoe = msoe_random_init(torch.Generator().manual_seed(175), device="cpu")
+    g = torch.Generator().manual_seed(1)
+    states = torch.rand((2, 16, 32, 32), generator=g) - 0.5
+    style = torch.rand((2, 3, 32, 32), generator=g) * 2 - 1
+    video = torch.rand((4, 3, 32, 32), generator=g) * 2 - 1
+    chunks, tail = dynca.tap_schedule(9, 4)
+    out = {}
+    for dev in ("cpu", cuda):
+        p = {k: v.detach().clone().to(dev).requires_grad_() for k, v in params.items()}
+        ms = {k: v.to(dev) for k, v in msoe.items()}
+        state = LossState(cfg=loss_cfg, vgg_params=[{k: v.to(dev) for k, v in d.items()}
+                                                    for d in vgg], msoe_params=ms)
+        feats = precompute_target_motion_features(ms, video.to(dev), (32, 32))
+        step = make_train_step(cfg, state, "none", "auto")
+        before = dict(ft.KERNEL_LAUNCHES)
+        _, _, new_states, loss, logs = step(
+            p, make_optimizer(p, 1e-3), states.to(dev), 4,
+            {"target_style": style.to(dev), "target_motion_features": feats[:len(chunks) - 1]},
+            step_n=9, tap_chunks=chunks, tail_steps=tail)
+        out[str(dev)] = (float(loss), {k: v.detach().cpu() for k, v in p.items()},
+                         new_states.cpu(), {k: float(v) for k, v in logs.items()})
+    assert _since(ft.KERNEL_LAUNCHES, before) == dict.fromkeys(PAIR_KERNELS[(0, 1)], 9)
+    (lc, pc, sc, gc), (lg, pg, sg, gg) = out["cpu"], out["cuda"]
+    assert set(gg) == set(gc) >= {"appearance", "video_motion"}
+    assert lg == pytest.approx(lc, rel=1e-4)
+    assert gg == pytest.approx(gc, rel=1e-4)
+    for k in pc:
+        torch.testing.assert_close(pg[k], pc[k], rtol=0, atol=5e-5)
+    torch.testing.assert_close(sg, sc, **TOL["float32"])
+
+
 def test_stylizer_on_card_matches_cpu(cuda):
     """The whole stylizer through the kernel against the CPU path, float32."""
     cfg = NCAConfig(c_in=12, fc_dim=96, padding_mode="circular", conditioning="edges")
@@ -349,6 +405,69 @@ def test_stylizer_on_card_matches_cpu(cuda):
     for f in frames:
         torch.testing.assert_close(on.step_frame(f).cpu(), off.step_frame(f), **TOL["float32"])
     torch.testing.assert_close(on.state.cpu(), off.state, **TOL["float32"])
+
+
+def test_server_on_card_serves_frames_damage_reset_and_stats(cuda):
+    """``StylizeServer`` with the served cell (edge_conditioned c12/fc96,
+    random weights, bf16 compute) at 256^2, 24 steps a frame, over HTTP: 8
+    frames, a damage, a reset, a stream of 4 frames and the stats. Every
+    frame is 256x256x3; damage and reset clear the state; the stats count
+    12 frames; the first frame runs eagerly and the other 11 replay its
+    graph; each step is one launch of nca_step's chain form, 12 x 24 in
+    all with the replays' launches."""
+    import io
+    import json
+    import urllib.request
+
+    from PIL import Image
+
+    from vsnca_tpu_torch.config import edge_conditioned
+    from vsnca_tpu_torch.infer import stylize
+    from vsnca_tpu_torch.infer.server import StylizeServer
+
+    def post(url, data=b""):
+        with urllib.request.urlopen(urllib.request.Request(url, data=data, method="POST"),
+                                    timeout=120) as r:
+            return r.read()
+
+    def get(url):
+        with urllib.request.urlopen(url, timeout=120) as r:
+            return r.read()
+
+    def shape(jpeg):
+        return np.asarray(Image.open(io.BytesIO(jpeg)).convert("RGB")).shape
+
+    cfg = edge_conditioned()
+    params = dynca.dynca_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    rng, bodies = np.random.RandomState(0), []
+    for _ in range(8):
+        buf = io.BytesIO()
+        Image.fromarray((rng.rand(256, 256, 3) * 255).astype(np.uint8)).save(buf, "JPEG")
+        bodies.append(buf.getvalue())
+    srv = StylizeServer(params, cfg, port=0, default_size=256, step_n=24, device=cuda).start()
+    try:
+        base = f"http://127.0.0.1:{srv.port}"
+        before = dict(fs.KERNEL_LAUNCHES)
+        frames = (stylize.FRAMES, stylize.GRAPH_CAPTURES, stylize.GRAPH_REPLAYS)
+        sid = json.loads(post(f"{base}/session",
+                              json.dumps({"size": 256, "step_n": 24}).encode()))["session"]
+        outs = [post(f"{base}/frame/{sid}", b) for b in bodies]
+        post(f"{base}/damage/{sid}?x=128&y=128&r=32")
+        assert float(srv.sessions[sid].stylizer.state[..., 128, 128].abs().max()) == 0.0
+        post(f"{base}/reset/{sid}")
+        assert float(srv.sessions[sid].stylizer.state.abs().max()) == 0.0
+        parts = [p for p in get(f"{base}/stream/{sid}?frames=4").split(b"--vsnca") if p.strip()]
+        stats = json.loads(get(f"{base}/stats"))
+        state = srv.sessions[sid].stylizer.state
+    finally:
+        srv.stop()
+    assert [shape(o) for o in outs + [p[p.index(b"\xff\xd8"):] for p in parts]] == \
+        [(256, 256, 3)] * 12
+    assert stats["sessions"][sid] == {"frames": 12, "size": [256, 256], "step_n": 24}
+    assert bool(torch.isfinite(state).all())
+    assert (stylize.FRAMES - frames[0], stylize.GRAPH_CAPTURES - frames[1],
+            stylize.GRAPH_REPLAYS - frames[2]) == (12, 1, 11)
+    assert _since(fs.KERNEL_LAUNCHES, before) == {"nca_step_chain": 12 * 24}
 
 
 # ---------------------------------------------------------------- ConditionedNCA
@@ -698,6 +817,27 @@ def test_segment_pair_matches_every_step_checkpoint_and_plain(cuda):
         _close(got_g, grads[n], TRAIN_TOL["float32"])
 
 
+def test_segment_pair_lowers_its_peak_memory(cuda):
+    """The CHW pair forward and backward at the static_texture cell's shape
+    (c12/fc96/pos_emb, 128^2 b4, 128 steps, rate 0.5): K = 16 keeps 8
+    checkpoints and 16 recomputed states where K = 1 keeps all 128, so the
+    device memory it adds at its peak (max_memory_allocated over what was
+    held before) is lower by at least half of the 104 states' bytes."""
+    from vsnca_tpu_torch.ops import fused_train as ft
+
+    cfg, params, x, gy, cond = _train_case(cuda, "pos_emb", (4, 12, 128, 128))
+    cfg = dataclasses.replace(cfg, update_rate=0.5)
+    added = {}
+    for k in (1, 16):
+        torch.cuda.synchronize()
+        held = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _segment_run(ft, cfg, params, x, cond, gy, k, n_steps=128)
+        torch.cuda.synchronize()
+        added[k] = torch.cuda.max_memory_allocated() - held
+    assert added[1] - added[16] >= (128 - 8 - 16) * x.numel() * 4 / 2, added
+
+
 def test_segment_pair_nhwc_wrapper_on_card(cuda):
     from vsnca_tpu_torch.ops import fused_train as ft
 
@@ -990,7 +1130,6 @@ def test_gate_stress_pair_matches_plain(cuda, preset):
 # is ragged against 16 x 16 blocks; rows of 18 and 66 floats take the
 # kernel's 4-byte staging
 ADJ_GRIDS = [(16, 16), (18, 18), (40, 72), (34, 66)]
-MS_STATE_TOL = 1e-6  # chip_smoke.py's, relative to the largest element
 
 
 @pytest.mark.parametrize("c", [1, 2, 5, 16])
@@ -1081,11 +1220,11 @@ def test_cnca_gate_stress_pair_matches_plain(cuda):
     (y * gy).sum().backward()
     want_y, grads, dx0, dgoal = fc.fused_cnca_train_reference(params, x, goal, 9, cfg, 12, gy,
                                                               "float32")
-    _close(y.detach(), want_y, 1e-6)
-    _close(xr.grad, dx0, 1e-6)
-    _close(gr.grad, dgoal, 1e-6)
+    _close(y.detach(), want_y, CNCA_TOL["float32"])
+    _close(xr.grad, dx0, CNCA_TOL["float32"])
+    _close(gr.grad, dgoal, CNCA_TOL["float32"])
     for k in fc.WEIGHT_KEYS:
-        _close(pr[k].grad, grads[k], 1e-6)
+        _close(pr[k].grad, grads[k], CNCA_TOL["float32"])
 
 
 # ------------------------- the redesigned single-scale stencil adjoints
@@ -1147,7 +1286,7 @@ def test_cnca_adjoint_kernel_grids_and_widths(cuda, hidden):
             again = fc.cnca_bwd_adjoint(x, gp, g_xn, wcol, cfg)
             want = fc.cnca_bwd_adjoint_reference(x, gp, g_xn, wcol, cfg)
             for a, r, s in zip(got, want, again):
-                _close(a, r, 1e-6)
+                _close(a, r, CNCA_TOL["float32"])
                 assert torch.equal(a, s)
 
 
@@ -1370,7 +1509,7 @@ def test_dp_trainer_on_card_matches_one_process(cuda):
     cell at 32^2, batch 4, Gram + overflow, VGG16's fallback, 2
     iterations): each rank launches the pair's kernels sum(step_n) times;
     the first write-back is the one-process one; losses and parameters
-    within TRAIN_TOL (1e-4)."""
+    within 1e-4 (relative; of the largest element)."""
     import dataclasses
 
     from vsnca_tpu_torch.models.vgg import load_vgg16
@@ -1448,3 +1587,237 @@ def test_fleet_on_card_takes_the_kernels(cuda):
         assert np.isfinite(log.losses).all()
     for k in ("nca_step", "nca_bwd_mlp", "nca_bwd_adjoint"):
         assert ft.KERNEL_LAUNCHES[k] - before[k] == 2 * 24, k
+
+
+# ------------------------------------------------ trainers, CLIs and examples
+
+
+def _record_pair(monkeypatch):
+    """Each call of the training pair through ``models.dynca``, as
+    (channels, steps)."""
+    calls, pair = [], dynca.fused_rollout_train
+
+    def recording(params, x, seed, cfg, n_steps, *args, **kw):
+        calls.append((int(x.shape[1]), int(n_steps)))
+        return pair(params, x, seed, cfg, n_steps, *args, **kw)
+
+    monkeypatch.setattr(dynca, "fused_rollout_train", recording)
+    return calls
+
+
+def _assert_pair_launches(nca, loss, calls, before):
+    """Since ``before`` (fused_train's and fused_step's KERNEL_LAUNCHES):
+    each of the pair's kernels launched sum(steps) of ``calls`` times and
+    no other training kernel; the forward through the step's chain form;
+    with a vector-field term one tensor-core nca_step launch a call (the
+    pre-roll)."""
+    from vsnca_tpu_torch.ops import fused_train as ft
+
+    scales = tuple(nca.perception_scales)
+    total = sum(n for _, n in calls)
+    assert _since(ft.KERNEL_LAUNCHES, before[0]) == dict.fromkeys(PAIR_KERNELS[scales], total)
+    want = {"nca_step_ms_chain" if scales == (0, 1) else "nca_step_chain": total}
+    if loss.vector_field_motion_weight:
+        want["nca_step"] = len(calls)
+    assert _since(fs.KERNEL_LAUNCHES, before[1]) == want
+
+
+@pytest.mark.parametrize("preset", ["static_texture", "vector_field_motion", "video_motion",
+                                    "extra_channels", "edge_conditioned"])
+def test_preset_trainer_on_card_launches_each_kernel_once_a_step(cuda, monkeypatch, preset):
+    """``DyNCATrainer`` with each preset at its widths, size, batch and pool
+    on the card (static_texture and vector_field_motion 128^2 b4,
+    video_motion 256^2 b3, extra_channels and edge_conditioned 256^2 b2; a
+    pool of 256), VGG16 and MSOE from their seeded fallbacks, random style
+    and content frames: iterations at 32 and 128 steps (video_motion: 80
+    and 144, frames tapped after steps 1, 65 and 129 as the CLI plans
+    them). The pair takes every step (see _assert_pair_launches) and sees
+    c_in channels (extra_channels: the content's grayscale appended); each
+    iteration writes its batch's pool slots back changed, finite and
+    non-zero, with n_seed_channels channels; the loss and every term
+    finite."""
+    from vsnca_tpu_torch.losses.video_motion import precompute_target_motion_features
+    from vsnca_tpu_torch.models.msoe import load_msoe
+    from vsnca_tpu_torch.models.vgg import load_vgg16
+    from vsnca_tpu_torch.ops import fused_train as ft
+    from vsnca_tpu_torch.train.presets import PRESETS
+    from vsnca_tpu_torch.train.trainer import DyNCATrainer
+
+    nca, loss, train = PRESETS[preset]()
+    msoe = load_msoe(device=cuda)[0]
+    trainer = DyNCATrainer(nca, loss, train, vgg_params=load_vgg16(device=cuda)[0],
+                           msoe_params=msoe, device=cuda)
+    (h, w), b, g = train.img_size, train.batch_size, torch.Generator().manual_seed(1)
+    inputs = {"target_style": (torch.rand((b, 3, h, w), generator=g) * 2 - 1).to(cuda)}
+    if preset in ("extra_channels", "edge_conditioned"):
+        aux = (torch.rand((b, 3, h, w), generator=g) * 2 - 1).to(cuda)
+        inputs.update(aux_imgs=aux, aux_gs=aux.mean(dim=1, keepdim=True))
+    iterations = [(inputs, dict(step_n=n)) for n in (32, 128)]
+    if loss.video_motion_weight:
+        video = (torch.rand((4, 3, h, w), generator=g) * 2 - 1).to(cuda)
+        feats = precompute_target_motion_features(msoe, video, loss.motion_img_size)
+        iterations = []
+        for n in (80, 144):
+            chunks, tail = dynca.tap_schedule(n, 64)
+            iterations.append(({**inputs, "target_motion_features": feats[:len(chunks) - 1]},
+                               dict(step_n=n, tap_chunks=chunks, tail_steps=tail)))
+    calls = _record_pair(monkeypatch)
+    before = dict(ft.KERNEL_LAUNCHES), dict(fs.KERNEL_LAUNCHES)
+    for it_inputs, kw in iterations:
+        pool = trainer.pool.states.clone()
+        log = trainer.train_iteration(it_inputs, **kw)
+        assert np.isfinite(log.loss) and np.isfinite(list(log.logs.values())).all(), log
+        slots = trainer.pool.states[trainer.last_batch_idx]
+        assert bool(torch.isfinite(slots).all()) and float(slots.abs().max()) > 0
+        assert not torch.equal(slots, pool[trainer.last_batch_idx])
+    _assert_pair_launches(nca, loss, calls, before)
+    assert calls == [(nca.c_in, kw["step_n"]) for _, kw in iterations]
+    assert trainer.pool.states.shape[1] == nca.n_seed_channels
+
+
+def test_encoder_trainer_on_card_launches_each_cnca_kernel_once_a_step(cuda):
+    """``ConditionedNCATrainer`` as the encoder CLI sets it up (C 20, D 64,
+    64^2, batch 8, OT + content x 0.1 + overflow, VGG16's fallback, the
+    synthetic goals and style, a pool of 1024): iterations at 48 and 96
+    steps, each training its batch twice. Every cnca kernel launches once a
+    step, 2 x (48 + 96) times; losses and the pool finite."""
+    from vsnca_tpu_torch.config import ConditionedNCAConfig
+    from vsnca_tpu_torch.data.dataset import ConditioningDataset
+    from vsnca_tpu_torch.data.preprocess import synthetic_style_image, synthetic_video
+    from vsnca_tpu_torch.models.vgg import load_vgg16
+    from vsnca_tpu_torch.ops import fused_cnca as fc
+    from vsnca_tpu_torch.train.encoder_trainer import ConditionedNCATrainer
+
+    dataset = ConditioningDataset((synthetic_video((64, 64), 8) + 1.0) / 2.0, cuda)
+    style = torch.from_numpy(synthetic_style_image((64, 64), 1)).permute(0, 3, 1, 2)
+    trainer = ConditionedNCATrainer(ConditionedNCAConfig(), dataset, style.contiguous().to(cuda),
+                                    load_vgg16(device=cuda)[0], pool_size=1024,
+                                    content_weight=0.1, device=cuda)
+    before = dict(fc.KERNEL_LAUNCHES)
+    losses = [trainer.train_iteration(batch_size=8, num_steps=n)[0] for n in (48, 96)]
+    assert np.isfinite(losses).all()
+    assert _since(fc.KERNEL_LAUNCHES, before) == dict.fromkeys(fc.KERNEL_LAUNCHES, 2 * (48 + 96))
+    assert bool(torch.isfinite(trainer.pool_states).all())
+
+
+@pytest.mark.parametrize("cli,argv", [
+    ("cli", ["--preset", "static_texture", "--max-iterations", "3"]),
+    ("cli", ["--preset", "static_texture", "--max-iterations", "2", "--dp", "1"]),
+    ("cli", ["--preset", "video_motion", "--max-iterations", "2"]),
+    ("cli", ["--preset", "edge_conditioned", "--max-iterations", "2"]),
+    ("encoder_cli", ["--epochs", "3"]),
+], ids=["static_texture", "static_texture_dp1", "video_motion", "edge_conditioned", "encoder"])
+def test_cli_on_card_trains_and_its_checkpoint_loads(cuda, tmp_path, capfd, cli, argv):
+    """Each training CLI on the card for 2 or 3 iterations at its defaults
+    (the presets' sizes, batches and pools; static_texture also as
+    ``--dp 1``, one rank spawned in an NCCL process group): it prints the
+    model's parameter count, and its checkpoint loads with
+    load_params_pickle, finite, in the shapes of a fresh model's
+    parameters."""
+    import importlib
+
+    from vsnca_tpu_torch.config import ConditionedNCAConfig
+    from vsnca_tpu_torch.convert import load_params_pickle
+    from vsnca_tpu_torch.models.conditioned_nca import conditioned_nca_init
+    from vsnca_tpu_torch.train.presets import PRESETS
+
+    out = str(tmp_path / "run")
+    importlib.import_module(f"vsnca_tpu_torch.train.{cli}").main(
+        argv + ["--log-every", "1", "--out", out])
+    if cli == "cli":
+        fresh = dynca.dynca_init(torch.Generator().manual_seed(0), PRESETS[argv[1]]()[0],
+                                 device="cpu")
+    else:
+        fresh = conditioned_nca_init(torch.Generator().manual_seed(0), ConditionedNCAConfig(),
+                                     "cpu")
+    params = load_params_pickle(f"{out}/checkpoint", "cpu")
+    assert {k: v.shape for k, v in params.items()} == {k: v.shape for k, v in fresh.items()}
+    assert all(bool(torch.isfinite(v).all()) for v in params.values())
+    assert f"param count: {sum(v.numel() for v in fresh.values())};" in capfd.readouterr().out
+
+
+@pytest.mark.parametrize("protocol", ["video_motion", "vector_field"])
+def test_protocol_on_card_trains_through_the_pair(cuda, monkeypatch, protocol):
+    """Each training protocol at its preset's widths, size, batch and pool
+    on the card (video_motion 256^2 b3, vector_field_motion 128^2 b4, a
+    pool of 256), VGG16 and MSOE from their seeded fallbacks, random
+    targets. ``VideoMotionProtocol`` warms up 2 iterations, sets the
+    video_motion weight from the median of their motion losses by the
+    256px rule (6.04 m - 2.17, clamped to [2, 10]) and trains 1 iteration
+    on a fresh trainer; ``VectorFieldProtocol``
+    trains 2 iterations and at iteration 1 sets the vector-field weight to
+    median(appearance log) / 50, in place. Every iteration through the pair
+    (see _assert_pair_launches); losses finite."""
+    from vsnca_tpu_torch.models.msoe import load_msoe
+    from vsnca_tpu_torch.models.vgg import load_vgg16
+    from vsnca_tpu_torch.ops import fused_train as ft
+    from vsnca_tpu_torch.train import presets
+    from vsnca_tpu_torch.train.vector_field_protocol import VectorFieldProtocol
+    from vsnca_tpu_torch.train.video_motion_protocol import VideoMotionProtocol
+
+    vm = protocol == "video_motion"
+    nca, loss, train = (presets.video_motion if vm else presets.vector_field_motion)()
+    train = dataclasses.replace(train, max_iterations=3 if vm else 2)
+    (h, w), g = train.img_size, torch.Generator().manual_seed(1)
+    style = (torch.rand((train.batch_size, 3, h, w), generator=g) * 2 - 1).to(cuda)
+    if vm:
+        video = (torch.rand((16, 3, h, w), generator=g) * 2 - 1).to(cuda)
+        proto = VideoMotionProtocol(nca, loss, train, video, style, warmup_iters=2, device=cuda)
+    else:
+        proto = VectorFieldProtocol(nca, loss, train, style, recalibrate_every=1, device=cuda)
+    calls = _record_pair(monkeypatch)
+    before = dict(ft.KERNEL_LAUNCHES), dict(fs.KERNEL_LAUNCHES)
+    trainer = proto.run(load_vgg16(device=cuda)[0], load_msoe(device=cuda)[0])
+    _assert_pair_launches(nca, loss, calls, before)
+    assert len(calls) == train.max_iterations
+    assert np.isfinite([h.loss for h in trainer.history]).all()
+    if vm:
+        assert len(proto._motion_losses) == 2 and np.isfinite(proto._motion_losses).all()
+        m = float(np.median(proto._motion_losses))
+        assert proto.loss_cfg.video_motion_weight == pytest.approx(
+            min(10.0, max(m * 6.04 - 2.17, 2.0)))
+        assert trainer.iteration == 1
+    else:
+        want = float(np.median(np.asarray(proto._appearance_log[:2])) / 50.0)
+        assert proto.recalibrations == [(1, want)] and trainer.iteration == 2
+        assert trainer.loss_state.cfg.vector_field_motion_weight == want
+
+
+@pytest.mark.parametrize("name", ["export_webgl", "interactive_growth", "learning_proof",
+                                  "train_encoder", "train_vector_field", "train_video_motion"])
+def test_example_on_card_runs_on_the_kernels(cuda, tmp_path, name):
+    """Each example's ``main`` on the card at 64^2 with few iterations and
+    synthetic data (export_webgl: a random edges checkpoint, validated at
+    64^2 x 24): its results are finite, and the kernels of what it runs
+    (the rollout kernels, the training pair or the cnca kernels) launch."""
+    import importlib
+
+    from vsnca_tpu_torch.export.checkpoint import save_checkpoint
+    from vsnca_tpu_torch.ops import fused_cnca as fc
+    from vsnca_tpu_torch.ops import fused_train as ft
+
+    out = str(tmp_path / "out")
+    argv, ok, counts = {
+        "export_webgl": (
+            [str(tmp_path / "ck"), f"{out}/model.json", "--conditioning", "edges"],
+            lambda r: r["weight_max_abs_diff"] < 1e-3 and np.isfinite(r["state_max_abs_diff"]),
+            fs),
+        "interactive_growth": (["--out", out], lambda r: os.path.getsize(r) > 0, fc),
+        "learning_proof": (
+            ["--size", "64", "--iters", "4", "--test-frames", "2", "--out", out],
+            lambda r: np.isfinite(r["losses"]).all() and np.isfinite(r["errors"]).all(), ft),
+        "train_encoder": (["--image-size", "64", "--epochs", "2", "--out", out],
+                          lambda r: np.isfinite(r[1]).all(), fc),
+        "train_vector_field": (["--img-size", "64", "--iterations", "2", "--out", out],
+                               lambda r: np.isfinite(r.history[-1].loss), ft),
+        "train_video_motion": (
+            ["--img-size", "64", "--iterations", "1", "--warmup", "1", "--out", out],
+            lambda r: np.isfinite(r[1]["video_motion_loss_mean"]), ft),
+    }[name]
+    if name == "export_webgl":
+        cfg = NCAConfig(c_in=12, fc_dim=96, conditioning="edges")
+        save_checkpoint(str(tmp_path / "ck"), {"params": dynca.dynca_init(
+            torch.Generator().manual_seed(0), cfg, device="cpu"), "iteration": 0})
+    before = dict(counts.KERNEL_LAUNCHES)
+    assert ok(importlib.import_module(f"vsnca_tpu_torch.examples.{name}").main(argv))
+    assert _since(counts.KERNEL_LAUNCHES, before)

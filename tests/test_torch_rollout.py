@@ -10,7 +10,7 @@ activations and the weights to bf16 at the same places; a one-ulp float32
 difference in a percept can flip one bf16 rounding).
 
 On the CPU the wrapper runs the plain version; the kernel itself is held
-against it on the card by tests/test_torch_cuda.py and chip_smoke.py.
+against it on the card by tests/test_torch_cuda.py.
 """
 
 import numpy as np

@@ -15,7 +15,7 @@ difference before a rounding moves a value by one bf16 ulp; measured at
 most 8.5e-5, 'mat' with edges). ``-s`` prints the measured differences.
 
 The kernels themselves are held against these plain versions on the card
-by tests/test_torch_cuda.py and chip_smoke.py.
+by tests/test_torch_cuda.py.
 """
 
 import numpy as np

@@ -15,7 +15,7 @@ update rate 0.5, where the recomputed masks matter, at perception scales
 (0, 1), and with frame taps). ``-s`` prints the measured differences.
 
 The kernels under this schedule are held against the plain version on the
-card by tests/test_torch_cuda.py and chip_smoke.py.
+card by tests/test_torch_cuda.py.
 """
 
 import numpy as np

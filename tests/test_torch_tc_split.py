@@ -12,9 +12,8 @@ products are exact.
 
 The backward kernels: one step of each kernel's function with its products
 so emulated, held to the plain version at the kernels' float32 tolerances:
-``TRAIN_TOL`` 1e-5 of the largest element (the card tests', tighter than
-chip_smoke's 1e-4) for the DyNCA backward, ``CNCA_TOL`` 1e-6 for the
-ConditionedNCA backward (chip_smoke's).
+``TRAIN_TOL`` 1e-5 of the largest element (the card tests') for the DyNCA
+backward, ``CNCA_TOL`` 1e-6 for the ConditionedNCA backward.
 
 The rollout step ``nca_step`` / ``nca_step_ms`` (tensor-core form): z1 and
 the second layer as the kernel forms them, z1 through the certificate of
@@ -33,7 +32,7 @@ states, relu gates flip on that trajectory, and its gradients leave the
 plain pair's tolerance; the pair as it runs (chain forward, the certified
 tensor-core backward) stays within ``TRAIN_TOL``. ``-s`` prints the
 measured ratios. The kernels themselves are held against their plain
-versions on the card (tests/test_torch_cuda.py, chip_smoke.py).
+versions on the card (tests/test_torch_cuda.py).
 """
 
 import numpy as np
@@ -61,8 +60,8 @@ torch.set_num_threads(1)
 
 TRAIN_TOL = 1e-5
 CNCA_TOL = 1e-6
-MS_STATE_TOL = 1e-6  # chip_smoke.py's multiscale state tolerance
-BF16_TOL = 1e-3  # chip_smoke.py's TOL["bfloat16"], absolute
+MS_STATE_TOL = 1e-6  # the multiscale state, relative to the largest element
+BF16_TOL = 1e-3  # the card tests' TOL["bfloat16"] atol
 Z1_KAPPA = 2.0 ** -16  # csrc/nca_mma.cuh
 
 
@@ -393,11 +392,11 @@ def _pair_grads(params, x, cond, gy, n_steps, tc_forward):
 
 
 def test_pair_keeps_the_chain_forward():
-    """static_texture's cell, 128^2 b2, 32 steps at rate 0.5 (chip_smoke's
-    largest scales-(0,) pair case at half its batch). The pair as it runs —
-    the chain forward, which is the plain forward, and the certified
-    tensor-core gates in the backward — meets no gate unlike the forward's, so its gradients are the
-    plain pair's within TRAIN_TOL. A pair whose forward ran the tensor-core
+    """static_texture's cell at half its batch, 128^2 b2, 32 steps at rate
+    0.5. The pair as it runs — the chain forward, which is the plain
+    forward, and the certified tensor-core gates in the backward — meets no
+    gate unlike the forward's, so its gradients are the plain pair's within
+    TRAIN_TOL. A pair whose forward ran the tensor-core
     step keeps its states within MS_STATE_TOL, but gates flip on its
     trajectory and its gradients leave TRAIN_TOL."""
     _, params = _model(12, 96, 2, (0,))

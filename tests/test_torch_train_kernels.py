@@ -16,8 +16,7 @@ relative), and the reverse walk carries such steps on (measured at most
 1.0e-3, on the conditioning cotangent; 1.7e-4 on x, 6e-6 on the weights).
 
 The kernels themselves are held against these plain versions on the card
-by tests/test_torch_cuda.py and chip_smoke.py. ``-s`` prints the measured
-differences.
+by tests/test_torch_cuda.py. ``-s`` prints the measured differences.
 """
 
 import numpy as np

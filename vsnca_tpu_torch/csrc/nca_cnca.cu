@@ -43,13 +43,10 @@
 // and clamp gates must be the forward's bits) is a third. cnca_gate and
 // cnca_bwd_adjoint are bound by their bytes: cnca_bwd_adjoint reads gp (3C
 // floats a pixel), alpha, g and dgoal and writes g and dgoal, 18.5 MB at
-// 64^2 b8 C 20, 5.5 us at 3.35 TB/s. Its first design walked the C
-// channels one at a time in a 16 x 16 block, two barriers and a scalar,
-// bounds-checked load of a 3 x 18 x 18 gp tile a channel, in a grid of 128
-// blocks at 64^2 b8 (fewer than the SMs): latency, not bytes. The design
-// now spreads channel pairs over the grid (640 blocks there), stages each
-// channel's planes once by cp.async and takes pre from a staged alpha
-// plane once a block; see cnca_bwd_adjoint_kernel.
+// 64^2 b8 C 20, 5.5 us at 3.35 TB/s. It spreads channel pairs over the
+// grid (640 blocks there, more than the SMs, so that latency does not bound
+// it), stages each channel's planes once by cp.async and takes pre from a
+// staged alpha plane once a block; see cnca_bwd_adjoint_kernel.
 //
 // What the design does about it: cnca_update and cnca_bwd_mlp's recompute
 // are one code path (stage_mat_async, stage_pre, stage_xg_async,
@@ -63,8 +60,6 @@
 // at C = 20, D = 64, two blocks an SM; 64^2 b8 is 256 blocks); it stays an
 // FMA chain because the training pair's backward must recompute its relu
 // and clamp gates bit for bit (a tensor-core form reaches other bits).
-// Its first design ran one thread a pixel in 16 x 16 blocks (128 blocks at
-// 64^2 b8, fewer than the SMs), every weight read feeding 4 FMAs.
 // cnca_bwd_mlp then runs every backward product on the tensor cores as
 // warp-level mma.sync (nca_mma.cuh; float32 compute in split TF32, bf16
 // compute in bf16, float32 accumulators): each warp takes 16 pixels
@@ -77,9 +72,7 @@
 // each once into the block's own slot of a [n_blocks, S] buffer. The
 // depthwise weight gradient (27 C outputs) stays on the CUDA cores, walking
 // the tile's rows and columns. About 187 KB of shared memory at C = 20,
-// D = 64 allows one block (8 warps, twice the first design's 4) an SM;
-// 64^2 b8 is 256 blocks. Measured on the H100 (PERF.md §6): 0.13 ms at
-// 64^2 b8 against 0.40 for the first design.
+// D = 64 allows one block (8 warps) an SM; 64^2 b8 is 256 blocks.
 // The same block owns the same pixels every step, so the sum is
 // deterministic without atomics; the wrapper sums the slots once per call.
 //

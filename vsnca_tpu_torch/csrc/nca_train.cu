@@ -51,9 +51,7 @@
 // layer is not recomputed) plus W2 gdx (F*C), W1 gz1 (P*F) and the weight-gradient
 // products summed over pixels (P*F + F*C): 2*(3*P*F + 2*F*C) FLOP, 33.4
 // kFLOP at c12/fc96/pos_emb, 55.8 k at c16/fc128/pos_emb, against ~32 C*4 +
-// cc*4 bytes of state, cond, gx and gp: arithmetic bounds it. The first
-// design ran all of it as float32 FMAs on the CUDA cores, and its
-// weight-gradient products at shared-memory speed (two loads an FMA).
+// cc*4 bytes of state, cond, gx and gp: arithmetic bounds it.
 //
 // What the design does about it: every product runs on the tensor cores as
 // warp-level mma.sync (nca_mma.cuh; float32 compute in split TF32, bf16
@@ -62,9 +60,8 @@
 // a certificate that recomputes, as the forward's FMA chain, every element
 // whose relu input lies within the product's error bound of zero, so the
 // gates are the forward's bits. A block is a 16 x 16 tile of 256 pixels and
-// 512 threads (16 warps: twice the first design's, as many as two 256-thread
-// blocks; its ~223 KB of shared memory at c16/fc128/cc2 allows one block an
-// SM). Two threads a pixel build the percept and the gdx columns in shared
+// 512 threads (16 warps, as many as two 256-thread blocks; its ~223 KB of
+// shared memory at c16/fc128/cc2 allows one block an SM). Two threads a pixel build the percept and the gdx columns in shared
 // memory (stride 260 floats, so every fragment read is free of bank
 // conflicts); the weights and the state tile arrive by cp.async. Then, a
 // chunk of 32 hidden units at a time: each warp forms z1 for its 16 pixels
@@ -77,27 +74,20 @@
 // the pixels and added once into the block's slot (db1 is the ones row of
 // the percept; db2 a warp reduction). No atomics: every block owns the same
 // pixels and slot every step and sums in a fixed order, so two launches
-// give the same bits. Measured on the H100 (PERF.md §6): 0.47 ms at 256^2
-// b3 c16/fc128 with z1 as float32 FMAs against 1.90 for the first design; a
-// clock64 profile of that block put a quarter of its time in the z1
-// recompute, a third in the weight-gradient products and a sixth each in W2
-// gdx + W1 gz1 and the percept.
+// give the same bits. A clock64 profile of the block at 256^2 b3 c16/fc128
+// (PERF.md §6) put a quarter of its time in the z1 recompute, a third in
+// the weight-gradient products and a sixth each in W2 gdx + W1 gz1 and the
+// percept.
 // The multiscale adjoint moves 6C floats a pixel (gp in, gx in and out), so
-// bytes bound it (0.0225 ms at 256^2 b3 c16). Its first design walked the
-// channels one at a time with four barriers a channel, re-read gp from
-// device memory twice a channel (the scale-0 halo, then 4 strided loads for
-// each value of U^T over W: about 4.4 load instructions for each value the
-// block owns), overlapped no channel's loads with another's arithmetic, and
-// ran the half-resolution stencils on 64 of 256 threads: latency, not bytes.
-// The design now stages each channel's footprint once by cp.async (16-byte
-// copies where the rows are aligned), double-buffered across passes of
-// ADJ_CP = 2 channels, and computes every phase from shared memory (about
-// 53 KB a block: four blocks an SM); see nca_bwd_adjoint_ms_kernel.
+// bytes bound it (0.0225 ms at 256^2 b3 c16). So that latency does not, it
+// stages each channel's footprint once by cp.async (16-byte copies where
+// the rows are aligned), double-buffered across passes of ADJ_CP = 2
+// channels, and computes every phase from shared memory (about 53 KB a
+// block: four blocks an SM); see nca_bwd_adjoint_ms_kernel.
 // The single-scale adjoint moves 6C floats a pixel too (0.0056 ms at 128^2
-// b4 c12). Its first design had the multiscale one's faults, with a grid of
-// 256 blocks at that shape (two an SM) and a pad_index a staged value; it
-// now spreads channel pairs over the grid (768 blocks there) and stages
-// each channel's planes once by cp.async; see nca_bwd_adjoint_kernel.
+// b4 c12). It spreads channel pairs over the grid (768 blocks at that
+// shape) and stages each channel's planes once by cp.async; see
+// nca_bwd_adjoint_kernel.
 //
 // bf16 mode rounds where the TPU kernel casts to its compute dtype
 // (:1232-1238): the percept (with the conditioning rows), hid, gdx and gz1;

@@ -352,8 +352,8 @@ def chain_form(form: str, compute_dtype: str) -> bool:
     sum in another order than the plain version) flips those roundings, and
     over 24 steps at 256^2 the state drifted from the plain version's past
     ``TOL['bfloat16']`` 1e-3: 2.07e-3 for ``nca_step`` (the served step),
-    1.01e-2 for ``nca_step_mat``, in all 18 of its bf16 cases (H100,
-    chip_smoke.py); the chain forms reproduce the plain version's bits at
+    1.01e-2 for ``nca_step_mat``, in all 18 of its bf16 cases (measured
+    on an H100); the chain forms reproduce the plain version's bits at
     those shapes. Under float32 compute ``nca_step_mat``'s tensor-core form
     (split TF32) stays within 4.8e-6 of it against 1e-4. The multiscale step
     (whose average damps the flips: 7.0e-4 over 24 steps at 256^2 b3), the
@@ -625,8 +625,6 @@ def select_rollout_kernel(cfg: NCAConfig, h: int, w: int) -> Optional[str]:
         return "flat"
     if fused_rollout_supported(cfg, h, w):
         return "roll"
-    if fused_stream_flat_supported(cfg, h, w):
-        return "stream_flat"
     return None
 
 

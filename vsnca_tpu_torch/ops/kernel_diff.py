@@ -9,13 +9,12 @@ written by
 git-ignored directory. Both are built into ``build/kernels/ref/`` with the
 flags of ``ops/_build.py``. Each case launches the kernel of this checkout
 and the one of DIR on the same card tensors and prints whether their outputs
-are the same bits, then each against its plain version (``MS_STATE_TOL``
-1e-6, ``TRAIN_TOL`` 1e-4 and ``CNCA_TOL`` 1e-6 / 5e-3 of the largest
-element, and ``TOL`` 1e-4 / 1e-3 for the step, as chip_smoke.py holds
-them); then both kernels' times a launch at the main-path shapes by CUDA
-events, in turns (ref, this, this, ref, twice), and for the single-scale
-adjoints, ``nca_step_mat`` and ``cnca_gate`` by the profiler's device time
-too, in the same turns (CUDA events over back-to-back launches read the
+are the same bits, then each against its plain version (within the card
+tests' tolerances, defined here: ``TOL``, ``TRAIN_TOL``, ``MS_STATE_TOL``,
+``CNCA_TOL``); then both kernels' times
+a launch at the main-path shapes by CUDA events, in turns (ref, this, this,
+ref, twice), and for the single-scale adjoints, ``nca_step_mat`` and
+``cnca_gate`` by the profiler's device time too, in the same turns (CUDA events over back-to-back launches read the
 host's pace when a launch's host work outlasts its kernel). Exits 1 if any
 case differs.
 
@@ -50,12 +49,22 @@ over 2^16 pixels, and within ``TOL`` of the plain version at the grid (whose
 bits are printed beside); the tensor-core form within ``TOL`` of both. A
 reference ``nca_step.cu`` whose ``nca_step_mat_launch`` has no ``tc``
 argument (one form, the chain's order) is called without it.
+
+Last, the kernels line, one JSON line ``{"kernels": [...]}``: each kernel
+the benchmark's cells launch (the served step at 256^2 b1 and 8 x 512^2;
+the training pair's three kernels at edge_train_256's and vm_train_256's
+shapes; the four ConditionedNCA kernels at enc_train_64_b8's), its ms a
+launch beside the reference build's, its plain version's, a library call's
+where one computes part of it, and the bound of its step's work from
+``portbench/counts`` (see ``kernel_rows``). Pass this checkout's own
+``csrc`` as DIR to time the kernels without another commit.
 """
 
 from __future__ import annotations
 
 import argparse
 import ctypes
+import json
 import statistics
 import subprocess
 import sys
@@ -74,10 +83,19 @@ FUNCS = {
     "nca_cnca": ("cnca_update_launch", "cnca_gate_launch", "cnca_bwd_mlp_launch",
                  "cnca_bwd_adjoint_launch", "cnca_limits"),
 }
+# The tolerances every kernel is held to against its plain version, here and
+# in tests/test_torch_cuda.py. TOL, for a step: float32 rtol 1e-4 / atol
+# 1e-5 (the MLP's summation order); bfloat16 rtol 1e-3 / atol 1e-3 (the same
+# rounding places; one float32 ulp can flip a bf16 rounding). The rest are
+# of the largest element: TRAIN_TOL for the backward kernels and the pair
+# (float32 1e-5, summation order: the kernel sums the weight gradients per
+# 256-pixel block, then over blocks; bfloat16 5e-3, one float32 ulp before a
+# bf16 rounding moves the value by 2^-8); MS_STATE_TOL for the multiscale
+# adjoint; CNCA_TOL for the ConditionedNCA kernels.
+TOL = {"float32": dict(rtol=1e-4, atol=1e-5), "bfloat16": dict(rtol=1e-3, atol=1e-3)}
+TRAIN_TOL = {"float32": 1e-5, "bfloat16": 5e-3}
 MS_STATE_TOL = 1e-6
-TRAIN_TOL = 1e-4
 CNCA_TOL = {"float32": 1e-6, "bfloat16": 5e-3}
-TOL = {"float32": 1e-4, "bfloat16": 1e-3}
 
 
 def build_ref(csrc: Path, current: dict) -> dict:
@@ -192,11 +210,11 @@ def adjoint0_cases(ft, ref_lib):
             torch.cuda.synchronize()
             same = torch.equal(got, ref)
             err = _scaled(got, want)
-            good = same and err <= TRAIN_TOL
+            good = same and err <= TRAIN_TOL["float32"]
             ok = ok and good
             print(f"  nca_bwd_adjoint {h}x{w} b{b} C{c} tap {tap is not None}: same bits as "
                   f"the reference build {same}; against the plain version {err:.2e} of max "
-                  f"(tol {TRAIN_TOL:.0e}) {'ok' if good else 'FAIL'}")
+                  f"(tol {TRAIN_TOL['float32']:.0e}) {'ok' if good else 'FAIL'}")
     gp = torch.randn((4, 48, 128, 128), generator=g).cuda()
     gx = torch.randn((4, 12, 128, 128), generator=g).cuda()
     run = lambda: ft._launch_adjoint(gp, gx)  # noqa: E731
@@ -272,13 +290,6 @@ def adjoint_cases(ft, ref_lib):
             print(f"  nca_bwd_adjoint_ms {h}x{w} b{b} C{c} tap {tap is not None}: same bits as "
                   f"the reference build {same}; against the plain version {err:.2e} of max "
                   f"(tol {MS_STATE_TOL:.0e}) {'ok' if good else 'FAIL'}")
-    gp = torch.randn((3, 64, 256, 256), generator=g).cuda()
-    gx = torch.randn((3, 16, 256, 256), generator=g).cuda()
-    this_ms, ref_ms = _turns(lambda: ft._launch_adjoint(gp, gx, None, True),
-                             lambda: _with("nca_train", ref_lib,
-                                           lambda: ft._launch_adjoint(gp, gx, None, True)))
-    print(f"  nca_bwd_adjoint_ms 256^2 b3 f32: this {this_ms:.4f} ms a launch, the reference "
-          f"build {ref_ms:.4f} (CUDA events, turns ref, this, this, ref, twice)")
     return ok
 
 
@@ -314,26 +325,26 @@ def update_cases(fc, cn, ConditionedNCAConfig, ref_lib):
                     print(f"  cnca_update {h}x{w} b{b} living {use_life} rate {rate} {cdt}: same "
                           f"bits as the reference build {same}; against the plain version "
                           f"{err:.2e} of max (tol {CNCA_TOL[cdt]:.0e}) {'ok' if good else 'FAIL'}")
-    for b in (8, 1):
-        cfg = ConditionedNCAConfig(image_size=64)
-        params = cn.conditioned_nca_init(torch.Generator().manual_seed(0), cfg, device="cuda")
-        gen = torch.Generator().manual_seed(1)
-        x = (0.3 * torch.randn((b, 20, 64, 64), generator=gen)).cuda()
-        goal = (0.3 * torch.randn((b, 20, 64, 64), generator=gen)).cuda()
-        packed = fc.pack_weights(params, cfg, "float32")
-        xn = torch.empty_like(x)
-        thr = fc.fs.uniform_threshold(0.5)
-        run = lambda: fc.launch_update(x, goal, xn, packed, cfg, "float32", 3, 5, thr)  # noqa
-        this_ms, ref_ms = _turns(run, lambda: _with("nca_cnca", ref_lib, run))
-        print(f"  cnca_update 64^2 b{b} f32: this {this_ms:.4f} ms a launch, the reference "
-              f"build {ref_ms:.4f} (CUDA events, turns ref, this, this, ref, twice)")
+    # the grower's b1; b8 is the kernels line's
+    cfg = ConditionedNCAConfig(image_size=64)
+    params = cn.conditioned_nca_init(torch.Generator().manual_seed(0), cfg, device="cuda")
+    gen = torch.Generator().manual_seed(1)
+    x = (0.3 * torch.randn((1, 20, 64, 64), generator=gen)).cuda()
+    goal = (0.3 * torch.randn((1, 20, 64, 64), generator=gen)).cuda()
+    packed = fc.pack_weights(params, cfg, "float32")
+    xn = torch.empty_like(x)
+    thr = fc.fs.uniform_threshold(0.5)
+    run = lambda: fc.launch_update(x, goal, xn, packed, cfg, "float32", 3, 5, thr)  # noqa
+    this_ms, ref_ms = _turns(run, lambda: _with("nca_cnca", ref_lib, run))
+    print(f"  cnca_update 64^2 b1 f32: this {this_ms:.4f} ms a launch, the reference "
+          f"build {ref_ms:.4f} (CUDA events, turns ref, this, this, ref, twice)")
     return ok
 
 
 def bwd_mlp_cases(fc, cn, ConditionedNCAConfig, ref_lib):
     """cnca_bwd_mlp, whose recompute now runs on cnca_update's device
     functions: the same bits as the reference build (g_xn, gp and the
-    weight-gradient sums) and its time a launch at 64^2 b8 f32."""
+    weight-gradient sums); its time is the kernels line's."""
     ok = True
     for shape in ((8, 64, 64), (2, 40, 72)):
         b, h, w = shape
@@ -355,22 +366,6 @@ def bwd_mlp_cases(fc, cn, ConditionedNCAConfig, ref_lib):
             ok = ok and same
             print(f"  cnca_bwd_mlp {h}x{w} b{b} {cdt}: same bits as the reference build {same} "
                   f"{'ok' if same else 'FAIL'}")
-    cfg = ConditionedNCAConfig(image_size=64, cell_fire_rate=0.5)
-    params = cn.conditioned_nca_init(torch.Generator().manual_seed(0), cfg, device="cuda")
-    gen = torch.Generator().manual_seed(1)
-    x = (0.3 * torch.randn((8, 20, 64, 64), generator=gen)).cuda()
-    goal = (0.3 * torch.randn((8, 20, 64, 64), generator=gen)).cuda()
-    g = torch.randn((8, 20, 64, 64), generator=gen).cuda()
-    packed = fc.pack_weights(params, cfg, "float32")
-    _, life = fc.cnca_step_reference(x, goal, packed, cfg, "float32", 3, 5, 0.5)
-    gp = torch.empty((8, 60, 64, 64), device="cuda")
-    slots = fc._zero_slots(8, 64, 64, packed)
-    thr = fc.fs.uniform_threshold(0.5)
-    run = lambda: fc._launch_bwd_mlp(x, goal, life, g, gp, slots, packed, cfg,  # noqa: E731
-                                     "float32", 3, 5, thr)
-    this_ms, ref_ms = _turns(run, lambda: _with("nca_cnca", ref_lib, run), reps=20)
-    print(f"  cnca_bwd_mlp 64^2 b8 f32: this {this_ms:.4f} ms a launch, the reference build "
-          f"{ref_ms:.4f} (CUDA events, turns ref, this, this, ref, twice)")
     return ok
 
 
@@ -551,8 +546,9 @@ def mat_cases(fs, this_lib, ref_lib, ref_tc):
                     d_ref = float((got - ref).abs().max())
                     d_plain = float((got - want).abs().max())
                     d_rows = float((got - want_rows).abs().max())
-                    good = (d_ref == 0.0 and d_rows == 0.0 and d_plain <= TOL[cdt]) if not tc \
-                        else max(d_ref, d_plain, d_rows) <= TOL[cdt]
+                    tol = TOL[cdt]["rtol"]
+                    good = (d_ref == 0.0 and d_rows == 0.0 and d_plain <= tol) if not tc \
+                        else max(d_ref, d_plain, d_rows) <= tol
                     ok = ok and good
                     print(f"  nca_step_mat {'tensor-core' if tc else 'chain'} "
                           f"{shape[1]}x{shape[2]} b{shape[0]} {pad} {cdt}: max|this - reference "
@@ -573,6 +569,148 @@ def mat_cases(fs, this_lib, ref_lib, ref_tc):
             lambda: _mat_launch(fs, ref_lib, ref_tc, x, dst, cond, packed, "circular", cdt,
                                 17, thr, 0))
     return ok
+
+
+def _events_ms(fn, reps: int = 10, rounds: int = 3) -> float:
+    """Median ms a call of ``fn`` by CUDA events, over ``rounds`` runs of
+    ``reps`` calls after one warm call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(rounds):
+        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        e0.record()
+        for _ in range(reps):
+            fn()
+        e1.record()
+        torch.cuda.synchronize()
+        times.append(e0.elapsed_time(e1) / reps)
+    return statistics.median(times)
+
+
+def _bound(flops: float, n_bytes: float, peak_flops: float):
+    """(ms, 'operations' or 'bytes'): ``portbench/counts``' least time of
+    the work against the card's peaks."""
+    from portbench.counts import nca, peaks
+
+    by = "bytes" if n_bytes / peaks.HBM_BYTES_PER_S >= flops / peak_flops else "operations"
+    return 1e3 * nca.bound_seconds(flops, n_bytes, peak_flops, peaks.HBM_BYTES_PER_S), by
+
+
+def _cell_model(name: str) -> dict:
+    """The ``nca`` group of the benchmark's configuration ``name``."""
+    import json
+
+    root = Path(__file__).resolve().parents[2]
+    return json.loads((root / "portbench" / "configs" / f"{name}.json").read_text())["nca"]
+
+
+def kernel_rows(fs, ft, fc, cn, ConditionedNCAConfig, ref: dict) -> list:
+    """The kernels line: each kernel the benchmark's cells launch, at its
+    cell's shape, random inputs and weights. ``ms`` a launch of this build
+    and ``ref_ms`` of the reference build (CUDA events, in turns), the plain
+    version's ``plain_ms`` on the same inputs, ``library_ms`` of the one
+    PyTorch call that computes part of a kernel (``F.conv_transpose2d``,
+    ``cnca_bwd_adjoint``'s g_xg alone), and ``bound_ms``, the least time of
+    the step's work as ``portbench/counts`` counts it (against the bf16
+    peak for the served step, the float32-accurate peak for training, as
+    the cells' rooflines): for a step that is two kernels, the pair's bound
+    on each row, named by ``bound_of``."""
+    import torch.nn.functional as F
+    from portbench.counts import cnca as cnca_count
+    from portbench.counts import nca as nca_count
+    from portbench.counts import peaks
+
+    rows = []
+
+    def row(name, cell, lib, run, plain, bound, bound_of=None, library=None):
+        this_ms, ref_ms = _turns(run, lambda: _with(lib, ref[lib], run))
+        r = {"name": name, "cell": cell, "ms": this_ms, "ref_ms": ref_ms,
+             "plain_ms": _events_ms(plain),
+             "library_ms": _events_ms(library) if library else None,
+             "bound_ms": bound[0], "bound_by": bound[1], "bound_of": bound_of or name}
+        rows.append(r)
+        print(f"  {name} {cell}: this {this_ms:.4f} ms a launch, the reference build "
+              f"{ref_ms:.4f}; plain {r['plain_ms']:.4f}; bound of {r['bound_of']} "
+              f"{bound[0]:.5f} ({bound[1]})"
+              + (f"; library {r['library_ms']:.4f}" if library else ""))
+
+    thr = fs.uniform_threshold(0.5)
+    edge, vm = _cell_model("edge_conditioned"), _cell_model("video_motion")
+    for b, n, cell in ((1, 256, "edge_stream_256"), (8, 512, "edge_streams8_512")):
+        params, x, cond = _step_inputs(12, 3, 96, (b, n, n), 4)
+        packed, dst = fs.pack_weights(params, 12, 3, "bfloat16"), torch.empty_like(x)
+        px = b * n * n
+        row("nca_step_chain", f"{cell} {n}^2 b{b} bf16 (served)", "nca_step",
+            lambda: fs.launch_step(x, dst, cond, packed, "circular", "bfloat16", 5, 17, thr,
+                                   chain=True),
+            lambda: fs.reference_step(x, cond, packed, "circular", "bfloat16", 5, 17, 0.5),
+            _bound(nca_count.step_flops(edge, px), nca_count.rollout_bytes(edge, px),
+                   peaks.BF16_FLOPS))
+    for model, c, cc, f, (b, n), ms, cell in (
+            (edge, 12, 3, 96, (2, 256), False, "edge_train_256"),
+            (vm, 16, 2, 128, (3, 256), True, "vm_train_256")):
+        sfx, px = "_ms" if ms else "", b * n * n
+        params, x, cond = _step_inputs(c, cc, f, (b, n, n), 5, ms)
+        packed, dst = fs.pack_weights(params, c, cc, "float32"), torch.empty_like(x)
+        gen = torch.Generator().manual_seed(6)
+        gx = torch.randn(x.shape, generator=gen).cuda()
+        gp = torch.randn((b, 4 * c, n, n), generator=gen).cuda()
+        slots = ft._zero_slots(b, c, n, n, packed)
+        row(f"nca_step{sfx}_chain", f"{cell} {n}^2 b{b} f32", "nca_step",
+            lambda: fs.launch_step(x, dst, cond, packed, "circular", "float32", 5, 17, thr, ms,
+                                   chain=True),
+            lambda: fs.reference_step(x, cond, packed, "circular", "float32", 5, 17, 0.5, ms),
+            _bound(nca_count.step_flops(model, px), nca_count.rollout_bytes(model, px),
+                   peaks.F32_ACCURATE_FLOPS))
+        bwd = _bound(nca_count.step_backward_flops(model, px),
+                     nca_count.step_backward_bytes(model, px), peaks.F32_ACCURATE_FLOPS)
+        pair = f"nca_bwd_mlp{sfx} + nca_bwd_adjoint{sfx}"
+        row(f"nca_bwd_mlp{sfx}", f"{cell} {n}^2 b{b} f32", "nca_train",
+            lambda: ft._launch_mlp(x, cond, gx, gp, None, slots, packed, "float32", 5, 17, thr,
+                                   ms),
+            lambda: ft.nca_bwd_mlp_reference(packed, x, cond, gx, 5, 17, 0.5, "float32",
+                                             False, ms),
+            bwd, pair)
+        row(f"nca_bwd_adjoint{sfx}", f"{cell} {n}^2 b{b} f32", "nca_train",
+            lambda: ft._launch_adjoint(gp, gx, None, ms),
+            lambda: ft.nca_bwd_adjoint_reference(gp, gx, None, ms), bwd, pair)
+    enc = _cell_model("encoder_conditioned")
+    cfg = ConditionedNCAConfig(image_size=64)
+    params = cn.conditioned_nca_init(torch.Generator().manual_seed(0), cfg, device="cuda")
+    gen = torch.Generator().manual_seed(7)
+    x = (0.3 * torch.randn((8, 20, 64, 64), generator=gen)).cuda()
+    goal = (0.3 * torch.randn((8, 20, 64, 64), generator=gen)).cuda()
+    g = torch.randn((8, 20, 64, 64), generator=gen).cuda()
+    gp = torch.randn((8, 60, 64, 64), generator=gen).cuda()
+    packed = fc.pack_weights(params, cfg, "float32")
+    xn, out = torch.empty_like(x), torch.empty_like(x)
+    _, life = fc.cnca_step_reference(x, goal, packed, cfg, "float32", 3, 5, 0.5)
+    life_out = torch.empty_like(life)
+    slots, dgoal = fc._zero_slots(8, 64, 64, packed), torch.zeros_like(x)
+    cthr, px, cell = fc.fs.uniform_threshold(0.5), 8 * 64 * 64, "enc_train_64_b8 64^2 b8 f32"
+    fwd = _bound(cnca_count.step_flops(enc, px), cnca_count.step_bytes(enc, px),
+                 peaks.F32_ACCURATE_FLOPS)
+    bwd = _bound(cnca_count.step_backward_flops(enc, px), cnca_count.step_backward_bytes(enc, px),
+                 peaks.F32_ACCURATE_FLOPS)
+    row("cnca_update", cell, "nca_cnca",
+        lambda: fc.launch_update(x, goal, xn, packed, cfg, "float32", 3, 5, cthr),
+        lambda: fc.cnca_update_reference(x, goal, packed, cfg, "float32", 3, 5, 0.5), fwd,
+        "cnca_update + cnca_gate")
+    row("cnca_gate", cell, "nca_cnca", lambda: fc.launch_gate(x, xn, out, life_out, cfg),
+        lambda: fc.cnca_gate_reference(x, xn, cfg), fwd, "cnca_update + cnca_gate")
+    row("cnca_bwd_mlp", cell, "nca_cnca",
+        lambda: fc._launch_bwd_mlp(x, goal, life, g, gp, slots, packed, cfg, "float32", 3, 5,
+                                   cthr),
+        lambda: fc.cnca_bwd_mlp_reference(packed, x, goal, life, g, cfg, "float32", 3, 5, 0.5),
+        bwd, "cnca_bwd_mlp + cnca_bwd_adjoint")
+    wcol = packed[0]
+    row("cnca_bwd_adjoint", cell, "nca_cnca",
+        lambda: fc._launch_bwd_adjoint(x, gp, wcol, g, dgoal, cfg),
+        lambda: fc.cnca_bwd_adjoint_reference(x, gp, g, wcol, cfg), bwd,
+        "cnca_bwd_mlp + cnca_bwd_adjoint",
+        library=lambda: F.conv_transpose2d(gp, wcol.view(60, 1, 3, 3), padding=1, groups=20))
+    return rows
 
 
 def main(argv=None) -> int:
@@ -602,6 +740,7 @@ def main(argv=None) -> int:
     ok = cnca_adjoint_cases(fc, cn, ConditionedNCAConfig, ref["nca_cnca"]) and ok
     ok = update_cases(fc, cn, ConditionedNCAConfig, ref["nca_cnca"]) and ok
     ok = bwd_mlp_cases(fc, cn, ConditionedNCAConfig, ref["nca_cnca"]) and ok
+    print(json.dumps({"kernels": kernel_rows(fs, ft, fc, cn, ConditionedNCAConfig, ref)}))
     print(f"kernel_diff: {'every case ok' if ok else 'a case FAILED'}")
     return 0 if ok else 1
 

@@ -26,9 +26,8 @@ single-scale adjoints, whose
 waiting phase ends at the barrier after a channel's copies, and
 ``cnca_gate``'s staging, life-mask and store marks. A phase in a
 loop (the adjoints' passes or channels) sums over its iterations. The
-kernels' results are not checked here: ``chip_smoke.py`` and
-``tests/test_torch_cuda.py`` hold the uninstrumented kernels to their plain
-versions.
+kernels' results are not checked here: ``tests/test_torch_cuda.py`` holds
+the uninstrumented kernels to their plain versions.
 """
 
 from __future__ import annotations
