@@ -5,7 +5,8 @@ the ConditionedNCA kernels (``csrc/nca_cnca.cu``), their pair, the grow
 routes and the grower. Then the entry points on the card: the stylizer and
 the server, each preset's trainer and the encoder trainer with exact launch
 counts, the CLIs and their checkpoints, the protocols, the examples, the
-lifecycle and the multi-device paths.
+lifecycle and the multi-device paths. Last, the spans (``utils/spans.py``)
+and the wrappers' launch host time, which leave the served bits as they are.
 
 Needs a CUDA device and nvcc; every test skips without a card (the kernels
 have no CPU mode). This file imports neither JAX nor the JAX package, so on a
@@ -1821,3 +1822,124 @@ def test_example_on_card_runs_on_the_kernels(cuda, tmp_path, name):
     before = dict(counts.KERNEL_LAUNCHES)
     assert ok(importlib.import_module(f"vsnca_tpu_torch.examples.{name}").main(argv))
     assert _since(counts.KERNEL_LAUNCHES, before)
+
+
+# ------------------------------------------------------ spans and launch host time
+
+
+def _served_stylizer(cuda, size=64):
+    cfg = NCAConfig(c_in=12, fc_dim=96, padding_mode="circular", conditioning="edges")
+    params = dynca.dynca_init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    params["w2"] = params["w2"] * 0.2  # random weights: states stay bounded over the frames
+    st = VideoStylizer(params, cfg, size, device=cuda)
+    assert st._graphed
+    return st
+
+
+def test_served_frames_keep_their_bits_without_the_spans(cuda, monkeypatch):
+    """A graph-served run of frames gives the same state and RGB bits, and
+    the same launches, with ``spans.span`` a no-op: the spans add no device
+    work."""
+    import contextlib
+
+    from vsnca_tpu_torch.utils import spans
+
+    frames = np.random.RandomState(5).uniform(-1, 1, (12, 1, 64, 64, 3)).astype(np.float32)
+
+    def run():
+        st = _served_stylizer(cuda)
+        launches = fs.LAUNCHES
+        out = [(st.step_frame(f).clone(), st.state.clone()) for f in frames]
+        return out, fs.LAUNCHES - launches
+
+    with_spans, n_with = run()
+    monkeypatch.setattr(spans, "span", lambda name: contextlib.nullcontext())
+    without, n_without = run()
+    assert n_with == n_without == 24 * len(frames)
+    for (rgb, state), (rgb0, state0) in zip(with_spans, without):
+        assert torch.equal(rgb, rgb0) and torch.equal(state, state0)
+
+
+def test_replay_span_counts_each_replay_and_no_capture(cuda):
+    """``stylize.replay`` closes once a replay and never inside the capture;
+    ``stylize.capture`` once; an upload a frame."""
+    from vsnca_tpu_torch.infer import stylize
+    from vsnca_tpu_torch.utils import spans
+
+    def snapshot():
+        return {"host_ns": dict(spans.HOST_NS), "calls": dict(spans.CALLS)}
+
+    st = _served_stylizer(cuda)
+    frames = np.random.RandomState(6).uniform(-1, 1, (6, 1, 64, 64, 3)).astype(np.float32)
+    before = snapshot()
+    replays, captures = stylize.GRAPH_REPLAYS, stylize.GRAPH_CAPTURES
+    st.step_frame(frames[0])  # eager
+    calls = snapshot()["calls"]
+    assert calls.get("stylize.replay", 0) == before["calls"].get("stylize.replay", 0)
+    for f in frames[1:]:
+        st.step_frame(f)
+    after = snapshot()
+
+    def delta(key, name):
+        return after[key].get(name, 0) - before[key].get(name, 0)
+
+    assert delta("calls", "stylize.replay") == stylize.GRAPH_REPLAYS - replays == 5
+    assert delta("calls", "stylize.capture") == stylize.GRAPH_CAPTURES - captures == 1
+    assert delta("calls", "stylize.eager") == 1 and delta("calls", "stylize.clone") == 5
+    assert delta("calls", "stylize.upload") == delta("calls", "stylize.frame") == 6
+    inner = ("stylize.upload", "stylize.replay", "stylize.clone", "stylize.eager",
+             "stylize.capture")
+    assert sum(delta("host_ns", name) for name in inner) <= delta("host_ns", "stylize.frame")
+
+
+def test_launch_host_time_grows_with_the_launches(cuda):
+    """Each wrapper module's ``LAUNCH_HOST_NS`` grows with the launches it
+    times: the rollout step, the training pair (whose forward launches count
+    in both ``fused_step`` and ``fused_train`` and are timed in
+    ``fused_step`` alone) and the cnca pair; a graph capture adds neither, a
+    replay adds launches with no host time."""
+    from vsnca_tpu_torch.ops import fused_cnca as fc
+    from vsnca_tpu_torch.ops import fused_train as ft
+
+    mods = (fs, ft, fc)
+
+    def counters():
+        return [(m.LAUNCHES, m.LAUNCH_HOST_NS) for m in mods]
+
+    def grew(before, want, timed=None):
+        for m, (n0, ns0), k, t in zip(mods, before, want, timed or want):
+            n, ns = m.LAUNCHES - n0, m.LAUNCH_HOST_NS - ns0
+            assert n == k, m.__name__
+            # 0.1 us to 0.1 s of host time a timed launch: no library build in it
+            assert (ns == 0) if t == 0 else (100 * t <= ns <= 100_000_000 * t), m.__name__
+
+    cfg = NCAConfig(c_in=12, fc_dim=96, padding_mode="circular")
+    params = dynca.dynca_init(torch.Generator().manual_seed(0), cfg, device=cuda)
+    x = (torch.rand((2, 12, 32, 32), generator=torch.Generator().manual_seed(1))
+         - 0.5).to(cuda)
+    before = counters()
+    fs.fused_rollout_chw(params, x, 3, cfg, 5)
+    grew(before, (5, 0, 0))
+
+    cfg, params, x, gy, cond = _train_case(cuda, "pos_emb", (2, 12, 24, 40))
+    p = {k: v.clone().requires_grad_() for k, v in params.items()}
+    before = counters()
+    y = ft.fused_rollout_train(p, x.clone().requires_grad_(), 9, cfg, 4, cond)
+    (y * gy).sum().backward()
+    grew(before, (4, 12, 0), timed=(4, 8, 0))  # fused_train times its 8 backward launches
+
+    cfg, params, x, goal = _cnca_case(cuda, 0.5, True, shape=(2, 32, 32))
+    p = {k: v.clone().requires_grad_() for k, v in params.items()}
+    before = counters()
+    y = fc.fused_cnca_train(p, x.clone().requires_grad_(), goal, 9, cfg, 3)
+    (y * torch.ones_like(y)).sum().backward()
+    grew(before, (0, 0, 12))
+
+    st = _served_stylizer(cuda)
+    frames = np.random.RandomState(7).uniform(-1, 1, (3, 1, 64, 64, 3)).astype(np.float32)
+    st.step_frame(frames[0])  # eager: 24 launches with their host time
+    before = counters()
+    st.step_frame(frames[1])  # the capture, then the first replay
+    st.step_frame(frames[2])
+    assert fs.LAUNCHES - before[0][0] == 48
+    assert fs.LAUNCH_HOST_NS == before[0][1]

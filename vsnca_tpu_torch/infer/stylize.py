@@ -17,6 +17,13 @@ shape, and replayed each frame: the same kernels in the same order, so the
 same bits, without the host between them. A stylizer keeps the graph of the
 last shape only. ``FRAMES``, ``GRAPH_CAPTURES`` and ``GRAPH_REPLAYS`` count
 ``step_frame`` calls, captures and replays in the process.
+
+Spans (``utils.spans``): ``stylize.frame`` is a whole ``step_frame``;
+inside it ``stylize.upload`` the frame to the device, ``stylize.replay``
+the seed fill and the replay, ``stylize.clone`` the copies of the state and
+RGB a replay returns, ``stylize.eager`` an eager frame and
+``stylize.capture`` a graph's capture. Nothing in ``_frame`` is a span: a
+capture records device work only, and host code is not replayed.
 """
 
 from __future__ import annotations
@@ -32,6 +39,7 @@ from vsnca_tpu_torch.models.dynca import dynca_rollout, dynca_seed, make_conditi
 from vsnca_tpu_torch.ops import fused_step as fs
 from vsnca_tpu_torch.ops.fused_step import ROLLOUT_KERNELS, select_rollout_kernel
 from vsnca_tpu_torch.ops.resize import resize_bilinear
+from vsnca_tpu_torch.utils import spans
 
 FRAMES = 0  # step_frame calls
 GRAPH_CAPTURES = 0  # frame graphs captured
@@ -112,6 +120,7 @@ class VideoStylizer:
         self.state = self.state * torch.from_numpy(keep).to(self.device)
 
     @torch.no_grad()
+    @spans.span("stylize.frame")
     def step_frame(self, frame) -> torch.Tensor:
         """Advance one content frame [1, H, W, 3] in [-1, 1] (array or
         tensor) → stylized RGB [1, H, W, 3] in [0, 1] on ``self.device``."""
@@ -123,12 +132,16 @@ class VideoStylizer:
             shape = (tuple(self.state.shape), tuple(f.shape))
             if shape == self._shape:
                 if self._graph is None:
-                    self._graph = _FrameGraph(self, *shape)
+                    with spans.span("stylize.capture"):
+                        self._graph = _FrameGraph(self, *shape)
                 return self._graph.serve(self, f)
             # a new shape: the last one's graph goes, and this frame runs
             # eagerly, which warms the launcher for the capture
             self._shape, self._graph = shape, None
-        self.state, rgb = self._frame(f.to(self.device), self.state, self._rollout)
+        with spans.span("stylize.upload"):
+            f = f.to(self.device)
+        with spans.span("stylize.eager"):
+            self.state, rgb = self._frame(f, self.state, self._rollout)
         return rgb
 
     def _rollout(self, h: torch.Tensor, cond: Optional[torch.Tensor]) -> torch.Tensor:
@@ -188,7 +201,7 @@ class _FrameGraph:
                 src = bufs[i % 2]
             return src
 
-        counted = dict(fs.KERNEL_LAUNCHES), fs.LAUNCHES
+        counted = dict(fs.KERNEL_LAUNCHES), fs.LAUNCHES, fs.LAUNCH_HOST_NS
         with torch.cuda.device(dev):
             self.frame = torch.empty(frame_shape, device=dev)
             self.state = torch.empty(state_shape, device=dev)
@@ -201,11 +214,12 @@ class _FrameGraph:
                     self.out, self.rgb = styl._frame(self.frame, self.state, rollout)
                 finally:
                     self.graph.capture_end()
-        # the capture ran nothing: its launches are counted at each replay
+        # the capture ran nothing: its launches are counted at each replay,
+        # which makes no launch call on the host
         self.kernel_launches = {k: n - counted[0][k] for k, n in fs.KERNEL_LAUNCHES.items()}
         self.launches = fs.LAUNCHES - counted[1]
         fs.KERNEL_LAUNCHES.update(counted[0])
-        fs.LAUNCHES = counted[1]
+        fs.LAUNCHES, fs.LAUNCH_HOST_NS = counted[1:]
         if recorded != self.launches:
             raise RuntimeError(f"the frame graph recorded {recorded} of its "
                                f"{self.launches} launches")
@@ -217,13 +231,16 @@ class _FrameGraph:
         returns the RGB, both copies."""
         global GRAPH_REPLAYS
         with torch.cuda.device(styl.device):
-            self.frame.copy_(f)
+            with spans.span("stylize.upload"):
+                self.frame.copy_(f)
             self.state.copy_(styl.state)
-            seed = styl._frame_idx & 0xFFFFFFFF  # the uint32 the kernel reads, as an int32
-            self.seed.fill_(seed - (1 << 32) if seed >= 1 << 31 else seed)
-            self.graph.replay()
-            styl.state = self.out.clone()
-            rgb = self.rgb.clone()
+            with spans.span("stylize.replay"):
+                seed = styl._frame_idx & 0xFFFFFFFF  # the uint32 the kernel reads, as an int32
+                self.seed.fill_(seed - (1 << 32) if seed >= 1 << 31 else seed)
+                self.graph.replay()
+            with spans.span("stylize.clone"):
+                styl.state = self.out.clone()
+                rgb = self.rgb.clone()
         fs.LAUNCHES += self.launches
         for k, n in self.kernel_launches.items():
             fs.KERNEL_LAUNCHES[k] += n

@@ -6,7 +6,8 @@ logs)``; ``generator`` (a ``torch.Generator``) keys the OT subsample, the
 SlW projections and the style-consistency seed, where the JAX function
 splits a key. The terms, in the JAX function's order: overflow, auxiliary,
 vector-field motion, appearance ("Gram", "OT", "SlW", on one frame or a
-list of tapped frames), video motion, content and style consistency.
+list of tapped frames), video motion, content and style consistency, each a
+span of ``utils.spans`` (``loss.overflow``, ``loss.auxiliary``, …).
 ``set_loss_weight`` is the video-motion and vector-field calibration.
 """
 
@@ -29,6 +30,7 @@ from vsnca_tpu_torch.losses.vector_field import (
     vector_field_motion_loss,
 )
 from vsnca_tpu_torch.losses.video_motion import video_motion_loss
+from vsnca_tpu_torch.utils import spans
 
 
 @dataclasses.dataclass
@@ -75,75 +77,82 @@ def make_loss_fn(state: LossState) -> Callable:
         total = torch.zeros((), device=input_dict["nca_state"].device)
         logs: Dict[str, torch.Tensor] = {}
         if cfg.overflow_weight != 0:
-            l = overflow_loss(input_dict["nca_state"])
-            logs["overflow"] = l * cfg.overflow_weight
-            total = total + cfg.overflow_weight * l
+            with spans.span("loss.overflow"):
+                l = overflow_loss(input_dict["nca_state"])
+                logs["overflow"] = l * cfg.overflow_weight
+                total = total + cfg.overflow_weight * l
         if cfg.auxiliary_weight != 0:
-            gen_list = input_dict["generated_image_list"]
-            l = 0.0
-            for g, a in zip(gen_list, input_dict["auxillary_image_list"]):
-                l = l + auxiliary_loss(state.vgg_params, g, a, cfg.auxiliary_loss_type,
-                                       generator, cfg.ot_subsample, cfg.slw_projections)
-            l = l / len(gen_list)
-            logs["auxillary"] = l * cfg.auxiliary_weight
-            total = total + cfg.auxiliary_weight * l
-        if cfg.vector_field_motion_weight != 0:
-            l, sub_logs, _ = vector_field_motion_loss(
-                state.msoe_params, input_dict["generated_image_before_nca"],
-                input_dict["generated_image_after_nca"], state.target_field,
-                input_dict["step_n"], cfg.nca_base_num_steps, cfg.motion_img_size,
-                cfg.motion_strength_weight, cfg.motion_direction_weight)
-            for k, v in sub_logs.items():
-                logs[f"vector_field_motion-{k}"] = v
-            logs["vector_field_motion"] = l * cfg.vector_field_motion_weight
-            total = total + cfg.vector_field_motion_weight * l
-        if cfg.appearance_weight != 0:
-            gen_list = input_dict["generated_image_list"]
-            tgt_list = input_dict["target_image_list"]
-            tgt_feats = input_dict.get("target_style_features")
-            kw = dict(target_features=tgt_feats, generator=generator,
-                      subsample=cfg.ot_subsample, proj_n=cfg.slw_projections)
-            one_target = all(t is tgt_list[0] for t in tgt_list[1:]) and all(
-                g.shape == gen_list[0].shape for g in gen_list)
-            if len(gen_list) > 1 and one_target:
-                # tapped frames against one style target: one VGG16 call on
-                # the frames stacked over the batch (the per-item metrics
-                # then average over frames x batch; SlW sums over items)
-                l = appearance_loss(state.vgg_params, torch.cat(gen_list, dim=0),
-                                    tgt_list[0], cfg.appearance_loss_type, **kw)
-                if cfg.appearance_loss_type == "SlW":
-                    l = l / len(gen_list)
-            else:
+            with spans.span("loss.auxiliary"):
+                gen_list = input_dict["generated_image_list"]
                 l = 0.0
-                for g, t in zip(gen_list, tgt_list):
-                    l = l + appearance_loss(state.vgg_params, g, t,
-                                            cfg.appearance_loss_type, **kw)
+                for g, a in zip(gen_list, input_dict["auxillary_image_list"]):
+                    l = l + auxiliary_loss(state.vgg_params, g, a, cfg.auxiliary_loss_type,
+                                           generator, cfg.ot_subsample, cfg.slw_projections)
                 l = l / len(gen_list)
-            logs["appearance"] = l * cfg.appearance_weight
-            total = total + cfg.appearance_weight * l
+                logs["auxillary"] = l * cfg.auxiliary_weight
+                total = total + cfg.auxiliary_weight * l
+        if cfg.vector_field_motion_weight != 0:
+            with spans.span("loss.vector_field_motion"):
+                l, sub_logs, _ = vector_field_motion_loss(
+                    state.msoe_params, input_dict["generated_image_before_nca"],
+                    input_dict["generated_image_after_nca"], state.target_field,
+                    input_dict["step_n"], cfg.nca_base_num_steps, cfg.motion_img_size,
+                    cfg.motion_strength_weight, cfg.motion_direction_weight)
+                for k, v in sub_logs.items():
+                    logs[f"vector_field_motion-{k}"] = v
+                logs["vector_field_motion"] = l * cfg.vector_field_motion_weight
+                total = total + cfg.vector_field_motion_weight * l
+        if cfg.appearance_weight != 0:
+            with spans.span("loss.appearance"):
+                gen_list = input_dict["generated_image_list"]
+                tgt_list = input_dict["target_image_list"]
+                tgt_feats = input_dict.get("target_style_features")
+                kw = dict(target_features=tgt_feats, generator=generator,
+                          subsample=cfg.ot_subsample, proj_n=cfg.slw_projections)
+                one_target = all(t is tgt_list[0] for t in tgt_list[1:]) and all(
+                    g.shape == gen_list[0].shape for g in gen_list)
+                if len(gen_list) > 1 and one_target:
+                    # tapped frames against one style target: one VGG16 call on
+                    # the frames stacked over the batch (the per-item metrics
+                    # then average over frames x batch; SlW sums over items)
+                    l = appearance_loss(state.vgg_params, torch.cat(gen_list, dim=0),
+                                        tgt_list[0], cfg.appearance_loss_type, **kw)
+                    if cfg.appearance_loss_type == "SlW":
+                        l = l / len(gen_list)
+                else:
+                    l = 0.0
+                    for g, t in zip(gen_list, tgt_list):
+                        l = l + appearance_loss(state.vgg_params, g, t,
+                                                cfg.appearance_loss_type, **kw)
+                    l = l / len(gen_list)
+                logs["appearance"] = l * cfg.appearance_weight
+                total = total + cfg.appearance_weight * l
         if cfg.video_motion_weight != 0:
-            l, _ = video_motion_loss(
-                state.msoe_params, input_dict["generated_image_list_motion"],
-                input_dict.get("target_motion_image_list"), cfg.video_motion_loss_type,
-                generator, cfg.motion_img_size, cfg.ot_subsample, cfg.slw_projections,
-                target_features=input_dict.get("target_motion_feature_list"))
-            logs["video_motion"] = l * cfg.video_motion_weight
-            total = total + cfg.video_motion_weight * l
+            with spans.span("loss.video_motion"):
+                l, _ = video_motion_loss(
+                    state.msoe_params, input_dict["generated_image_list_motion"],
+                    input_dict.get("target_motion_image_list"), cfg.video_motion_loss_type,
+                    generator, cfg.motion_img_size, cfg.ot_subsample, cfg.slw_projections,
+                    target_features=input_dict.get("target_motion_feature_list"))
+                logs["video_motion"] = l * cfg.video_motion_weight
+                total = total + cfg.video_motion_weight * l
         if cfg.content_weight != 0:
-            gen = (input_dict["generated_image_list"][0] + 1.0) / 2.0
-            tgt = (input_dict["content_image"] + 1.0) / 2.0
-            l = content_loss(state.vgg_params, gen, tgt)
-            logs["content"] = l * cfg.content_weight
-            total = total + cfg.content_weight * l
+            with spans.span("loss.content"):
+                gen = (input_dict["generated_image_list"][0] + 1.0) / 2.0
+                tgt = (input_dict["content_image"] + 1.0) / 2.0
+                l = content_loss(state.vgg_params, gen, tgt)
+                logs["content"] = l * cfg.content_weight
+                total = total + cfg.content_weight * l
         if cfg.style_consistency_weight != 0:
-            # min_steps 32: the reference's step-range minimum (the fit
-            # scripts' nca_step_range[0])
-            l = style_consistency_loss(
-                input_dict["nca_params"], state.nca_cfg, input_dict["target_image_list"][0],
-                generator if generator is not None else torch.default_generator,
-                min_steps=32, cond_img=input_dict.get("style_consistency_cond_img"))
-            logs["style_consistency"] = l * cfg.style_consistency_weight
-            total = total + cfg.style_consistency_weight * l
+            with spans.span("loss.style_consistency"):
+                # min_steps 32: the reference's step-range minimum (the fit
+                # scripts' nca_step_range[0])
+                l = style_consistency_loss(
+                    input_dict["nca_params"], state.nca_cfg, input_dict["target_image_list"][0],
+                    generator if generator is not None else torch.default_generator,
+                    min_steps=32, cond_img=input_dict.get("style_consistency_cond_img"))
+                logs["style_consistency"] = l * cfg.style_consistency_weight
+                total = total + cfg.style_consistency_weight * l
         return total, logs
 
     return loss_fn

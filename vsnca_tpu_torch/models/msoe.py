@@ -30,6 +30,7 @@ from vsnca_tpu_torch.ops.filters import matlab_gaussian_kernel_2d
 from vsnca_tpu_torch.ops.grid_sample import tf_consistent_bilinear_upsample
 from vsnca_tpu_torch.ops.padding import symmetric_pad_2d
 from vsnca_tpu_torch.ops.resize import resize_bilinear
+from vsnca_tpu_torch.utils import spans
 
 N_SCALES = 5
 
@@ -107,11 +108,13 @@ def _pyramid_blur(pair: torch.Tensor) -> torch.Tensor:
                   groups=2)
 
 
+@spans.span("msoe")
 def msoe_forward(params: dict, pair: torch.Tensor, return_features: bool = False):
     """Frame pair [B, 2, H, W] (grayscale in [0, 1], H == W) → flow
     [B, 2, H, W], channel 1 negated as in the reference
     (MSOEmultiscale.py:170); with ``return_features`` also ``[z]``, the
-    320-channel motion feature [B, 320, H, W]."""
+    320-channel motion feature [B, 320, H, W]. The call is the span
+    ``msoe`` (``utils.spans``)."""
     levels = [contrast_norm(pair)]
     for _ in range(N_SCALES - 1):
         levels.append(_pyramid_blur(levels[-1]))

@@ -33,6 +33,7 @@ import torch.nn.functional as F
 
 from vsnca_tpu_torch.device import resolve_device
 from vsnca_tpu_torch.ops.conv import max_pool_2d
+from vsnca_tpu_torch.utils import spans
 
 # (out_channels, pool_after) per conv, torchvision vgg16 "D" configuration.
 VGG16_CONVS: Tuple[Tuple[int, bool], ...] = (
@@ -91,6 +92,7 @@ def load_vgg16(path: Optional[str] = None, device=None) -> Tuple[List[dict], boo
     return vgg16_random_init(torch.Generator().manual_seed(16), device), False
 
 
+@spans.span("vgg16")
 def vgg16_features(
     params: List[dict],
     imgs: torch.Tensor,
@@ -101,7 +103,7 @@ def vgg16_features(
 
     imgs: [B, 3, H, W] in [0, 1], ImageNet-normalized here. Tap index 2k is
     conv k's output, 2k+1 its ReLU, pools take their own indices. Returns
-    NCHW feature maps.
+    NCHW feature maps. The call is the span ``vgg16`` (``utils.spans``).
     """
     n_pools_needed = sum(
         1

@@ -37,7 +37,9 @@ W1..W3 rounded by the packing.
 
 A wrapper launches its kernels for CUDA tensors and runs the plain version
 only for CPU tensors; there is no fallback. ``LAUNCHES`` counts every launch
-of the four kernels and ``KERNEL_LAUNCHES`` splits it by kernel.
+of the four kernels and ``KERNEL_LAUNCHES`` splits it by kernel;
+``LAUNCH_HOST_NS`` sums the host nanoseconds of their launch calls
+(``fused_step.timed_launch``).
 """
 
 from __future__ import annotations
@@ -55,6 +57,7 @@ from vsnca_tpu_torch.ops import fused_step as fs
 from vsnca_tpu_torch.ops.conv import alive_pool, depthwise_perceive
 
 LAUNCHES = 0
+LAUNCH_HOST_NS = 0
 KERNEL_LAUNCHES: Dict[str, int] = {
     "cnca_update": 0, "cnca_gate": 0, "cnca_bwd_mlp": 0, "cnca_bwd_adjoint": 0,
 }
@@ -447,8 +450,9 @@ def cnca_bwd_adjoint(x, gp, g_xn, wcol, cfg: ConditionedNCAConfig):
 # ------------------------------------------------------------ kernel plumbing
 
 
-def _count(name: str) -> None:
-    global LAUNCHES
+def _count(name: str, ns: int) -> None:
+    global LAUNCHES, LAUNCH_HOST_NS
+    LAUNCH_HOST_NS += ns
     LAUNCHES += 1
     KERNEL_LAUNCHES[name] += 1
 
@@ -494,23 +498,18 @@ def _gate_args(cfg: ConditionedNCAConfig):
             int(cfg.use_living_channel))
 
 
-def _raise_on(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    _count(name)
-
-
 def launch_update(x, goal, xn, packed, cfg, compute_dtype, seed, step, thr) -> None:
     """One ``cnca_update`` launch on the current stream: x → xn (distinct
     buffers) with the fire mask of absolute step ``step``."""
     b, c, h, w = x.shape
     with torch.cuda.device(x.device):
-        err = _lib().cnca_update_launch(
+        ns = fs.timed_launch(
+            "cnca_update", _lib().cnca_update_launch,
             _ptr(x), _ptr(goal), _ptr(xn), *(_ptr(t) for t in packed),
             b, c, h, w, packed[1].shape[1], *_gate_args(cfg),
             int(compute_dtype == "bfloat16"), seed & 0xFFFFFFFF, step, thr,
             _stream(x.device))
-    _raise_on(err, "cnca_update")
+    _count("cnca_update", ns)
 
 
 def launch_gate(x, xn, out, life, cfg) -> None:
@@ -518,31 +517,34 @@ def launch_gate(x, xn, out, life, cfg) -> None:
     alive(xn), written to ``life`` (uint8 [B, H, W]) when it is given."""
     b, c, h, w = x.shape
     with torch.cuda.device(x.device):
-        err = _lib().cnca_gate_launch(
+        ns = fs.timed_launch(
+            "cnca_gate", _lib().cnca_gate_launch,
             _ptr(x), _ptr(xn), _ptr(out), _ptr(life), b, c, h, w, *_gate_args(cfg),
             ctypes.c_float(cfg.clamp_value), _stream(x.device))
-    _raise_on(err, "cnca_gate")
+    _count("cnca_gate", ns)
 
 
 def _launch_bwd_mlp(x, goal, life, g, gp, slots, packed, cfg, compute_dtype, seed, step,
                     thr) -> None:
     b, c, h, w = x.shape
     with torch.cuda.device(x.device):
-        err = _lib().cnca_bwd_mlp_launch(
+        ns = fs.timed_launch(
+            "cnca_bwd_mlp", _lib().cnca_bwd_mlp_launch,
             _ptr(x), _ptr(goal), _ptr(life), _ptr(g), _ptr(gp), _ptr(slots),
             *(_ptr(t) for t in packed), b, c, h, w, packed[1].shape[1], *_gate_args(cfg),
             ctypes.c_float(cfg.clamp_value), int(compute_dtype == "bfloat16"),
             seed & 0xFFFFFFFF, step, thr, _stream(x.device))
-    _raise_on(err, "cnca_bwd_mlp")
+    _count("cnca_bwd_mlp", ns)
 
 
 def _launch_bwd_adjoint(x, gp, wcol, g, dgoal, cfg) -> None:
     b, c, h, w = x.shape
     with torch.cuda.device(x.device):
-        err = _lib().cnca_bwd_adjoint_launch(
+        ns = fs.timed_launch(
+            "cnca_bwd_adjoint", _lib().cnca_bwd_adjoint_launch,
             _ptr(x), _ptr(gp), _ptr(wcol), _ptr(g), _ptr(dgoal), b, c, h, w,
             *_gate_args(cfg), _stream(x.device))
-    _raise_on(err, "cnca_bwd_adjoint")
+    _count("cnca_bwd_adjoint", ns)
 
 
 def _lib() -> ctypes.CDLL:

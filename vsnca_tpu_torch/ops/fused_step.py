@@ -55,12 +55,16 @@ fallback. ``fused_rollout`` runs ``dynca_rollout``'s eager steps where
 that is the reference's semantics for a config no kernel takes. ``LAUNCHES``
 counts kernel launches (one per step); ``KERNEL_LAUNCHES`` splits them by
 kernel form (``nca_step_chain``, ``nca_step_ms_chain`` and
-``nca_step_mat_chain`` the chain forms).
+``nca_step_mat_chain`` the chain forms); ``LAUNCH_HOST_NS`` sums the host
+nanoseconds of their ctypes launch calls. ``timed_launch`` makes such a
+call and times it for the three wrapper modules (this one,
+``fused_train`` and ``fused_cnca``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import time
 from typing import Dict, Optional, Tuple
 
 import torch
@@ -73,6 +77,7 @@ from vsnca_tpu_torch.ops.padding import pad2d
 from vsnca_tpu_torch.ops.perception import perceive
 
 LAUNCHES = 0
+LAUNCH_HOST_NS = 0
 KERNEL_LAUNCHES: Dict[str, int] = {
     "nca_step": 0, "nca_step_ms": 0, "nca_step_mat": 0, "nca_step_bf16_state": 0,
     "nca_step_chain": 0, "nca_step_ms_chain": 0, "nca_step_mat_chain": 0,
@@ -399,8 +404,8 @@ def launch_step(src: torch.Tensor, dst: torch.Tensor, cond: Optional[torch.Tenso
     place of ``seed``, as a CUDA graph replay needs; it takes the served
     step only (``chain`` under bf16 compute, float32 state, scales (0,), a
     width of ``served_widths()``). Counts the launch in ``LAUNCHES`` and
-    ``KERNEL_LAUNCHES``."""
-    global LAUNCHES
+    ``KERNEL_LAUNCHES``, and its host time in ``LAUNCH_HOST_NS``."""
+    global LAUNCHES, LAUNCH_HOST_NS
     w1, b1, w2, b2 = packed
     b, c, h, w = src.shape
     cc = cond.shape[1] if cond is not None else 0
@@ -427,11 +432,20 @@ def launch_step(src: torch.Tensor, dst: torch.Tensor, cond: Optional[torch.Tenso
         raise ValueError("a seed in device memory takes the served bf16 step only")
     with torch.cuda.device(src.device):
         stream = ctypes.c_void_p(torch.cuda.current_stream(src.device).cuda_stream)
-        err = fn(*head, *ms, *tail, stream, *last)
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+        LAUNCH_HOST_NS += timed_launch(name, fn, *head, *ms, *tail, stream, *last)
     LAUNCHES += 1
     KERNEL_LAUNCHES[name] += 1
+
+
+def timed_launch(name: str, fn, *args) -> int:
+    """The ctypes launch call ``fn(*args)`` of kernel ``name``: raises if it
+    returns a CUDA error, else returns the call's host nanoseconds."""
+    t0 = time.perf_counter_ns()
+    err = fn(*args)
+    ns = time.perf_counter_ns() - t0
+    if err != 0:
+        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
+    return ns
 
 
 def _launcher() -> ctypes.CDLL:

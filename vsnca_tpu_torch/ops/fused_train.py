@@ -58,7 +58,9 @@ asserts). ``fused_rollout_train`` launches the kernels for CUDA tensors and
 runs the plain versions only for CPU tensors; there is no fallback.
 ``LAUNCHES`` counts every launch the pair makes, and ``KERNEL_LAUNCHES``
 splits it by kernel (the forward's launches also count in
-``fused_step.LAUNCHES``).
+``fused_step.LAUNCHES``). ``LAUNCH_HOST_NS`` sums the host nanoseconds of
+the backward kernels' launch calls (``fused_step.timed_launch``); the
+forward's are counted in ``fused_step.LAUNCH_HOST_NS`` alone.
 """
 
 from __future__ import annotations
@@ -78,6 +80,7 @@ from vsnca_tpu_torch.ops.filters import LAPLACIAN, SOBEL_X, SOBEL_Y
 from vsnca_tpu_torch.ops.perception import perceive, stencil_3x3
 
 LAUNCHES = 0
+LAUNCH_HOST_NS = 0
 KERNEL_LAUNCHES: Dict[str, int] = {
     "nca_step": 0, "nca_bwd_mlp": 0, "nca_bwd_adjoint": 0,
     "nca_step_ms": 0, "nca_bwd_mlp_ms": 0, "nca_bwd_adjoint_ms": 0,
@@ -548,8 +551,9 @@ def nca_bwd_adjoint_reference(gp: torch.Tensor, gx: torch.Tensor,
 # ------------------------------------------------------------ kernel plumbing
 
 
-def _count(name: str) -> None:
-    global LAUNCHES
+def _count(name: str, ns: int = 0) -> None:
+    global LAUNCHES, LAUNCH_HOST_NS
+    LAUNCH_HOST_NS += ns
     LAUNCHES += 1
     KERNEL_LAUNCHES[name] += 1
 
@@ -599,26 +603,23 @@ def _launch_mlp(x, cond, gx, gp, dcond, slots, packed, compute_dtype, seed, step
     cc = cond.shape[1] if cond is not None else 0
     name = "nca_bwd_mlp_ms" if multiscale else "nca_bwd_mlp"
     with torch.cuda.device(x.device):
-        err = _lib().nca_bwd_mlp_launch(
+        ns = fs.timed_launch(
+            name, _lib().nca_bwd_mlp_launch,
             _ptr(x), _ptr(cond), _ptr(gx), _ptr(gp), _ptr(dcond), _ptr(slots),
             _ptr(w1), _ptr(b1), _ptr(w2), b, c, h, w, cc, w1.shape[1],
             int(compute_dtype == "bfloat16"), int(multiscale), seed & 0xFFFFFFFF, step,
             thr, _stream(x.device),
         )
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    _count(name)
+    _count(name, ns)
 
 
 def _launch_adjoint(gp, gx, gtap=None, multiscale=False):
     b, c, h, w = gx.shape
     name = "nca_bwd_adjoint_ms" if multiscale else "nca_bwd_adjoint"
     with torch.cuda.device(gx.device):
-        err = _lib().nca_bwd_adjoint_launch(_ptr(gp), _ptr(gx), _ptr(gtap), b, c, h, w,
-                                            int(multiscale), _stream(gx.device))
-    if err != 0:
-        raise RuntimeError(f"{name} launch failed: CUDA error {err}")
-    _count(name)
+        ns = fs.timed_launch(name, _lib().nca_bwd_adjoint_launch, _ptr(gp), _ptr(gx),
+                             _ptr(gtap), b, c, h, w, int(multiscale), _stream(gx.device))
+    _count(name, ns)
 
 
 def _lib() -> ctypes.CDLL:

@@ -53,6 +53,7 @@ from vsnca_tpu_torch.models.vgg import vgg16_content_features, vgg16_style_featu
 from vsnca_tpu_torch.ops.fused_cnca import check_supported
 from vsnca_tpu_torch.pool.sample_pool import ListPool
 from vsnca_tpu_torch.train.optim import make_optimizer
+from vsnca_tpu_torch.utils import spans
 
 
 def create_2d_circular_mask(h, w, rng: np.random.RandomState, radius: int = 3) -> np.ndarray:
@@ -71,7 +72,9 @@ def make_encoder_loss_fn(vgg_params, style_image: torch.Tensor,
     overflow + appearance against the style image [1, 3, H, W] in [0, 1]
     (its VGG16 features computed once) + content against the goal images, on
     the raw generated RGB (the EncoderConditioning stack does not rescale).
-    ``generator`` draws the OT subsample or the SlW projections."""
+    ``generator`` draws the OT subsample or the SlW projections. Each term
+    is a span (``utils.spans``): ``loss.overflow``, ``loss.appearance``,
+    ``loss.content``."""
     if appearance_loss_type not in ("OT", "SlW", "Gram"):
         raise ValueError(f"unknown appearance loss type {appearance_loss_type}")
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -86,26 +89,30 @@ def make_encoder_loss_fn(vgg_params, style_image: torch.Tensor,
         logs: Dict[str, torch.Tensor] = {}
         total = torch.zeros((), device=nca_state.device)
         if overflow_weight:
-            logs["overflow"] = overflow_loss(nca_state) * overflow_weight
-            total = total + logs["overflow"]
+            with spans.span("loss.overflow"):
+                logs["overflow"] = overflow_loss(nca_state) * overflow_weight
+                total = total + logs["overflow"]
         if appearance_weight:
-            gen_feats = vgg16_style_features(vgg_params, generated, include_image_as_feat=slw)
-            b = generated.shape[0]
-            tiled = [f.repeat((b,) + (1,) * (f.dim() - 1)) for f in style_feats]
-            if appearance_loss_type == "Gram":
-                l = gram_loss(gen_feats, tiled)
-            elif slw:
-                l = sliced_wasserstein_loss(gen_feats, tiled, generator)
-            else:
-                l = ot_style_loss(gen_feats, tiled, generator, ot_subsample)
-            logs["appearance"] = l * appearance_weight
-            total = total + logs["appearance"]
+            with spans.span("loss.appearance"):
+                gen_feats = vgg16_style_features(vgg_params, generated,
+                                                 include_image_as_feat=slw)
+                b = generated.shape[0]
+                tiled = [f.repeat((b,) + (1,) * (f.dim() - 1)) for f in style_feats]
+                if appearance_loss_type == "Gram":
+                    l = gram_loss(gen_feats, tiled)
+                elif slw:
+                    l = sliced_wasserstein_loss(gen_feats, tiled, generator)
+                else:
+                    l = ot_style_loss(gen_feats, tiled, generator, ot_subsample)
+                logs["appearance"] = l * appearance_weight
+                total = total + logs["appearance"]
         if content_weight:
-            gf = vgg16_content_features(vgg_params, generated)
-            with torch.no_grad():
-                tf_ = vgg16_content_features(vgg_params, targets)
-            logs["content"] = torch.mean((gf - tf_) ** 2) * content_weight
-            total = total + logs["content"]
+            with spans.span("loss.content"):
+                gf = vgg16_content_features(vgg_params, generated)
+                with torch.no_grad():
+                    tf_ = vgg16_content_features(vgg_params, targets)
+                logs["content"] = torch.mean((gf - tf_) ** 2) * content_weight
+                total = total + logs["content"]
         return total, logs
 
     return loss_fn
@@ -225,24 +232,30 @@ class ConditionedNCATrainer:
         self.optimizer.zero_grad()
         seed = int(torch.randint(0, 2**30 - 1, (), generator=self.generator))
         mark("encode")
-        goal = encode_goal(self.params, cfg, targets)
+        with spans.span("train.encode"):
+            goal = encode_goal(self.params, cfg, targets)
         mark("rollout forward")
-        grown = grow_from_encoding(self.params, batch, goal, seed, cfg, num_steps,
-                                   self.grow_remat, self.rollout_path)
+        with spans.span("train.rollout"):
+            grown = grow_from_encoding(self.params, batch, goal, seed, cfg, num_steps,
+                                       self.grow_remat, self.rollout_path)
         mark("loss forward")
-        loss, logs = self.loss_fn(grown, grown[:, : cfg.num_target_channels], targets,
-                                  self.generator)
+        with spans.span("train.loss"):
+            loss, logs = self.loss_fn(grown, grown[:, : cfg.num_target_channels], targets,
+                                      self.generator)
         mark("loss backward")
         grown.register_hook(lambda g: mark("rollout backward"))
-        loss.backward()
+        with spans.span("train.backward"):
+            loss.backward()
         mark("optimizer")
         if cfg.use_living_channel:
             logs["alive_frac"] = (grown[:, cfg.alive_channel] > cfg.alpha_living_threshold
                                   ).float().mean()
-        self.optimizer.step()
+        with spans.span("train.optimizer"):
+            self.optimizer.step()
         mark("end")
         return grown.detach(), loss.detach(), {k: v.detach() for k, v in logs.items()}
 
+    @spans.span("train.iteration")
     def train_iteration(self, batch_size: int = 8, num_steps: Optional[int] = None,
                         mark: Optional[Callable[[str], None]] = None):
         """One epoch: sample a pool batch (2 forced fresh seeds), train it
@@ -258,35 +271,45 @@ class ConditionedNCATrainer:
         - "loss backward": the backward through the losses;
         - "rollout backward" (from a hook in the backward): the grow's
           backward, then the encoder's;
-        - "optimizer": the gradient normalization and Adam."""
+        - "optimizer": the gradient normalization and Adam.
+
+        The host's parts are spans (``utils.spans``): ``train.iteration``
+        the whole call; inside it ``train.pool_gather`` (the batch with its
+        reseeding), each train step's ``train.encode``, ``train.rollout``,
+        ``train.loss``, ``train.backward`` and ``train.optimizer``,
+        ``train.pool_scatter`` and ``train.loss_read``."""
         mark = mark or (lambda name: None)
         idxs = self.py_rng.sample(range(self._pool_size()), batch_size)
         targets = self.dataset.sample(self.rng, batch_size)
         n1 = num_steps if num_steps is not None else self.sample_num_steps()
-        if self.device_pool:
-            batch = self._gather(idxs)
-        else:
-            def reseed(n):
-                return conditioned_nca_seed(self.cfg, n, device="cpu").numpy()
+        with spans.span("train.pool_gather"):
+            if self.device_pool:
+                batch = self._gather(idxs)
+            else:
+                def reseed(n):
+                    return conditioned_nca_seed(self.cfg, n, device="cpu").numpy()
 
-            batch = torch.from_numpy(self.pool.get(idxs, reseed, is_dead_fn=self._is_dead))
-            batch = batch.to(self.device)
-            batch[:2] = conditioned_nca_seed(self.cfg, 2, device=self.device)
+                batch = torch.from_numpy(self.pool.get(idxs, reseed, is_dead_fn=self._is_dead))
+                batch = batch.to(self.device)
+                batch[:2] = conditioned_nca_seed(self.cfg, 2, device=self.device)
         if self.num_damaged:
             batch = self.damage(batch)
         outputs, loss, logs = self._train_step(batch, targets, n1, mark)
         n2 = num_steps if num_steps is not None else self.sample_num_steps()
         outputs, loss, logs = self._train_step(outputs, targets, n2, mark)
         if self.device_pool:
-            self.pool_states[torch.as_tensor(idxs, device=self.device)] = outputs
+            with spans.span("train.pool_scatter"):
+                self.pool_states[torch.as_tensor(idxs, device=self.device)] = outputs
 
         names = sorted(logs)
-        vec = torch.stack([loss] + [logs[k] for k in names]).float().cpu().numpy()
+        with spans.span("train.loss_read"):
+            vec = torch.stack([loss] + [logs[k] for k in names]).float().cpu().numpy()
         loss_f = float(vec[0])
         if not np.isfinite(loss_f):
             raise FloatingPointError(f"loss NaN/Inf at epoch {self.iteration}")
         if not self.device_pool:
-            self.pool.set(idxs, outputs.cpu().numpy())
+            with spans.span("train.pool_scatter"):
+                self.pool.set(idxs, outputs.cpu().numpy())
         metrics = dict(zip(names, map(float, vec[1:])))
         metrics["log10loss"] = math.log10(loss_f + 1e-5)
         self.iteration += 1

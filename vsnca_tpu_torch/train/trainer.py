@@ -52,6 +52,7 @@ from vsnca_tpu_torch.parallel.mesh import all_reduce_mean, replicate
 from vsnca_tpu_torch.parallel.train_dp import make_dp_train_step
 from vsnca_tpu_torch.pool.sample_pool import DevicePool, inject_seed_into_batch
 from vsnca_tpu_torch.train.optim import NormalizedAdam, make_optimizer
+from vsnca_tpu_torch.utils import spans
 
 # the pre-roll's masks come from the step's seed with these bits flipped, so
 # that they are not the rollout's first mask (the JAX step splits a key)
@@ -113,7 +114,10 @@ def make_train_step(nca_cfg: NCAConfig, loss_state: LossState,
     as it begins — "rollout forward", "loss forward", "loss backward",
     "rollout backward" (from a hook on the final state's gradient, in the
     backward's thread), "optimizer" — and with "end"; a caller can record
-    a CUDA event in it to time the parts.
+    a CUDA event in it to time the parts. The host's parts are spans
+    (``utils.spans``): ``train.pre_roll``, ``train.rollout``, ``train.loss``
+    (the loss's inputs and ``loss_fn``), ``train.backward`` and
+    ``train.optimizer``.
 
     ``mesh``/``data_axis``: data-parallel mode. ``states`` and the
     batch-leading inputs are then this rank's shard
@@ -151,58 +155,62 @@ def make_train_step(nca_cfg: NCAConfig, loss_state: LossState,
         mark("rollout forward")
         rgb_before = None
         if cfg.vector_field_motion_weight != 0:
-            with torch.no_grad():
+            with spans.span("train.pre_roll"), torch.no_grad():
                 pre, _ = dynca_rollout(params, states, pre_seed, nca_cfg, 1, cond,
                                        rollout_path=pre_path)
-            rgb_before = to_rgb(pre, nca_cfg.c_out)
+                rgb_before = to_rgb(pre, nca_cfg.c_out)
         plan = _tap_plan(n_motion_frames, tap_every, tap_chunks, tail_steps)
         input_dict = {"step_n": step_n}
-        if plan is None:
-            state_after, rgb_after = dynca_rollout(p, states, roll_seed, nca_cfg, step_n,
-                                                   cond, remat=remat,
-                                                   rollout_path=rollout_path)
-            input_dict["generated_image_list"] = [rgb_after]
-        else:
-            chunks, tail = plan
-            state_after, taps = rollout_taps(p, states, roll_seed, nca_cfg, chunks, tail,
-                                             cond, remat, rollout_path)
-            frames = [to_rgb(t, nca_cfg.c_out) for t in taps]
-            rgb_after = frames[-1]
-            n_frames = len(frames)
-            # appearance scores every tapped frame (fit_video_motion.py:243-256)
-            input_dict["generated_image_list"] = frames
-            input_dict["generated_image_list_motion"] = frames
-            if "target_motion_frames" in inputs:
-                input_dict["target_motion_image_list"] = [
-                    inputs["target_motion_frames"][i] for i in range(n_frames)]
-            if "target_motion_features" in inputs:
-                input_dict["target_motion_feature_list"] = [
-                    inputs["target_motion_features"][i] for i in range(n_frames - 1)]
+        with spans.span("train.rollout"):
+            if plan is None:
+                state_after, rgb_after = dynca_rollout(p, states, roll_seed, nca_cfg, step_n,
+                                                       cond, remat=remat,
+                                                       rollout_path=rollout_path)
+                input_dict["generated_image_list"] = [rgb_after]
+            else:
+                chunks, tail = plan
+                state_after, taps = rollout_taps(p, states, roll_seed, nca_cfg, chunks, tail,
+                                                 cond, remat, rollout_path)
+                frames = [to_rgb(t, nca_cfg.c_out) for t in taps]
+                rgb_after = frames[-1]
+                n_frames = len(frames)
+                # appearance scores every tapped frame (fit_video_motion.py:243-256)
+                input_dict["generated_image_list"] = frames
+                input_dict["generated_image_list_motion"] = frames
+                if "target_motion_frames" in inputs:
+                    input_dict["target_motion_image_list"] = [
+                        inputs["target_motion_frames"][i] for i in range(n_frames)]
+                if "target_motion_features" in inputs:
+                    input_dict["target_motion_feature_list"] = [
+                        inputs["target_motion_features"][i] for i in range(n_frames - 1)]
         mark("loss forward")
-        input_dict["nca_state"] = state_after
-        if "target_style" in inputs:
-            input_dict["target_image_list"] = (
-                [inputs["target_style"]] * len(input_dict["generated_image_list"]))
-        if "target_style_features" in inputs:
-            input_dict["target_style_features"] = inputs["target_style_features"]
-        if rgb_before is not None:
-            input_dict["generated_image_before_nca"] = rgb_before
-            input_dict["generated_image_after_nca"] = rgb_after
-        if "aux_imgs" in inputs:
-            input_dict["auxillary_image_list"] = [inputs["aux_imgs"]]
-            input_dict["content_image"] = inputs["aux_imgs"]
-        if cfg.style_consistency_weight != 0:
-            # the live params for the fresh-seed grow, which runs without a
-            # gradient (the reference's no_grad)
-            input_dict["nca_params"] = params
-            if "aux_gs" in inputs:
-                input_dict["style_consistency_cond_img"] = inputs["aux_gs"]
-        loss, logs = loss_fn(input_dict, torch.Generator().manual_seed(seed + 1))
+        with spans.span("train.loss"):
+            input_dict["nca_state"] = state_after
+            if "target_style" in inputs:
+                input_dict["target_image_list"] = (
+                    [inputs["target_style"]] * len(input_dict["generated_image_list"]))
+            if "target_style_features" in inputs:
+                input_dict["target_style_features"] = inputs["target_style_features"]
+            if rgb_before is not None:
+                input_dict["generated_image_before_nca"] = rgb_before
+                input_dict["generated_image_after_nca"] = rgb_after
+            if "aux_imgs" in inputs:
+                input_dict["auxillary_image_list"] = [inputs["aux_imgs"]]
+                input_dict["content_image"] = inputs["aux_imgs"]
+            if cfg.style_consistency_weight != 0:
+                # the live params for the fresh-seed grow, which runs without a
+                # gradient (the reference's no_grad)
+                input_dict["nca_params"] = params
+                if "aux_gs" in inputs:
+                    input_dict["style_consistency_cond_img"] = inputs["aux_gs"]
+            loss, logs = loss_fn(input_dict, torch.Generator().manual_seed(seed + 1))
         mark("loss backward")
         state_after.register_hook(lambda g: mark("rollout backward"))
-        loss.backward()
+        with spans.span("train.backward"):
+            loss.backward()
         mark("optimizer")
-        optimizer.step()
+        with spans.span("train.optimizer"):
+            optimizer.step()
         mark("end")
         # the pool write-back strips appended channels (experiments.py:269)
         new_states = state_after.detach()[:, :nca_cfg.n_seed_channels]
@@ -289,6 +297,7 @@ class DyNCATrainer:
         buckets = np.asarray(self.train_cfg.step_buckets)
         return int(buckets[np.argmin(np.abs(buckets - raw))])
 
+    @spans.span("train.iteration")
     def train_iteration(self, inputs: Dict[str, torch.Tensor],
                         step_n: Optional[int] = None, n_motion_frames: int = 0,
                         tap_every: int = 0, tap_chunks=(), tail_steps: int = 0,
@@ -300,30 +309,36 @@ class DyNCATrainer:
         ``(n_motion_frames, tap_every)`` form rolls equal chunks.
         ``sync=False`` skips the host read of the loss (the NaN guard then
         fires on the next synced iteration); ``mark`` goes to the train step
-        (see ``make_train_step``)."""
+        (see ``make_train_step``). The host's parts are spans
+        (``utils.spans``): ``train.iteration`` the whole call, inside it
+        ``train.pool_gather`` (the draw, the gather and the seed injection),
+        the step's spans, ``train.pool_scatter`` and ``train.loss_read``."""
         tc = self.train_cfg
         i = self.iteration
-        idx = self.pool.sample_indices(self.rng, tc.batch_size)
-        self.last_batch_idx = idx  # for anomaly recovery
-        inject = bool(tc.inject_seed_every and i % tc.inject_seed_every == 0)
-        step_n = step_n if step_n is not None else self.sample_step_n()
+        with spans.span("train.pool_gather"):
+            idx = self.pool.sample_indices(self.rng, tc.batch_size)
+            self.last_batch_idx = idx  # for anomaly recovery
+            inject = bool(tc.inject_seed_every and i % tc.inject_seed_every == 0)
+            step_n = step_n if step_n is not None else self.sample_step_n()
 
-        states = self.pool.gather(idx)
-        if inject:
-            states = inject_seed_into_batch(states, self._seed_template)
+            states = self.pool.gather(idx)
+            if inject:
+                states = inject_seed_into_batch(states, self._seed_template)
         seed = int(torch.randint(0, 1 << 30, (), generator=self.generator))
         self.params, self.optimizer, new_states, loss, logs = self._train_step(
             self.params, self.optimizer, states, seed, inputs, step_n=step_n,
             n_motion_frames=n_motion_frames, tap_every=tap_every,
             tap_chunks=tuple(tap_chunks), tail_steps=tail_steps, mark=mark,
         )
-        self.pool.scatter(idx, new_states)
+        with spans.span("train.pool_scatter"):
+            self.pool.scatter(idx, new_states)
 
         self.iteration += 1
         if not sync:
             return TrainLog(i, loss, logs)
         names = sorted(logs)
-        vec = torch.stack([loss] + [logs[k] for k in names]).float().cpu().numpy()
+        with spans.span("train.loss_read"):
+            vec = torch.stack([loss] + [logs[k] for k in names]).float().cpu().numpy()
         loss_f = float(vec[0])
         if not np.isfinite(loss_f):
             raise FloatingPointError(
