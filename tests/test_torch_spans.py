@@ -86,6 +86,24 @@ def test_nested_spans_time_their_bodies(monkeypatch, outer, inner):
     assert _delta(before) == {"test.outer": 1, "test.inner": 1}
 
 
+@pytest.mark.parametrize("parts", [[0], [7], [3, 4, 5], [1] * 8])
+def test_a_span_timed_in_parts_is_one_call(monkeypatch, parts):
+    """``add`` records one call holding the parts' nanoseconds, beside a
+    span of the same name, and opens no profiler range."""
+    monkeypatch.setattr(torch.profiler, "record_function",
+                        lambda name: pytest.fail(f"a profiler range {name} opened"))
+    before = _snapshot()
+    spans.add("test.parts", sum(parts))
+    assert _delta(before) == {"test.parts": 1}
+    assert _delta(before, "host_ns").get("test.parts", 0) == sum(parts)
+    clock = iter([10, 15])
+    monkeypatch.setattr(spans, "_now", lambda: next(clock))
+    with spans.span("test.parts"):
+        pass
+    assert _delta(before) == {"test.parts": 2}
+    assert _delta(before, "host_ns")["test.parts"] == sum(parts) + 5
+
+
 def test_a_span_that_raises_is_counted_and_unwound():
     before = _snapshot()
     with pytest.raises(KeyError):

@@ -109,6 +109,48 @@ def test_the_stylizer_holds_its_own_weights():
         assert torch.equal(v, want[k]) and v.data_ptr() != params[k].data_ptr(), k
 
 
+@pytest.mark.parametrize("batch,h,w,resident,want", [
+    (1, 512, 512, 396, 1),  # one stream: always one chunk
+    (1, 4096, 4096, 396, 1),
+    (4, 64, 64, 396, 1),  # 16 tiles a stream: the batch is under a wave
+    (8, 512, 512, 132 * 3, 8),  # the served cell on an H100: a stream a chunk
+    (3, 512, 512, 396, None), (8, 256, 256, 396, None), (7, 300, 200, 264, None),
+    (16, 128, 96, 396, None), (5, 17, 33, 1, None),
+], ids=lambda v: str(v))
+def test_chunk_plan_is_whole_contiguous_streams(batch, h, w, resident, want):
+    """The plan is whole streams, in order, covering the batch, each chunk
+    at least a wave of 16 x 16 tiles unless the batch is one chunk, as many
+    chunks as that allows, sizes within one of each other."""
+    plan = stylize.chunk_plan(batch, h, w, resident)
+    assert plan[0][0] == 0 and plan[-1][1] == batch
+    assert all(a[1] == b[0] for a, b in zip(plan, plan[1:]))
+    sizes = [b1 - b0 for b0, b1 in plan]
+    assert min(sizes) >= 1 and max(sizes) - min(sizes) <= 1
+    tiles = -(-h // 16) * -(-w // 16)
+    need = resident
+    if len(plan) > 1:
+        assert min(sizes) * tiles >= need
+    # one more chunk would leave one under the waves
+    assert (batch // (len(plan) + 1)) * tiles < need or batch // (len(plan) + 1) == 0
+    if want is not None:
+        assert len(plan) == want
+
+
+@pytest.mark.parametrize("seed,b0", [(0, 3), (7, 1), (2**31 - 2, 5), (2**32 - 3, 6),
+                                     (2**32 - 1, 1), (123456789, 4)])
+def test_a_chunk_seed_draws_the_batch_masks(seed, b0):
+    """Batch b0 + b under ``seed`` draws the masks of batch b under the
+    chunk's seed word ``seed + b0`` (mod 2^32, as the kernel's uint32 sum
+    wraps), at every step: what a chunk's seed word relies on."""
+    word = (seed + b0) & 0xFFFFFFFF
+    for b in range(3):
+        for step in (0, 1, 23):
+            assert torch.equal(fs.mask_bits(seed, b0 + b, step, 6, 10),
+                               fs.mask_bits(word, b, step, 6, 10)), (b, step)
+            assert torch.equal(fs.update_mask(seed, b0 + b, step, 6, 10, 0.5),
+                               fs.update_mask(word, b, step, 6, 10, 0.5)), (b, step)
+
+
 # ---------------------------------------------------------------- on the card
 
 
@@ -128,14 +170,20 @@ def _pair(cfg, size, device, batch):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("batch", [1, 4])
+@pytest.mark.parametrize("batch,size", [pytest.param(1, 64, id="1"), pytest.param(4, 64, id="4"),
+                                        pytest.param(8, 512, id="8-512")])
 @pytest.mark.parametrize("pad_mode", ["zeros", "circular"])
-def test_graph_frames_are_the_eager_frames_bits(cuda, pad_mode, batch):
+def test_graph_frames_are_the_eager_frames_bits(cuda, pad_mode, batch, size):
+    """Replayed frames give the eager frames' bits over 30 frames (the mask
+    seed crossing 2^31, a reset, damage, a scaled state). At 64^2 a frame
+    is one graph of 24 launches; at 8 x 512^2 the frame is served in
+    chunks, each chunk's upload issued while the chunks before it are
+    queued, and the bits stay the whole batch's."""
     cfg = NCAConfig(c_in=12, fc_dim=96, padding_mode=pad_mode, conditioning="edges")
-    graph, eager = _pair(cfg, 64, cuda, batch)
+    graph, eager = _pair(cfg, size, cuda, batch)
     counts = stylize.GRAPH_CAPTURES, stylize.GRAPH_REPLAYS
     held = []
-    for k, frame in enumerate(_frames(30, batch, 64, seed=batch)):
+    for k, frame in enumerate(_frames(30, batch, size, seed=batch)):
         if k == 10:
             for st in (graph, eager):
                 st.reset()
@@ -147,10 +195,18 @@ def test_graph_frames_are_the_eager_frames_bits(cuda, pad_mode, batch):
             for st in (graph, eager):
                 st.state = st.state * 0.5
         launches, chain = fs.LAUNCHES, fs.KERNEL_LAUNCHES["nca_step_chain"]
+        uploaded, hidden = stylize.UPLOAD_BYTES, stylize.HIDDEN_UPLOAD_BYTES
         rgb = graph.step_frame(frame)
+        assert stylize.UPLOAD_BYTES - uploaded == frame.nbytes
         if k > 0:  # replayed
-            assert fs.LAUNCHES - launches == 24
-            assert fs.KERNEL_LAUNCHES["nca_step_chain"] - chain == 24
+            chunks = graph._graph.chunks
+            assert (len(chunks) == 1) == (size == 64), chunks
+            assert fs.LAUNCHES - launches == 24 * len(chunks)
+            assert fs.KERNEL_LAUNCHES["nca_step_chain"] - chain == 24 * len(chunks)
+            first = chunks[0][1] - chunks[0][0]
+            assert stylize.HIDDEN_UPLOAD_BYTES - hidden == frame.nbytes * (batch - first) // batch
+        else:
+            assert stylize.HIDDEN_UPLOAD_BYTES == hidden
         want = eager.step_frame(frame)
         assert torch.equal(rgb, want), k
         assert torch.equal(graph.state, eager.state), k
@@ -162,6 +218,7 @@ def test_graph_frames_are_the_eager_frames_bits(cuda, pad_mode, batch):
     assert stylize.GRAPH_REPLAYS - counts[1] == 29
     assert graph._graph is not None and eager._graph is None
     assert _index(graph._graph.stream.device) == _index(graph.device)
+    assert all(_index(s.device) == _index(graph.device) for s in graph._graph.side)
 
 
 def _index(device) -> int:
@@ -204,7 +261,7 @@ def test_graph_on_the_last_card_while_the_first_is_current(cuda):
             assert torch.equal(graph.state, eager.state), k
             assert rgb.device == dev and torch.cuda.current_device() == 0
     assert _index(graph._graph.stream.device) == dev.index
-    assert graph._graph.out.device == dev
+    assert all(out.device == dev for out in graph._graph.outs)
 
 
 @pytest.mark.cuda

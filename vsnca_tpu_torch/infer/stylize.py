@@ -12,23 +12,32 @@ path; ``state_nhwc`` gives the JAX stylizer's layout.
 
 Where every step is a launch of the served kernel (``takes_graph``), a
 frame's whole device work (the edge map, the steps and the readout) is
-captured once as a CUDA graph, after one eager frame at the state and frame
+captured once as CUDA graphs, after one eager frame at the state and frame
 shape, and replayed each frame: the same kernels in the same order, so the
-same bits, without the host between them. A stylizer keeps the graph of the
-last shape only. ``FRAMES``, ``GRAPH_CAPTURES`` and ``GRAPH_REPLAYS`` count
-``step_frame`` calls, captures and replays in the process.
+same bits, without the host between them. A batched frame is served as
+chunks of whole streams (``chunk_plan``), a graph each, and each chunk's
+host frame is copied to the card while the chunks before it run there. A
+stylizer keeps the graphs of the last shape only. ``FRAMES``,
+``GRAPH_CAPTURES`` and ``GRAPH_REPLAYS`` count ``step_frame`` calls,
+captures and replays (a frame each) in the process; ``UPLOAD_BYTES`` the
+host frame bytes ``step_frame`` copies to a card, and
+``HIDDEN_UPLOAD_BYTES`` those whose copy was issued while an earlier chunk
+of the same frame was queued on the card.
 
 Spans (``utils.spans``): ``stylize.frame`` is a whole ``step_frame``;
-inside it ``stylize.upload`` the frame to the device, ``stylize.replay``
-the seed fill and the replay, ``stylize.clone`` the copies of the state and
-RGB a replay returns, ``stylize.eager`` an eager frame and
-``stylize.capture`` a graph's capture. Nothing in ``_frame`` is a span: a
-capture records device work only, and host code is not replayed.
+inside it ``stylize.upload`` the frame to the device (one call a frame, its
+chunks' copies summed), ``stylize.replay`` a chunk's seed fill and replay,
+``stylize.clone`` the copies of the state and RGB a replay returns,
+``stylize.eager`` an eager frame and ``stylize.capture`` a shape's capture.
+Nothing in ``_frame`` is a span: a capture records device work only, and
+host code is not replayed.
 """
 
 from __future__ import annotations
 
-from typing import Iterator, Optional, Sequence
+import math
+import time
+from typing import Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -42,8 +51,28 @@ from vsnca_tpu_torch.ops.resize import resize_bilinear
 from vsnca_tpu_torch.utils import spans
 
 FRAMES = 0  # step_frame calls
-GRAPH_CAPTURES = 0  # frame graphs captured
-GRAPH_REPLAYS = 0  # frames served by a graph replay
+GRAPH_CAPTURES = 0  # shapes whose frame graphs were captured
+GRAPH_REPLAYS = 0  # frames served by graph replays
+UPLOAD_BYTES = 0  # host frame bytes step_frame copied to a card
+HIDDEN_UPLOAD_BYTES = 0  # of those, copied while an earlier chunk of the frame was queued
+
+SERVED_TILE = 16  # NCA_TILE of csrc/nca_common.cuh: the served kernel's tiles are 16 x 16
+
+
+def chunk_plan(batch: int, h: int, w: int, resident: int) -> Tuple[Tuple[int, int], ...]:
+    """The chunks ``_FrameGraph`` serves a [batch, C, h, w] frame in: runs
+    [b0, b1) of whole streams, contiguous and covering the batch, as many
+    as there can be while each holds at least one full wave of the served
+    kernel's 16 x 16 tiles on its ``resident`` blocks (blocks an SM times
+    SMs), their sizes differing by one at most. One chunk where the batch
+    is one stream or under a wave. More chunks hide more of the upload: at
+    8 x 512^2 on an H100 (132 SMs x 3 blocks, 2.6 waves a stream) a tick
+    took 24.0-25.8 ms as one chunk, 21.9-22.2 as 2, 20.9-21.1 as 4 and
+    20.5-20.6 as 8 (PERF.md §6), so a chunk needs no more than one wave."""
+    tiles = math.ceil(h / SERVED_TILE) * math.ceil(w / SERVED_TILE)
+    per = max(1, math.ceil(resident / tiles))  # streams a chunk needs
+    k = max(1, batch // per)
+    return tuple((i * batch // k, (i + 1) * batch // k) for i in range(k))
 
 
 def takes_graph(device_type: str, compute_dtype: str, route: Optional[str], c: int,
@@ -95,6 +124,7 @@ class VideoStylizer:
         self._frame_idx = 0
         self._kernel = select_rollout_kernel(nca_cfg, *self.size)
         cc = 0 if self._extra_channel or nca_cfg.conditioning is None else nca_cfg.c_cond
+        self._cc = cc  # the conditioning channels the rollout kernel reads
         self._graphed = takes_graph(self.device.type, compute_dtype, self._kernel,
                                     nca_cfg.c_in, cc)
         self._packed = (fs.pack_weights(self.params, nca_cfg.c_in, cc, compute_dtype)
@@ -139,6 +169,7 @@ class VideoStylizer:
             # eagerly, which warms the launcher for the capture
             self._shape, self._graph = shape, None
         with spans.span("stylize.upload"):
+            _count_upload(f, self.device)
             f = f.to(self.device)
         with spans.span("stylize.eager"):
             self.state, rgb = self._frame(f, self.state, self._rollout)
@@ -174,46 +205,77 @@ class VideoStylizer:
         return out, (rgb.clamp(-1.0, 1.0) + 1.0) / 2.0
 
 
+def _count_upload(f: torch.Tensor, device: torch.device, hidden: bool = False) -> None:
+    """Counts a copy of ``f`` to ``device`` in ``UPLOAD_BYTES`` where it is a
+    host frame going to a card, and in ``HIDDEN_UPLOAD_BYTES`` too with
+    ``hidden``."""
+    global UPLOAD_BYTES, HIDDEN_UPLOAD_BYTES
+    if f.device.type == "cpu" and device.type != "cpu":
+        UPLOAD_BYTES += f.numel() * f.element_size()
+        HIDDEN_UPLOAD_BYTES += hidden * f.numel() * f.element_size()
+
+
 class _FrameGraph:
     """A stylizer's ``_frame`` for one (state shape, frame shape), captured
-    as a CUDA graph on a stream of the stylizer's device: it reads
-    ``frame``, ``state`` and ``seed`` (the mask seed, a word the served
-    kernel reads) and writes ``out`` and ``rgb``. The steps are
+    as CUDA graphs on a stream of the stylizer's device, one for each chunk
+    of ``chunk_plan``: chunk [b0, b1) reads ``frame[b0:b1]``,
+    ``state[b0:b1]`` and ``seeds[k]`` (its mask seed, a word the served
+    kernel reads: the frame's seed plus b0, so its masks are the whole
+    batch's) and writes ``outs[k]`` and ``rgbs[k]``. The steps are
     ``launch_step``'s served launches, ping-ponging between two buffers of
-    the graph's own pool, with the weights the stylizer packed."""
+    the chunk graph's own pool, with the weights the stylizer packed. The
+    first chunk replays on the caller's stream, each other on a stream of
+    its own (``side``), so a chunk's upload runs under the earlier chunks'
+    rollouts and its rollout can fill their last wave of tiles."""
 
     def __init__(self, styl: VideoStylizer, state_shape: tuple, frame_shape: tuple):
         global GRAPH_CAPTURES
         dev = styl.device
-        thr = fs.uniform_threshold(styl.cfg.update_rate)
+        cfg = styl.cfg
+        thr = fs.uniform_threshold(cfg.update_rate)
+        # the served kernel's resident blocks: blocks an SM at the rollout's
+        # widths (the state and, for extra_channels, the gray) times SMs
+        blocks, _ = fs.step_occupancy(cfg.c_in, styl._cc, cfg.fc_dim, styl.compute_dtype,
+                                      False, "chain")
+        sms = torch.cuda.get_device_properties(dev).multi_processor_count
+        self.chunks = chunk_plan(state_shape[0], *state_shape[2:], blocks * sms)
         recorded = 0
 
-        def rollout(h, cond):
-            nonlocal recorded
-            bufs = [torch.empty_like(h) for _ in range(min(styl.step_n, 2))]
-            src = h
-            for i in range(styl.step_n):
-                # launch_step launches on the device's current stream
-                recorded += (torch.cuda.current_stream(h.device) == self.stream
-                             and torch.cuda.is_current_stream_capturing())
-                fs.launch_step(src, bufs[i % 2], cond, styl._packed, styl.cfg.padding_mode,
-                               styl.compute_dtype, 0, i, thr, chain=True, seed_ptr=self.seed)
-                src = bufs[i % 2]
-            return src
+        def rollout(seed):
+            def run(x, cond):
+                nonlocal recorded
+                bufs = [torch.empty_like(x) for _ in range(min(styl.step_n, 2))]
+                src = x
+                for i in range(styl.step_n):
+                    # launch_step launches on the device's current stream
+                    recorded += (torch.cuda.current_stream(x.device) == self.stream
+                                 and torch.cuda.is_current_stream_capturing())
+                    fs.launch_step(src, bufs[i % 2], cond, styl._packed, cfg.padding_mode,
+                                   styl.compute_dtype, 0, i, thr, chain=True, seed_ptr=seed)
+                    src = bufs[i % 2]
+                return src
+            return run
 
         counted = dict(fs.KERNEL_LAUNCHES), fs.LAUNCHES, fs.LAUNCH_HOST_NS
         with torch.cuda.device(dev):
             self.frame = torch.empty(frame_shape, device=dev)
             self.state = torch.empty(state_shape, device=dev)
-            self.seed = torch.zeros(1, dtype=torch.int32, device=dev)
+            self.seeds = torch.zeros(len(self.chunks), dtype=torch.int32, device=dev)
             self.stream = torch.cuda.Stream(dev)
-            self.graph = torch.cuda.CUDAGraph()
-            with torch.cuda.stream(self.stream):
-                self.graph.capture_begin(capture_error_mode="thread_local")
-                try:
-                    self.out, self.rgb = styl._frame(self.frame, self.state, rollout)
-                finally:
-                    self.graph.capture_end()
+            self.side = [torch.cuda.Stream(dev) for _ in self.chunks[1:]]
+            self.graphs, self.outs, self.rgbs = [], [], []
+            for k, (b0, b1) in enumerate(self.chunks):
+                graph = torch.cuda.CUDAGraph()
+                with torch.cuda.stream(self.stream):
+                    graph.capture_begin(capture_error_mode="thread_local")
+                    try:
+                        out, rgb = styl._frame(self.frame[b0:b1], self.state[b0:b1],
+                                               rollout(self.seeds[k:k + 1]))
+                    finally:
+                        graph.capture_end()
+                self.graphs.append(graph)
+                self.outs.append(out)
+                self.rgbs.append(rgb)
         # the capture ran nothing: its launches are counted at each replay,
         # which makes no launch call on the host
         self.kernel_launches = {k: n - counted[0][k] for k, n in fs.KERNEL_LAUNCHES.items()}
@@ -221,26 +283,40 @@ class _FrameGraph:
         fs.KERNEL_LAUNCHES.update(counted[0])
         fs.LAUNCHES, fs.LAUNCH_HOST_NS = counted[1:]
         if recorded != self.launches:
-            raise RuntimeError(f"the frame graph recorded {recorded} of its "
+            raise RuntimeError(f"the frame graphs recorded {recorded} of their "
                                f"{self.launches} launches")
         GRAPH_CAPTURES += 1
 
     def serve(self, styl: VideoStylizer, f: torch.Tensor) -> torch.Tensor:
         """Replay for the host or device frame ``f`` from ``styl.state`` with
         the mask seed of ``styl``'s frame counter; sets ``styl.state`` and
-        returns the RGB, both copies."""
+        returns the RGB, both new tensors. Chunk k copies its part of ``f``
+        once chunks 0..k-1 are queued, so its host copy runs while they
+        compute; the caller's stream waits for every chunk before the
+        outputs are gathered."""
         global GRAPH_REPLAYS
         with torch.cuda.device(styl.device):
-            with spans.span("stylize.upload"):
-                self.frame.copy_(f)
-            self.state.copy_(styl.state)
-            with spans.span("stylize.replay"):
-                seed = styl._frame_idx & 0xFFFFFFFF  # the uint32 the kernel reads, as an int32
-                self.seed.fill_(seed - (1 << 32) if seed >= 1 << 31 else seed)
-                self.graph.replay()
+            main = torch.cuda.current_stream()
+            for s in self.side:
+                s.wait_stream(main)
+            upload_ns = 0
+            for k, (b0, b1) in enumerate(self.chunks):
+                with torch.cuda.stream(self.side[k - 1] if k else main):
+                    t0 = time.perf_counter_ns()
+                    self.frame[b0:b1].copy_(f[b0:b1])
+                    upload_ns += time.perf_counter_ns() - t0
+                    _count_upload(f[b0:b1], styl.device, hidden=k > 0)
+                    self.state[b0:b1].copy_(styl.state[b0:b1])
+                    with spans.span("stylize.replay"):
+                        seed = (styl._frame_idx + b0) & 0xFFFFFFFF  # the uint32 the kernel reads
+                        self.seeds[k].fill_(seed - (1 << 32) if seed >= 1 << 31 else seed)
+                        self.graphs[k].replay()
+            spans.add("stylize.upload", upload_ns)
+            for s in self.side:
+                main.wait_stream(s)
             with spans.span("stylize.clone"):
-                styl.state = self.out.clone()
-                rgb = self.rgb.clone()
+                styl.state = torch.cat(self.outs)
+                rgb = torch.cat(self.rgbs)
         fs.LAUNCHES += self.launches
         for k, n in self.kernel_launches.items():
             fs.KERNEL_LAUNCHES[k] += n

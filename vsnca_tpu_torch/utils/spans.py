@@ -8,7 +8,8 @@ profiler range ``"vsnca." + name``, which the trace carries as a
 ``user_annotation``; with no profiler recording it opens none (a range
 costs ~13 µs on the host, a span without one under 1 µs). A span adds no
 device work and no synchronisation: it times the host's enqueue, not the
-device. The totals cover the whole process, updated under one lock (the
+device. ``add(name, ns)`` records one call whose time the caller took in
+parts. The totals cover the whole process, updated under one lock (the
 server steps frames from its request threads).
 
 Span names by layer: the stylizer's ``stylize.*``, the trainers'
@@ -36,6 +37,15 @@ _now = time.perf_counter_ns
 _profiling = torch.autograd._profiler_enabled
 
 
+def add(name: str, ns: int) -> None:
+    """One call of span ``name`` that took ``ns`` host nanoseconds, timed by
+    the caller: a span whose time is spent in parts between other work (the
+    stylizer's chunked upload). It opens no profiler range."""
+    with _lock:
+        HOST_NS[name] += ns
+        CALLS[name] += 1
+
+
 class span:
     """Span ``name`` (module docstring) around a ``with`` body, or around
     every call of a function it decorates."""
@@ -57,9 +67,7 @@ class span:
         ns = _now() - self._t0
         if self._range is not None:
             self._range.__exit__(*exc)
-        with _lock:
-            HOST_NS[self.name] += ns
-            CALLS[self.name] += 1
+        add(self.name, ns)
         return False
 
     def __call__(self, fn):
